@@ -1,0 +1,16 @@
+"""Dynamic graph algorithms on the port's core: BFS, SSSP and PageRank.
+Each ``stream_property`` hook (re-exported as ``<algo>_stream_property``)
+packages an incremental maintainer for the stream registry."""
+from .bfs import bfs_decremental, bfs_incremental, bfs_tree_static
+from .bfs import stream_property as bfs_stream_property
+from .pagerank import pagerank, pagerank_dynamic
+from .pagerank import stream_property as pagerank_stream_property
+from .sssp import (INF, NO_PARENT, TreeState, init_state, relax_edges,
+                   relax_sweep, run_to_convergence, sssp_decremental,
+                   sssp_incremental, sssp_static)
+
+__all__ = ["bfs_decremental", "bfs_incremental", "bfs_tree_static",
+           "bfs_stream_property", "pagerank", "pagerank_dynamic",
+           "pagerank_stream_property", "INF", "NO_PARENT", "TreeState",
+           "init_state", "relax_edges", "relax_sweep", "run_to_convergence",
+           "sssp_decremental", "sssp_incremental", "sssp_static"]

@@ -1,0 +1,74 @@
+"""Dynamic BFS: the ⟨distance, parent⟩ tree of the SSSP engine with unit
+weights, which supports incremental and decremental updates (paper: "the
+incremental/decremental BFS algorithm uses the same kernels as that of
+incremental/decremental SSSP")."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..core.slab_graph import SlabGraph
+from .sssp import (TreeState, init_state, run_to_convergence,
+                   sssp_decremental, sssp_incremental)
+
+
+def bfs_tree_static(g: SlabGraph, src: int, *, edge_capacity: int,
+                    max_bpv: int = 1, g_in: Optional[SlabGraph] = None
+                    ) -> Tuple[TreeState, int]:
+    """Static tree BFS from ``src``: (state, iterations)."""
+    state = init_state(g.n_vertices, src, g.device)
+    improved = torch.zeros(g.n_vertices, dtype=torch.bool, device=g.device)
+    improved[src] = True
+    return run_to_convergence(g, state, improved,
+                              edge_capacity=edge_capacity, max_bpv=max_bpv,
+                              g_in=g_in)
+
+
+def bfs_incremental(g: SlabGraph, state: TreeState, bsrc, bdst, bmask, *,
+                    edge_capacity: int, max_bpv: int = 1, g_in=None):
+    """Unit-weight incremental update through the SSSP engine."""
+    bw = torch.ones(bsrc.shape[0], dtype=torch.float32, device=bsrc.device)
+    return sssp_incremental(g, state, bsrc, bdst, bw, bmask,
+                            edge_capacity=edge_capacity, max_bpv=max_bpv,
+                            g_in=g_in)
+
+
+def bfs_decremental(g: SlabGraph, state: TreeState, bsrc, bdst, bmask, *,
+                    src: int, edge_capacity: int, max_bpv: int = 1,
+                    g_in=None):
+    return sssp_decremental(g, state, bsrc, bdst, bmask, src=src,
+                            edge_capacity=edge_capacity, max_bpv=max_bpv,
+                            g_in=g_in)
+
+
+def stream_property(src: int, *, edge_capacity: int, max_bpv: int = 1):
+    """PropertySpec: the BFS tree from ``src``, maintained with the
+    decremental then incremental SSSP engine on an unweighted store; the
+    convergence loop sweeps the store's transpose view."""
+    from ..stream.properties import PropertySpec
+
+    def _init(store):
+        if store.weighted:
+            raise ValueError("the bfs stream property needs an unweighted "
+                             "GraphStore")
+        state, _ = bfs_tree_static(store.forward, src,
+                                   edge_capacity=edge_capacity,
+                                   max_bpv=max_bpv, g_in=store.transpose)
+        return state
+
+    def _on_batch(store, state, batch):
+        if batch.del_src is not None:
+            state, _ = bfs_decremental(store.forward, state, batch.del_src,
+                                       batch.del_dst, batch.del_mask,
+                                       src=src, edge_capacity=edge_capacity,
+                                       max_bpv=max_bpv, g_in=store.transpose)
+        if batch.ins_src is not None:
+            state, _ = bfs_incremental(store.forward, state, batch.ins_src,
+                                       batch.ins_dst, batch.ins_mask,
+                                       edge_capacity=edge_capacity,
+                                       max_bpv=max_bpv, g_in=store.transpose)
+        return state
+
+    return PropertySpec(name=f"bfs_{src}", init=_init, on_batch=_on_batch,
+                        refresh=_init)

@@ -1,0 +1,20 @@
+"""Pooled slab-hash dynamic graph and its iteration primitives, as torch
+tensors (uint32 keys kept as int32 bit patterns; see ``hashing``).  The
+batched update entry points are in ``core.batch``."""
+from .bridge import slab_graph_from_numpy, slab_graph_to_numpy
+from .device import resolve_device, resolve_impl
+from .hashing import (EMPTY_KEY, INVALID_SLAB, INVALID_VERTEX, SLAB_WIDTH,
+                      TOMBSTONE_KEY, bucket_hash, is_valid_vertex)
+from .slab_graph import (SlabGraph, empty, ensure_capacity, from_edges_host,
+                         next_pow2, plan_buckets, pool_stats,
+                         update_slab_pointers)
+from .worklist import EdgeFrontier, PoolView, expand_vertices, pool_edges
+
+__all__ = [
+    "slab_graph_from_numpy", "slab_graph_to_numpy",
+    "resolve_device", "resolve_impl", "EMPTY_KEY", "INVALID_SLAB", "INVALID_VERTEX", "SLAB_WIDTH", "TOMBSTONE_KEY",
+    "bucket_hash", "is_valid_vertex", "SlabGraph", "empty",
+    "ensure_capacity", "from_edges_host", "next_pow2", "plan_buckets",
+    "pool_stats", "update_slab_pointers", "EdgeFrontier", "PoolView",
+    "expand_vertices", "pool_edges",
+]

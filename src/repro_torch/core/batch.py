@@ -1,0 +1,17 @@
+"""Batched edge insert, delete and query on the SlabGraph.
+
+The entry points of the slab-update engine (``kernels/slab_update``): a
+deterministic sort and prefix-scan placement whose pools are bit-identical
+to the reference's, with the chain-walk probe and the commit as CUDA
+kernels on the card.  Batches are int32 key bit patterns padded with
+INVALID_VERTEX (-1); invalid lanes are rejected before they probe.
+"""
+from __future__ import annotations
+
+from ..kernels.slab_update.ops import (apply_update, delete_edges,
+                                       insert_edges, query_edges,
+                                       update_views)
+from ..kernels.slab_update.ref import batch_valid, edge_buckets, probe
+
+__all__ = ["apply_update", "delete_edges", "insert_edges", "query_edges",
+           "update_views", "batch_valid", "edge_buckets", "probe"]

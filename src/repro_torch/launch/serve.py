@@ -1,0 +1,211 @@
+"""Serving launcher: a streaming dynamic-graph analytics service.
+
+The request stream cycles ``update, read:pagerank, read:bfs_0, member``:
+batched edge updates (inserts and deletes), PageRank and BFS-tree reads and
+membership queries, served by a ``GraphStore`` (forward and transpose
+views, no symmetric one), a ``PropertyRegistry`` and a ``RequestPipeline``
+on one device.  The store runs without a maintenance policy.
+
+    python -m repro_torch.launch.serve --device cuda --vertices 1048576 \\
+        --initial-edges 16777216 --batch 65536 --requests 12
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+
+_MASK32 = np.uint64(0xFFFFFFFF)
+
+
+def pair_keys(src, dst) -> np.ndarray:
+    """(src, dst) pairs as uint64 keys ``src << 32 | dst``."""
+    return (np.asarray(src).astype(np.uint64) << np.uint64(32)) | \
+        np.asarray(dst).astype(np.uint64)
+
+
+class EdgeLedger:
+    """The edges present, as a sorted array of ``pair_keys``: the request
+    generator's bookkeeping (the store owns the graph)."""
+
+    def __init__(self, src, dst):
+        self.keys = np.unique(pair_keys(src, dst))
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    @staticmethod
+    def pairs(keys: np.ndarray) -> np.ndarray:
+        """(n, 2) uint32 (src, dst) of ``keys``."""
+        return np.stack([keys >> np.uint64(32), keys & _MASK32],
+                        axis=1).astype(np.uint32)
+
+    def update(self, deleted: np.ndarray, inserted: np.ndarray) -> None:
+        """Remove the ``deleted`` keys (present, distinct), then add the
+        ``inserted`` ones not yet present; binary searches on the sorted
+        ledger, no re-sort of it."""
+        keep = np.ones(len(self.keys), bool)
+        keep[np.searchsorted(self.keys, deleted)] = False
+        keys = self.keys[keep]
+        new = np.unique(inserted)
+        at = np.searchsorted(keys, new)
+        present = keys[np.minimum(at, len(keys) - 1)] == new if len(keys) \
+            else np.zeros(len(new), bool)
+        self.keys = np.insert(keys, at[~present], new[~present])
+
+
+def build_requests(n_vertices, initial_edges, rng, *, n_requests: int,
+                   batch: int, delete_frac: float, prop_names,
+                   ledger: Optional[EdgeLedger] = None):
+    """Yield ``(kind, request)`` pairs, one generator step per request.
+
+    Deletes are sampled from the ledger of present edges, sorted by
+    (src, dst), so the draws are the reference generator's for the same
+    ``rng``.  Pass ``ledger`` to read the edge set after the last update.
+    """
+    from ..stream import MembershipQuery, PropertyRead, UpdateBatch
+
+    if ledger is None:
+        ledger = EdgeLedger(*initial_edges)
+    kinds = ["update"] + [f"read:{p}" for p in prop_names] + ["member"]
+    V = n_vertices
+    for i in range(n_requests):
+        kind = kinds[i % len(kinds)]
+        if kind == "update":
+            n_del = int(batch * delete_frac)
+            ins = rng.integers(0, V, (batch - n_del, 2)).astype(np.uint32)
+            ins = ins[ins[:, 0] != ins[:, 1]]
+            del_keys = ledger.keys[:0]
+            if len(ledger):
+                del_keys = ledger.keys[rng.choice(
+                    len(ledger), min(n_del, len(ledger)), replace=False)]
+            dels = EdgeLedger.pairs(del_keys)
+            ledger.update(del_keys, pair_keys(ins[:, 0], ins[:, 1]))
+            yield kind, UpdateBatch(ins_src=ins[:, 0], ins_dst=ins[:, 1],
+                                    del_src=dels[:, 0] if len(dels) else (),
+                                    del_dst=dels[:, 1] if len(dels) else ())
+        elif kind.startswith("read:"):
+            yield kind, PropertyRead(kind.split(":", 1)[1])
+        else:
+            q = rng.integers(0, V, (1024, 2)).astype(np.uint32)
+            yield kind, MembershipQuery(src=q[:, 0], dst=q[:, 1])
+
+
+def describe(resp) -> str:
+    """One-line detail per response kind for the serve log."""
+    p = resp.payload
+    if resp.kind == "update":
+        return f"inserted={p['inserted']} deleted={p['deleted']}"
+    if resp.kind == "member":
+        return f"hits={p['hits']}/{len(p['found'])}"
+    if resp.kind == "property":
+        v = p["value"]
+        # a TreeState (dist, parent) or a vector
+        v = (v[0] if isinstance(v, tuple) else v).cpu().numpy()
+        if p["name"].startswith("bfs"):
+            return f"reachable={int((v < 2 ** 30).sum())}"
+        return f"top={float(v.max()):.5f}"
+    return ""
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--vertices", type=int, default=20000)
+    ap.add_argument("--initial-edges", type=int, default=100000)
+    ap.add_argument("--requests", type=int, default=30)
+    ap.add_argument("--batch", type=int, default=2048)
+    ap.add_argument("--delete-frac", type=float, default=0.25,
+                    help="fraction of each update batch that deletes")
+    ap.add_argument("--policy", choices=["lazy", "eager"], default="lazy")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def serve(args: argparse.Namespace, *, log=print) -> dict:
+    """Boot the store and registry, serve the request stream; returns the
+    store, registry, ledger, per-class latencies and the responses as
+    ``(kind, request, response, kernel launches)``."""
+    from ..algorithms import bfs_stream_property, pagerank_stream_property
+    from ..core.device import resolve_device
+    from ..data.synth import rmat_edges
+    from ..kernels.runtime import LAUNCHES
+    from ..stream import (GraphStore, PropertyRegistry, RequestPipeline,
+                          dedup_pairs)
+
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(args.seed)
+    V = args.vertices
+    t_boot = time.perf_counter()
+    src, dst = rmat_edges(V, args.initial_edges, seed=args.seed)
+    src, dst, _ = dedup_pairs(src, dst)
+    # pagerank and bfs read only the forward and transpose views
+    store = GraphStore.from_edges(
+        V, src, dst, hashing=False, with_symmetric=False,
+        slack_slabs=args.requests * args.batch // 64 + 512, device=dev)
+    registry = PropertyRegistry(store)
+    cap = len(src) + args.requests * args.batch + 4096
+    registry.register(pagerank_stream_property(), policy=args.policy)
+    registry.register(bfs_stream_property(0, edge_capacity=cap),
+                      policy=args.policy)
+    boot_s = time.perf_counter() - t_boot
+    log(f"[serve] boot: V={V} E={store.n_edges} device={dev} "
+        f"({boot_s:.1f}s)")
+    pipeline = RequestPipeline(store, registry)
+
+    ledger = EdgeLedger(src, dst)
+    lat = {}
+    responses = []
+    t0 = time.perf_counter()
+    stream = build_requests(V, (src, dst), rng, n_requests=args.requests,
+                            batch=args.batch, delete_frac=args.delete_frac,
+                            prop_names=["pagerank", "bfs_0"], ledger=ledger)
+    gen_s = 0.0                     # host time drawing the requests
+    t_gen = time.perf_counter()
+    for i, (kind, req) in enumerate(stream):
+        gen_s += time.perf_counter() - t_gen
+        before = dict(LAUNCHES)
+        resp = pipeline.run([req])[0]
+        launched = {k: n - before[k] for k, n in LAUNCHES.items()
+                    if n > before[k]}
+        responses.append((kind, req, resp, launched))
+        lat.setdefault(resp.kind, []).append(resp.latency_s)
+        log(f"[serve] req {i:03d} {kind:13s} {1e3 * resp.latency_s:8.1f}"
+            f" ms  v{resp.version:<4d} {describe(resp)}"
+            + "".join(f" {k}={n}" for k, n in launched.items()))
+        t_gen = time.perf_counter()
+    elapsed = time.perf_counter() - t0
+    log(f"[serve] {args.requests} requests in {elapsed:.1f}s "
+        f"({gen_s:.1f}s drawing them), store v{store.version}, "
+        f"E={store.n_edges}")
+    latency = {}
+    for cls, xs in lat.items():
+        a = np.asarray(xs)
+        latency[cls] = {"n": len(a), "mean_ms": 1e3 * a.mean(),
+                        "p50_ms": 1e3 * np.percentile(a, 50),
+                        "p95_ms": 1e3 * np.percentile(a, 95),
+                        "max_ms": 1e3 * a.max()}
+        s = latency[cls]
+        log(f"[serve] latency {cls:9s}: n={s['n']:<4d} "
+            f"mean={s['mean_ms']:8.1f} p50={s['p50_ms']:8.1f} "
+            f"p95={s['p95_ms']:8.1f} max={s['max_ms']:8.1f} ms")
+    st = store.pool_stats()
+    log(f"[serve] pool: capacity={st['capacity_slabs']} slabs "
+        f"(next_free={st['next_free']}) live={st['live_lanes']} "
+        f"tombstones={st['tombstone_lanes']} "
+        f"occupancy={st['occupancy']:.3f} "
+        f"chains mean={st['mean_chain']:.2f} max={st['max_chain']}")
+    return {"store": store, "registry": registry, "ledger": ledger,
+            "responses": responses, "latency": latency, "boot_s": boot_s,
+            "serve_s": elapsed, "generate_s": gen_s, "pool": st}
+
+
+def main(argv=None) -> dict:
+    return serve(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

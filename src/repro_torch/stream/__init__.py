@@ -1,0 +1,16 @@
+"""The serving loop: a versioned multi-view GraphStore, an incremental
+property registry over it and a batched request pipeline."""
+from .properties import EAGER, LAZY, PropertyRegistry, PropertySpec
+from .requests import (MembershipQuery, NeighborsQuery, PropertyRead, Request,
+                       RequestPipeline, Response, UpdateBatch,
+                       coalesce_updates)
+from .store import (ALL_VIEWS, FORWARD, SYMMETRIC, TRANSPOSE, AppliedBatch,
+                    GraphStore, canonical_batch, dedup_pairs)
+
+__all__ = [
+    "ALL_VIEWS", "FORWARD", "SYMMETRIC", "TRANSPOSE", "AppliedBatch",
+    "GraphStore", "canonical_batch", "dedup_pairs", "EAGER", "LAZY",
+    "PropertyRegistry", "PropertySpec", "MembershipQuery", "NeighborsQuery",
+    "PropertyRead", "Request", "RequestPipeline", "Response", "UpdateBatch",
+    "coalesce_updates",
+]

@@ -1,0 +1,209 @@
+"""Typed requests and the batched pipeline that serves them.
+
+* consecutive ``UpdateBatch`` requests coalesce (per edge the last
+  operation wins, as sequential application would have it) into one
+  ``GraphStore.apply``,
+* consecutive ``MembershipQuery`` requests merge into one query and split
+  back per request,
+* ``PropertyRead`` reads the registry (lazy properties catch up here).
+
+Every request gets a ``Response`` with the store version it observed and
+its latency; a malformed update batch comes back as a ``kind="error"``
+response and the pipeline serves the rest of the sequence.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..resilience.guard import QuarantinedBatch
+from .properties import PropertyRegistry
+from .store import GraphStore
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateBatch:
+    """Mixed edge update: deletes apply before inserts."""
+    ins_src: Any = ()
+    ins_dst: Any = ()
+    ins_w: Any = None
+    del_src: Any = ()
+    del_dst: Any = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class MembershipQuery:
+    src: Any
+    dst: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborsQuery:
+    vertices: Any
+    out_capacity: int = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class PropertyRead:
+    name: str
+
+
+Request = Union[UpdateBatch, MembershipQuery, NeighborsQuery, PropertyRead]
+
+
+@dataclasses.dataclass
+class Response:
+    kind: str
+    version: int
+    payload: Dict[str, Any]
+    latency_s: float
+
+
+def coalesce_updates(batches: Sequence[UpdateBatch]) -> UpdateBatch:
+    """Net a run of update batches into one equivalent batch.
+
+    Within a batch deletes precede inserts and batches apply in order, so
+    per edge the last operation decides.  An edge deleted and re-inserted
+    stays in the delete list too, so the re-insert lands its new weight.
+    """
+    srcs, dsts, ws, ops = [], [], [], []
+    for b in batches:
+        d_s = np.asarray(b.del_src, np.uint32)
+        if len(d_s):
+            srcs.append(d_s)
+            dsts.append(np.asarray(b.del_dst, np.uint32))
+            ws.append(np.zeros(len(d_s), np.float32))
+            ops.append(np.zeros(len(d_s), np.int8))
+        i_s = np.asarray(b.ins_src, np.uint32)
+        if len(i_s):
+            srcs.append(i_s)
+            dsts.append(np.asarray(b.ins_dst, np.uint32))
+            ws.append(np.ones(len(i_s), np.float32) if b.ins_w is None
+                      else np.asarray(b.ins_w, np.float32))
+            ops.append(np.ones(len(i_s), np.int8))
+    if not srcs:
+        return UpdateBatch()
+    src = np.concatenate(srcs)
+    dst = np.concatenate(dsts)
+    w = np.concatenate(ws)
+    op = np.concatenate(ops)
+    key = (src.astype(np.uint64) << np.uint64(32)) | dst.astype(np.uint64)
+    order = np.argsort(key, kind="stable")
+    k_s = key[order]
+    start = np.ones(len(k_s), bool)
+    start[1:] = k_s[1:] != k_s[:-1]
+    last = np.ones(len(k_s), bool)
+    last[:-1] = start[1:]
+    take = order[last]
+    ins = op[take] == 1
+    had_del = np.minimum.reduceat(op[order], np.nonzero(start)[0]) == 0
+    has_w = any(b.ins_w is not None for b in batches)
+    deleted = ~ins | (ins & had_del)
+    return UpdateBatch(
+        ins_src=src[take][ins], ins_dst=dst[take][ins],
+        ins_w=w[take][ins] if has_w else None,
+        del_src=src[take][deleted], del_dst=dst[take][deleted])
+
+
+class RequestPipeline:
+    """Serves a request sequence against (store, registry) with coalescing
+    and query batching; responses align one to one with the requests.
+    Latencies are taken after the device has finished the request's work."""
+
+    def __init__(self, store: GraphStore,
+                 registry: Optional[PropertyRegistry] = None):
+        self.store = store
+        self.registry = registry
+
+    def _sync(self) -> None:
+        if self.store.device.type == "cuda":
+            torch.cuda.synchronize(self.store.device)
+
+    def _apply_updates(self, group: List[UpdateBatch]) -> Dict[str, Any]:
+        net = group[0] if len(group) == 1 else coalesce_updates(group)
+        applied = self.store.apply(net.ins_src, net.ins_dst, net.ins_w,
+                                   net.del_src, net.del_dst)
+        return {"inserted": applied.n_inserted, "deleted": applied.n_deleted,
+                "coalesced": len(group)}
+
+    def _run_membership(self, group: List[MembershipQuery]) -> List[dict]:
+        src = np.concatenate([np.asarray(q.src, np.uint32) for q in group])
+        dst = np.concatenate([np.asarray(q.dst, np.uint32) for q in group])
+        found = self.store.query(src, dst)
+        out, at = [], 0
+        for q in group:
+            n = len(np.asarray(q.src))
+            out.append({"found": found[at:at + n],
+                        "hits": int(found[at:at + n].sum()),
+                        "merged": len(group)})
+            at += n
+        return out
+
+    def run(self, requests: Sequence[Request]) -> List[Response]:
+        responses: List[Optional[Response]] = [None] * len(requests)
+        i = 0
+        while i < len(requests):
+            r = requests[i]
+            j = i + 1
+            t0 = time.perf_counter()
+            if isinstance(r, UpdateBatch):
+                while (j < len(requests)
+                       and isinstance(requests[j], UpdateBatch)):
+                    j += 1
+                try:
+                    payload = self._apply_updates(list(requests[i:j]))
+                    kind = "update"
+                except QuarantinedBatch as e:
+                    payload = {"error": type(e).__name__, "detail": str(e),
+                               "reasons": e.reasons}
+                    kind = "error"
+                self._sync()
+                dt = time.perf_counter() - t0
+                for k in range(i, j):
+                    responses[k] = Response(kind, self.store.version,
+                                            payload, dt)
+            elif isinstance(r, MembershipQuery):
+                while (j < len(requests)
+                       and isinstance(requests[j], MembershipQuery)):
+                    j += 1
+                payloads = self._run_membership(list(requests[i:j]))
+                dt = time.perf_counter() - t0
+                for k, p in zip(range(i, j), payloads):
+                    responses[k] = Response("member", self.store.version,
+                                            p, dt)
+            elif isinstance(r, NeighborsQuery):
+                ef = self.store.neighbors(r.vertices,
+                                          out_capacity=r.out_capacity)
+                n = int(ef.size)
+                payload = {"src": ef.src[:n].cpu().numpy(),
+                           "dst": ef.dst[:n].cpu().numpy(),
+                           "count": n, "overflow": bool(ef.overflow)}
+                responses[i] = Response("neighbors", self.store.version,
+                                        payload, time.perf_counter() - t0)
+            elif isinstance(r, PropertyRead):
+                if self.registry is None:
+                    responses[i] = Response(
+                        "error", self.store.version,
+                        {"error": "no_registry",
+                         "detail": "PropertyRead requires a "
+                                   "PropertyRegistry"},
+                        time.perf_counter() - t0)
+                else:
+                    value = self.registry.read(r.name)
+                    self._sync()
+                    responses[i] = Response(
+                        "property", self.store.version,
+                        {"name": r.name, "value": value},
+                        time.perf_counter() - t0)
+            else:
+                responses[i] = Response(
+                    "error", self.store.version,
+                    {"error": "unknown_request",
+                     "detail": f"unsupported request type "
+                               f"{type(r).__name__}"}, 0.0)
+            i = j
+        return responses

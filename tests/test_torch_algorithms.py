@@ -1,0 +1,128 @@
+"""Port parity: SSSP/BFS trees, PageRank and the frontier expansion against
+the JAX reference on the CPU.  Trees must be bit-identical (min family and
+the same float32 adds); PageRank is held to ``PR_ATOL`` (sum order, see
+tests/test_torch_serve_slice.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import ids, jids, np_of, to_port
+
+from repro import algorithms as ja
+from repro.core import batch as jbatch
+from repro.core import slab_graph as jsg
+from repro.core import worklist as jwl
+from repro_torch import algorithms as ta
+from repro_torch.core import worklist as twl
+from repro_torch.core.batch import delete_edges, insert_edges
+
+PR_ATOL = 2e-5
+CAP = 4096
+
+
+def _graphs(seed, weighted):
+    rng = np.random.default_rng(seed)
+    V = 120
+    src, dst = rng.integers(0, V, 500), rng.integers(0, V, 500)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    w = rng.integers(1, 4, len(src)).astype(np.float32) if weighted \
+        else None
+    kw = dict(hashing=False, slack_slabs=64)
+    fwd = jsg.from_edges_host(V, src, dst, w, **kw)
+    tr = jsg.from_edges_host(V, dst, src, w, **kw)
+    return rng, src, dst, fwd, tr
+
+
+def _same_tree(a, b):
+    assert np.array_equal(np_of(a.dist), np_of(b.dist))
+    assert np.array_equal(np_of(a.parent), np_of(b.parent))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("sweep", [True, False])
+def test_tree_static_incremental_decremental(weighted, sweep):
+    rng, src, dst, fwd, tr = _graphs(1 + weighted, weighted)
+    tf, tt = to_port(fwd), to_port(tr)
+    jin, tin = (tr, tt) if sweep else (None, None)
+    js, _ = ja.sssp_static(fwd, 0, edge_capacity=CAP, g_in=jin)
+    ts, _ = ta.sssp_static(tf, 0, edge_capacity=CAP, g_in=tin)
+    _same_tree(ts, js)
+
+    # delete a slice of edges (tree edges among them), then re-insert some
+    ds, dd = src[:60], dst[:60]
+    fwd, jm = jbatch.delete_edges(fwd, jids(ds, 64), jids(dd, 64),
+                                  impl="jnp")
+    tr, _ = jbatch.delete_edges(tr, jids(dd, 64), jids(ds, 64), impl="jnp")
+    tf, tm = delete_edges(tf, ids(ds, 64), ids(dd, 64))
+    tt, _ = delete_edges(tt, ids(dd, 64), ids(ds, 64))
+    jin, tin = (tr, tt) if sweep else (None, None)
+    js, _ = ja.sssp_decremental(fwd, js, jids(ds, 64), jids(dd, 64), jm,
+                                src=0, edge_capacity=CAP, g_in=jin)
+    ts, _ = ta.sssp_decremental(tf, ts, ids(ds, 64), ids(dd, 64), tm,
+                                src=0, edge_capacity=CAP, g_in=tin)
+    _same_tree(ts, js)
+
+    s2, d2 = rng.integers(0, 120, 30), rng.integers(0, 120, 30)
+    w2 = np.pad(rng.integers(1, 4, 30), (0, 2)).astype(np.float32) \
+        if weighted else None
+    fwd, jm = jbatch.insert_edges(
+        fwd, jids(s2, 32), jids(d2, 32),
+        None if w2 is None else jnp.asarray(w2), impl="jnp")
+    tr, _ = jbatch.insert_edges(
+        tr, jids(d2, 32), jids(s2, 32),
+        None if w2 is None else jnp.asarray(w2), impl="jnp")
+    tw = None if w2 is None else torch.from_numpy(w2)
+    tf, tm = insert_edges(tf, ids(s2, 32), ids(d2, 32), tw)
+    tt, _ = insert_edges(tt, ids(d2, 32), ids(s2, 32), tw)
+    bw = np.ones(32, np.float32) if w2 is None else w2
+    jin, tin = (tr, tt) if sweep else (None, None)
+    js, _ = ja.sssp_incremental(fwd, js, jids(s2, 32), jids(d2, 32),
+                                jnp.asarray(bw), jm, edge_capacity=CAP,
+                                g_in=jin)
+    ts, _ = ta.sssp_incremental(tf, ts, ids(s2, 32), ids(d2, 32),
+                                torch.from_numpy(bw), tm,
+                                edge_capacity=CAP, g_in=tin)
+    _same_tree(ts, js)
+
+
+def test_bfs_tree_static_matches():
+    _, _, _, fwd, tr = _graphs(4, False)
+    js, ji = ja.bfs_tree_static(fwd, 3, edge_capacity=CAP, g_in=tr)
+    ts, ti = ta.bfs_tree_static(to_port(fwd), 3, edge_capacity=CAP,
+                                g_in=to_port(tr))
+    _same_tree(ts, js)
+    assert ti == int(ji)
+
+
+def test_pagerank_matches():
+    _, _, _, fwd, tr = _graphs(5, False)
+    want, _ = ja.pagerank(tr, fwd.degree, contrib_impl="sweep")
+    got, _ = ta.pagerank(to_port(tr), to_port(fwd).degree)
+    np.testing.assert_allclose(got.numpy(), np_of(want), rtol=0,
+                               atol=PR_ATOL)
+    warm, _ = ta.pagerank_dynamic(to_port(tr), to_port(fwd).degree, got)
+    np.testing.assert_allclose(warm.numpy(), np_of(want), rtol=0,
+                               atol=PR_ATOL)
+
+
+def test_expand_vertices_matches():
+    rng = np.random.default_rng(6)
+    V = 64
+    src = np.concatenate([np.zeros(200, np.int64), rng.integers(0, V, 200)])
+    dst = np.concatenate([np.arange(200) % V, rng.integers(0, V, 200)])
+    g = jsg.from_edges_host(V, src, dst, rng.uniform(0, 1, 400)
+                            .astype(np.float32), hashing=True)
+    gt = to_port(g)
+    bpv = int(np.asarray(g.bucket_count).max())
+    verts = np.asarray([0, 5, 9, 63], np.uint32)
+    mask = np.asarray([True, True, False, True])
+    for cap in (512, 64):
+        want = jwl.expand_vertices(g, jnp.asarray(verts), jnp.asarray(mask),
+                                   out_capacity=cap, max_bpv=bpv)
+        got = twl.expand_vertices(gt, torch.from_numpy(verts.view(np.int32)),
+                                  torch.from_numpy(mask), out_capacity=cap,
+                                  max_bpv=bpv)
+        for a, b in zip(got, want):
+            assert np.array_equal(np_of(a), np_of(b))

@@ -1,0 +1,141 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Run on a machine with a CUDA card: ``python -m pytest -q -m gpu``.  Without
+one every test here skips (the decision is made in the fixture, not at
+import).  Probe, commit and the min family must match exactly; the float
+``sum`` sweep adds lanes in another order, so it is held to
+``rtol=1e-6`` of the row totals.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import batch as tbatch
+from repro_torch.core.slab_graph import from_edges_host
+from repro_torch.kernels import runtime
+from repro_torch.kernels.slab_sweep import SEMIRINGS, slab_sweep, \
+    slab_sweep_ref
+from repro_torch.kernels.slab_update import (slab_commit, slab_commit_torch,
+                                             slab_probe, slab_probe_torch)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def graph(cuda):
+    rng = np.random.default_rng(0)
+    V, E = 5000, 60000
+    src = rng.integers(0, V, E)
+    dst = rng.zipf(1.6, E) % V
+    src[:600] = 7                                   # a hub: long chain
+    return rng, src, dst, from_edges_host(V, src, dst, hashing=False,
+                                          device=cuda)
+
+
+def _ids(a, dev):
+    return torch.from_numpy(np.asarray(a, np.int64).astype(np.uint32)
+                            .view(np.int32)).to(dev)
+
+
+def test_probe_matches_plain(cuda, graph):
+    rng, src, dst, g = graph
+    B = 3000
+    start = _ids(src[:B], cuda)
+    start[::9] = -1
+    d = _ids(np.where(rng.random(B) < 0.5, dst[:B],
+                      rng.integers(0, g.n_vertices, B)), cuda)
+    before = runtime.LAUNCHES["slab_probe"]
+    got = slab_probe(g.keys, g.next_slab, start, d)
+    want = slab_probe_torch(g.keys, g.next_slab, start, d)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_probe"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_commit_matches_plain(cuda, graph, weighted):
+    rng, _, _, g = graph
+    S, V, B = g.capacity_slabs, g.n_vertices, 4096
+    slots = torch.randperm(S * 128, device=cuda)[:B]
+    e_slab = (slots // 128).to(torch.int32)
+    e_slab[::4] = S
+    e_lane = (slots % 128).to(torch.int32)
+    vals = torch.randint(0, V, (B,), dtype=torch.int32, device=cuda)
+    idx = torch.randint(0, V + 16, (B,), dtype=torch.int32, device=cuda)
+    delta = torch.randint(-1, 2, (B,), dtype=torch.int32, device=cuda)
+    w = torch.rand(S, 128, device=cuda) if weighted else None
+    wv = torch.rand(B, device=cuda) if weighted else None
+    outs = []
+    for fn in (slab_commit, slab_commit_torch):
+        keys, deg = g.keys.clone(), g.degree.clone()
+        ww = None if w is None else w.clone()
+        fn(keys, deg, ww, e_slab, e_lane, vals, idx, delta, wv)
+        outs.append((keys, deg, ww))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    if weighted:
+        assert torch.equal(outs[0][2], outs[1][2])
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("frontier", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sweep_matches_plain(cuda, graph, semiring, frontier, weighted):
+    rng, _, _, g = graph
+    V, S = g.n_vertices, g.capacity_slabs
+    values = torch.rand(V, device=cuda) * 5
+    f = (torch.rand(V, device=cuda) < 0.3) if frontier else None
+    w = torch.rand(S, 128, device=cuda) + 0.5 if weighted else None
+    tgt = torch.rand(S, device=cuda) + 1.0 \
+        if semiring == "arg_min_plus" else None
+    got = slab_sweep(g.keys, g.slab_vertex, values, w, f, tgt,
+                     semiring=semiring, n_vertices=V)
+    want = slab_sweep_ref(g.keys, g.slab_vertex, values, semiring=semiring,
+                          n_vertices=V, weights=w, frontier=f, target=tgt)
+    torch.cuda.synchronize()
+    if semiring == "sum":
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("semiring", ["sum", "min", "min_plus"])
+def test_sweep_int32_values(cuda, graph, semiring):
+    _, _, _, g = graph
+    labels = torch.randperm(g.n_vertices, device=cuda).to(torch.int32)
+    got = slab_sweep(g.keys, g.slab_vertex, labels, semiring=semiring,
+                     n_vertices=g.n_vertices)
+    want = slab_sweep_ref(g.keys, g.slab_vertex, labels, semiring=semiring,
+                          n_vertices=g.n_vertices)
+    assert torch.equal(got, want)
+
+
+def test_engine_on_card_matches_cpu(cuda, graph):
+    """One mixed epoch through the engine on the card and on the CPU."""
+    rng, src, dst, _ = graph
+    V = 5000
+    gc = from_edges_host(V, src, dst, hashing=False, device=cuda)
+    gh = from_edges_host(V, src, dst, hashing=False, device="cpu")
+    s, d = rng.integers(0, V, 2048), rng.integers(0, V, 2048)
+    out = []
+    for g, dev in ((gc, cuda), (gh, torch.device("cpu"))):
+        g, dm = tbatch.delete_edges(g, _ids(src[:512], dev),
+                                    _ids(dst[:512], dev))
+        g, im = tbatch.insert_edges(g, _ids(s, dev), _ids(d, dev))
+        out.append(dict(vars(g), im=im, dm=dm))
+    for name in ("keys", "next_slab", "slab_vertex", "tail_slab",
+                 "tail_fill", "upd_flag", "upd_slab", "upd_lane",
+                 "next_free", "degree", "n_edges", "im", "dm"):
+        assert torch.equal(out[0][name].cpu(), out[1][name]), name
+    with pytest.raises(ValueError):
+        tbatch.query_edges(gc, _ids(s, cuda), _ids(d, cuda), impl="torch")

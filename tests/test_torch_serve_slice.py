@@ -1,0 +1,155 @@
+"""Port parity for the serving loop as a whole: the same request stream
+through the JAX reference (GraphStore + PropertyRegistry + RequestPipeline,
+PageRank on its slab-sweep engine) and through the port, on the CPU.
+
+After every epoch both views are leaf-identical, the BFS tree is
+bit-identical and membership answers are equal.  PageRank is held to
+``PR_ATOL``: the port sums each row's lanes in another order than XLA, and
+the convergence test (L1 change > 1e-5) may then stop one iteration apart,
+which moves no entry by more than the L1 margin itself.
+"""
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import assert_pools_equal, np_of
+
+from repro.algorithms import bfs_stream_property as jax_bfs_prop
+from repro.algorithms import pagerank_stream_property as jax_pr_prop
+from repro.data.synth import rmat_edges
+from repro.launch import serve as jax_serve
+from repro import stream as jstream
+from repro_torch import stream as tstream
+from repro_torch.algorithms import bfs_stream_property, \
+    pagerank_stream_property
+from repro_torch.launch import serve as torch_serve
+
+PR_ATOL = 2e-5
+PROPS = ["pagerank", "bfs_0"]
+
+
+def _requests(mod, V, edges, seed, n, batch, **kw):
+    return list(mod.build_requests(V, edges, np.random.default_rng(seed),
+                                   n_requests=n, batch=batch,
+                                   delete_frac=0.25, prop_names=PROPS, **kw))
+
+
+def _same_request(a, b):
+    for f in ("ins_src", "ins_dst", "del_src", "del_dst", "src", "dst",
+              "name"):
+        if hasattr(a, f):
+            x, y = getattr(a, f), getattr(b, f)
+            if isinstance(x, str):
+                assert x == y
+            else:
+                assert np.array_equal(np.asarray(x, np.int64),
+                                      np.asarray(y, np.int64)), f
+
+
+def test_build_requests_draws_the_reference_stream():
+    V = 300
+    src, dst = rmat_edges(V, 3000, seed=1)
+    src, dst, _ = jstream.dedup_pairs(src, dst)
+    want = _requests(jax_serve, V, (src, dst), 1, 16, 128)
+    ledger = torch_serve.EdgeLedger(src, dst)
+    got = _requests(torch_serve, V, (src, dst), 1, 16, 128, ledger=ledger)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    present = set(zip(src.tolist(), dst.tolist()))
+    for (_, a), (_, b) in zip(got, want):
+        _same_request(a, b)
+        if hasattr(b, "ins_src"):
+            present -= set(zip(np.asarray(b.del_src, np.int64).tolist(),
+                               np.asarray(b.del_dst, np.int64).tolist()))
+            present |= set(zip(b.ins_src.tolist(), b.ins_dst.tolist()))
+    assert set(map(tuple, torch_serve.EdgeLedger.pairs(ledger.keys)
+                   .astype(np.int64).tolist())) == present
+
+
+@pytest.mark.parametrize("policy", ["lazy", "eager"])
+def test_serve_loop_matches_reference(policy):
+    V, batch, cycles = 256, 64, 6
+    src, dst = rmat_edges(V, 2000, seed=0)
+    src, dst, _ = jstream.dedup_pairs(src, dst)
+    n = cycles * (len(PROPS) + 2)
+    slack = n * batch // 64 + 512
+    cap = len(src) + n * batch + 4096
+
+    js = jstream.GraphStore.from_edges(V, src, dst, hashing=False,
+                                       with_symmetric=False,
+                                       slack_slabs=slack)
+    jreg = jstream.PropertyRegistry(js)
+    jreg.register(jax_pr_prop(contrib_impl="sweep"), policy=policy)
+    jreg.register(jax_bfs_prop(0, edge_capacity=cap), policy=policy)
+    jpipe = jstream.RequestPipeline(js, jreg)
+
+    ts = tstream.GraphStore.from_edges(V, src, dst, hashing=False,
+                                       with_symmetric=False,
+                                       slack_slabs=slack, device="cpu")
+    treg = tstream.PropertyRegistry(ts)
+    treg.register(pagerank_stream_property(), policy=policy)
+    treg.register(bfs_stream_property(0, edge_capacity=cap), policy=policy)
+    tpipe = tstream.RequestPipeline(ts, treg)
+
+    jreqs = _requests(jax_serve, V, (src, dst), 0, n, batch)
+    treqs = _requests(torch_serve, V, (src, dst), 0, n, batch)
+    for (kind, jr), (_, tr) in zip(jreqs, treqs):
+        _same_request(tr, jr)
+        jresp, = jpipe.run([jr])
+        tresp, = tpipe.run([tr])
+        assert (tresp.kind, tresp.version) == (jresp.kind, jresp.version)
+        if kind == "update":
+            assert tresp.payload == jresp.payload
+            for view in ("forward", "transpose"):
+                assert_pools_equal(ts.views[view], js.views[view],
+                                   f"{view} v{ts.version}")
+        elif kind == "member":
+            assert np.array_equal(tresp.payload["found"],
+                                  jresp.payload["found"])
+        elif kind == "read:bfs_0":
+            for a, b in zip(tresp.payload["value"], jresp.payload["value"]):
+                assert np.array_equal(np_of(a), np_of(b))
+        else:
+            np.testing.assert_allclose(np_of(tresp.payload["value"]),
+                                       np_of(jresp.payload["value"]),
+                                       rtol=0, atol=PR_ATOL)
+
+
+def test_serve_main_on_cpu_and_cuda_guard():
+    out = torch_serve.main(["--device", "cpu", "--vertices", "128",
+                            "--initial-edges", "600", "--requests", "8",
+                            "--batch", "32"])
+    store, ledger = out["store"], out["ledger"]
+    assert store.version == 2 and store.n_edges == len(ledger)
+    assert set(out["latency"]) == {"update", "property", "member"}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            torch_serve.main(["--vertices", "16", "--initial-edges", "40"])
+
+
+def test_pipeline_coalesces_and_quarantines():
+    V = 32
+    rng = np.random.default_rng(2)
+    src, dst = rng.integers(0, V, 80), rng.integers(0, V, 80)
+    js = jstream.GraphStore.from_edges(V, src, dst)
+    ts = tstream.GraphStore.from_edges(V, src, dst, device="cpu")
+    reqs = [dict(ins_src=[1, 2], ins_dst=[3, 4], del_src=src[:3],
+                 del_dst=dst[:3]),
+            dict(ins_src=[5], ins_dst=[6], del_src=[1], del_dst=[3]),
+            dict(ins_src=[1], ins_dst=[3])]
+    jout = jstream.RequestPipeline(js).run(
+        [jstream.UpdateBatch(**r) for r in reqs]
+        + [jstream.MembershipQuery([1, 5, 2], [3, 6, 4])])
+    tout = tstream.RequestPipeline(ts).run(
+        [tstream.UpdateBatch(**r) for r in reqs]
+        + [tstream.MembershipQuery([1, 5, 2], [3, 6, 4])])
+    assert tout[0].payload == jout[0].payload
+    assert np.array_equal(tout[-1].payload["found"], jout[-1].payload["found"])
+    for view in ("forward", "transpose", "symmetric"):
+        assert_pools_equal(ts.views[view], js.views[view], view)
+    nj = js.neighbors([0, 1, 2], out_capacity=64)
+    nt = ts.neighbors([0, 1, 2], out_capacity=64)
+    for a, b in zip(nt, nj):
+        assert np.array_equal(np_of(a), np_of(b))
+    bad, = tstream.RequestPipeline(ts).run(
+        [tstream.UpdateBatch(ins_src=[V + 1], ins_dst=[0])])
+    assert bad.kind == "error" and bad.payload["error"] == "QuarantinedBatch"
