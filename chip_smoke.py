@@ -40,7 +40,7 @@ ROOT = Path(__file__).resolve().parent
 SERVE_ARGS = ["--device", "cuda", "--vertices", "1048576",
               "--initial-edges", "16777216", "--batch", "65536",
               "--delete-frac", "0.25", "--requests", "12", "--seed", "0"]
-#: H100 SXM published rates (on-chip-measurement guide): HBM3 bytes/s and
+#: H100 SXM published rates (NVIDIA H100 datasheet): HBM3 bytes/s and
 #: float32 (non-tensor-core) operations/s, used for every kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12

@@ -18,7 +18,7 @@
 // latency per warp and by DRAM sectors overall; many warps in flight (8 per
 // block, one block per 8 queries) hide the latency.  Weakness: with hashing
 // off a hub's chain is long and its warp walks it serially while the
-// others finish early (a later PR can split long chains across warps).
+// others finish early (splitting long chains across warps would fix that).
 //
 // Commit.  One thread per batch lane: store the planned key (and weight) at
 // (slab, lane) when slab < S, and atomicAdd the degree delta when idx < V.
