@@ -12,7 +12,10 @@ Three phases, each printing JSON lines:
    reads at the serve configuration, capturing the arguments the main path
    hands each kernel; then hold every kernel against its plain PyTorch
    version on those inputs (probe, commit, and the sweep in all four
-   semirings with and without a frontier) and time both with CUDA events.
+   semirings with and without a frontier) and time both with CUDA events:
+   each kernel on the device alone (the card spins while the host queues
+   the call between two events; the probe with the L2 cache flushed), each
+   plain version per call, host syncs and launch gaps included.
 3. **serve** - the port's ``launch.serve`` on the card at RMAT scale 20
    (1,048,576 vertices, 2**24 generated edges, 65,536-edge update batches
    with 25% deletes, 12 requests), with the launch counts zeroed just before
@@ -73,8 +76,10 @@ def gpu_line() -> str:
         check=True).stdout.strip()
 
 
-def time_ms(torch, fn, *, warmup: int = 3, reps: int = 20) -> float:
-    """Median per-call time of ``fn`` in ms, from CUDA events."""
+def time_ms(torch, fn, *, warmup: int = 1, reps: int = 5) -> float:
+    """Median time of one call of ``fn`` in ms, from a CUDA event pair
+    around each call: for the plain versions, whose host syncs and launch
+    gaps are part of their cost."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -87,6 +92,40 @@ def time_ms(torch, fn, *, warmup: int = 3, reps: int = 20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, *, flush=None, warmup: int = 3,
+              samples: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms, for calls that never wait
+    for the host: each call is queued between two CUDA events while the
+    card spins, so the interval holds the call and no host launch overhead.
+    ``flush``, a tensor larger than the L2 cache, is overwritten before each
+    call, for a caller that finds the cache cold.  The median of
+    ``samples`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin = 1 << 20                       # clock cycles, ~0.5 ms on an H100
+    times = []
+    while len(times) < samples:
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        fn()
+        b.record()
+        queued_in_time = not a.query()   # the spin outlasted the queuing
+        b.synchronize()
+        if queued_in_time:
+            times.append(a.elapsed_time(b))
+        elif spin >= 1 << 30:
+            raise SmokeFailure("the host could not queue a timed call "
+                               "within the spin")
+        else:
+            spin <<= 2
     return statistics.median(times)
 
 
@@ -204,6 +243,9 @@ def compare_kernels(torch, got) -> list:
                                                  slab_probe,
                                                  slab_probe_torch)
     results = []
+    # 256 MiB, five times the L2: the update probes rows no recent kernel
+    # touched, so each timed probe starts with the cache cold
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
 
     # -- probe: every batch size the update used ------------------------------
     for B, (keys, nxt, start, dst) in sorted(got["probe"].items()):
@@ -217,10 +259,10 @@ def compare_kernels(torch, got) -> list:
         rows = probe_rows(torch, keys, nxt, start, dst)
         results.append(dict(
             name="slab_probe", variant=f"B={B}", max_abs_err=err,
-            ms=time_ms(torch, lambda: slab_probe(keys, nxt, start, dst)),
+            ms=device_ms(torch, lambda: slab_probe(keys, nxt, start, dst),
+                         flush=flush),
             plain_ms=time_ms(torch,
-                             lambda: slab_probe_torch(keys, nxt, start, dst),
-                             warmup=1, reps=5),
+                             lambda: slab_probe_torch(keys, nxt, start, dst)),
             rows_read=rows, hits=int(k[0].sum()),
             library_ms=None,
             **bound(rows * (512 + 4) + B * (4 + 4) + B * (1 + 4 + 4),
@@ -246,9 +288,9 @@ def compare_kernels(torch, got) -> list:
                                          & (plan[3] < V)]).numel())
         results.append(dict(
             name="slab_commit", variant=f"B={B}", max_abs_err=err,
-            ms=time_ms(torch, lambda: slab_commit(kk, dd, None, *plan)),
+            ms=device_ms(torch, lambda: slab_commit(kk, dd, None, *plan)),
             plain_ms=time_ms(torch, lambda: slab_commit_torch(
-                kk, dd, None, *plan), warmup=1, reps=5),
+                kk, dd, None, *plan)),
             live_lanes=live, library_ms=None,
             **bound(B * 5 * 4 + live * 4 + n_deg * 8, B)))
 
@@ -259,6 +301,7 @@ def compare_kernels(torch, got) -> list:
     S, n = keys.shape[0], base["n_vertices"]
     dist = base["values"]
     tgt = got["sweep"][("arg_min_plus", True)]["target"]
+    rows_alloc = int((owner >= 0).sum())
     for semiring in ("sum", "min", "min_plus", "arg_min_plus"):
         for use_f in (False, True):
             cap = got["sweep"].get((semiring, use_f))
@@ -280,8 +323,11 @@ def compare_kernels(torch, got) -> list:
                     if k.dtype == torch.int32 else float((k - p).abs().max())
                 check(torch.equal(k, p),
                       f"{semiring} sweep differs from its plain version")
-            n_bytes = (S * (512 + 4 + 4) + n * 4 + (n if use_f else 0)
-                       + (S * 4 if target is not None else 0))
+            # keys (and target) only of allocated rows; owner and output
+            # of every row; values and frontier once each
+            n_bytes = (rows_alloc * 512 + S * (4 + 4) + n * 4
+                       + (n if use_f else 0)
+                       + (rows_alloc * 4 if target is not None else 0))
             library_ms = None
             if semiring == "sum" and not use_f:
                 # the same sums as one sparse product: the pool's live lanes
@@ -292,20 +338,20 @@ def compare_kernels(torch, got) -> list:
                 check(float((lib - p).abs().max())
                       <= SUM_RTOL * float(p.abs().max()) + 1e-30,
                       "the CSR product disagrees with the sum sweep")
-                library_ms = time_ms(torch, lambda: torch.mv(a, values))
+                library_ms = device_ms(torch, lambda: torch.mv(a, values))
                 del a
             results.append(dict(
                 name="slab_sweep",
                 variant=f"{semiring}{'+frontier' if use_f else ''}"
                         f"{' (main path)' if cap is not None else ''}",
                 max_abs_err=err,
-                ms=time_ms(torch, lambda: slab_sweep(
+                ms=device_ms(torch, lambda: slab_sweep(
                     keys, owner, values, None, frontier, target,
                     semiring=semiring, n_vertices=n)),
                 plain_ms=time_ms(torch, lambda: slab_sweep_ref(
                     keys, owner, values, semiring=semiring, n_vertices=n,
-                    frontier=frontier, target=target), warmup=1, reps=5),
-                library_ms=library_ms, rows=S,
+                    frontier=frontier, target=target)),
+                library_ms=library_ms, rows=S, rows_allocated=rows_alloc,
                 **bound(n_bytes, S * 128 * 2)))
     for r in results:
         emit({"phase": "kernels", **r})

@@ -91,9 +91,10 @@ def next_pow2(n: int, lo: int = 64) -> int:
 
 
 def empty(n_vertices: int, bucket_count: np.ndarray, capacity_slabs: int, *,
-          weighted: bool = False, device="cpu") -> SlabGraph:
+          weighted: bool = False, device="cuda") -> SlabGraph:
     """An empty graph: head slab of bucket ``b`` is row ``b``; overflow slabs
-    are bump-allocated from row ``n_buckets`` up."""
+    are bump-allocated from row ``n_buckets`` up.  On ``cuda`` unless
+    ``device="cpu"``; raises without a card."""
     bucket_count = np.asarray(bucket_count, dtype=np.int32)
     if bucket_count.shape != (n_vertices,):
         raise ValueError(f"bucket_count has shape {bucket_count.shape}, "
@@ -286,8 +287,9 @@ def from_edges_numpy(n_vertices: int, src, dst, weights=None, *,
 
 def from_edges_host(n_vertices: int, src, dst, weights=None, *,
                     load_factor: float = 0.7, hashing: bool = True,
-                    slack_slabs: int = 0, device="cpu") -> SlabGraph:
-    """Build the pool on the host with numpy, then move it to ``device``."""
+                    slack_slabs: int = 0, device="cuda") -> SlabGraph:
+    """Build the pool on the host with numpy, then move it to ``device``
+    (``cuda`` unless ``device="cpu"``; raises without a card)."""
     return _from_host(from_edges_numpy(
         n_vertices, src, dst, weights, load_factor=load_factor,
         hashing=hashing, slack_slabs=slack_slabs), device)

@@ -19,13 +19,16 @@
 // Design.  One warp per row, eight rows per block.  Each thread loads one
 // uint4 of keys (four lanes) and, when weighted, one float4 of weights, so a
 // warp reads its 512 B row in one coalesced pass; the owner (and target) is
-// one broadcast load.  The lane reduction is a __shfl_xor_sync butterfly.
+// one broadcast load, and a row with no owner (an unallocated slab) reads
+// nothing more and writes the identity.  The lane reduction is a
+// __shfl_xor_sync butterfly.
 // The min family is exact whatever the order.  The sum adds in another
 // order than XLA's lane reduction, so float sums agree with the reference
 // to rounding only (a few ulp of the row total).
 //
-// Bound: bytes.  The pool is streamed once (512 B of keys per row, 512 B
-// more when weighted), and values[] (and frontier[]) are gathered at random;
+// Bound: bytes.  The allocated rows are streamed once (512 B of keys per
+// row, 512 B more when weighted), every row costs 4 B of owner and 4 B of
+// output, and values[] (and frontier[]) are gathered at random;
 // a vector of V floats fits in the 50 MB L2 up to ~12M vertices, so the
 // gathers are served mostly from L2 and the pool stream sets the time.
 
@@ -69,6 +72,14 @@ __global__ void sweep_kernel(const uint32_t* __restrict__ keys,
   const int t = threadIdx.x & 31;
   if (row >= S) return;  // uniform per warp
 
+  A acc = (SEMI == kSum) ? A(0) : max_value<A>();
+  // an unallocated row has every lane masked: its partial is the identity,
+  // and its keys (and target) are never read
+  if (owner[row] < 0) {  // uniform per warp
+    if (t == 0) out[row] = acc;
+    return;
+  }
+
   const size_t base = static_cast<size_t>(row) * kSlabWidth;
   const uint4 k4 = reinterpret_cast<const uint4*>(keys + base)[t];
   const uint32_t kk[4] = {k4.x, k4.y, k4.z, k4.w};
@@ -77,15 +88,13 @@ __global__ void sweep_kernel(const uint32_t* __restrict__ keys,
     const float4 w4 = reinterpret_cast<const float4*>(weights + base)[t];
     ww[0] = w4.x; ww[1] = w4.y; ww[2] = w4.z; ww[3] = w4.w;
   }
-  const bool row_ok = owner[row] >= 0;
   T tgt{};
   if constexpr (SEMI == kArgMinPlus) tgt = target[row];
 
-  A acc = (SEMI == kSum) ? A(0) : max_value<A>();
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const uint32_t key = kk[j];
-    bool valid = row_ok && key < n;
+    bool valid = key < n;
     if constexpr (HAS_F) valid = valid && frontier[key] != 0;
     if (!valid) continue;
     const T v = values[key];

@@ -67,7 +67,8 @@ def test_empty_grow_and_close_match(hashing):
 
 
 def test_update_slab_pointers_breaks_aliases():
-    g = tsg.update_slab_pointers(tsg.empty(4, np.ones(4, np.int32), 16))
+    g = tsg.update_slab_pointers(tsg.empty(4, np.ones(4, np.int32), 16,
+                                           device="cpu"))
     g.tail_slab[0] = 9
     g.next_free.fill_(3)
     assert int(g.upd_slab[0]) == 0 and int(g.epoch_next_free) == 4
@@ -118,6 +119,11 @@ def test_cuda_without_card_raises():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         tsg.from_edges_host(4, [0], [1], device="cuda")
+    # the builders default to the card, as the store does
+    with pytest.raises(RuntimeError, match="cuda"):
+        tsg.from_edges_host(4, [0], [1])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tsg.empty(4, np.ones(4, np.int32), 16)
     with pytest.raises(ValueError):
         resolve_impl("cuda", torch.zeros(1))
     assert resolve_impl("auto", torch.zeros(1)) == "torch"
