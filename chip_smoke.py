@@ -8,21 +8,28 @@ Three phases, each printing JSON lines:
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
    limit.
-2. **kernels** - run the serving loop for one update and its two property
-   reads at the serve configuration, capturing the arguments the main path
-   hands each kernel; then hold every kernel against its plain PyTorch
-   version on those inputs (probe, commit, and the sweep in all four
-   semirings with and without a frontier) and time both with CUDA events:
-   each kernel on the device alone (the card spins while the host queues
-   the call between two events; the probe with the L2 cache flushed), each
+2. **kernels** - boot the serve configuration and serve its first six
+   requests (two updates, the second of which compacts both views on the
+   policy's own trigger, and the reads between them), capturing the
+   arguments the main path hands each kernel; then hold every kernel
+   against its plain PyTorch version on those inputs (probe, commit, the
+   sweep in all four semirings with and without a frontier, the live census
+   and the chain walk) and time both with CUDA events: each kernel on the
+   device alone (the card spins while the host queues the call between two
+   events; the probe and the chain walk with the L2 cache flushed), each
    plain version per call, host syncs and launch gaps included.
 3. **serve** - the port's ``launch.serve`` on the card at RMAT scale 20
    (1,048,576 vertices, 2**24 generated edges, 65,536-edge update batches
-   with 25% deletes, 12 requests), with the launch counts zeroed just before
-   and read just after; then a self-check without the reference: a static
-   rebuild from the request generator's edge ledger must hold the same edge
-   set, the same BFS tree and PageRank within tolerance, and membership
-   answers must match the ledger.
+   with 25% deletes, 15 requests cycling update, PageRank, BFS and WCC
+   reads and membership, a maintenance policy that compacts at a tombstone
+   ratio of 0.0015), with the launch counts zeroed just before and read
+   just after; then a self-check without the reference: a static rebuild
+   from the request generator's edge ledger must hold the same edge set,
+   the same BFS tree, PageRank within tolerance and the same components
+   (scipy's weak components, labelled by their minimum vertex), and
+   membership answers must match the ledger.  The check runs again after a
+   forced slab reclamation and after a forced compaction, whose forward view
+   must equal a compaction planned by the plain census and chain walk.
 
 Any failed check exits nonzero.  The last lines are the card's name and
 power limit, the per-kernel JSON line and ``{"ok": true, "device": ...}``.
@@ -31,6 +38,7 @@ when the repository's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -42,7 +50,11 @@ ROOT = Path(__file__).resolve().parent
 
 SERVE_ARGS = ["--device", "cuda", "--vertices", "1048576",
               "--initial-edges", "16777216", "--batch", "65536",
-              "--delete-frac", "0.25", "--requests", "12", "--seed", "0"]
+              "--delete-frac", "0.25", "--maintain",
+              "--tombstone-ratio", "0.0015", "--requests", "15",
+              "--seed", "0"]
+#: the serve's request kinds after ``update``, in its cycle
+PROPS = ["pagerank", "bfs_0", "wcc"]
 #: H100 SXM published rates (NVIDIA H100 datasheet): HBM3 bytes/s and
 #: float32 (non-tensor-core) operations/s, used for every kernel's bound
 HBM_BYTES_PER_S = 3.35e12
@@ -141,16 +153,33 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 # phase 2: capture the main path's kernel inputs, compare and time
 # ----------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def swapped(module, **fns):
+    """Rebind names of ``module`` for the duration of the block."""
+    real = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
+    try:
+        yield real
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+
+
 def capture_serve_inputs(torch, np, serve_mod):
-    """Serve one update and its two property reads with every kernel call
-    recorded: the first probe and commit of each batch size (the forward
-    view's), and the first sweep of each (semiring, frontier) pair."""
+    """Serve the serve phase's first six requests (update, the three reads,
+    membership, update) with every kernel call recorded: the first probe and
+    commit of each batch size (the forward view's), the first sweep of each
+    (semiring, frontier) pair, and the first census and chain walk (the
+    forward view's, in the compaction the second update triggers)."""
+    from repro_torch.kernels.slab_compact import ops as compact_ops
     from repro_torch.kernels.slab_sweep import ops as sweep_ops
     from repro_torch.kernels.slab_update import ops as update_ops
     from repro_torch.stream import RequestPipeline
 
     real_probe, real_commit = update_ops.slab_probe, update_ops.slab_commit
     real_sweep = sweep_ops.slab_sweep
+    real_live, real_chain = compact_ops.slab_live, compact_ops.chain_rank
     got = {"probe": {}, "commit": {}, "sweep": {}}
 
     def probe(keys, next_slab, start, dst):
@@ -181,26 +210,33 @@ def capture_serve_inputs(torch, np, serve_mod):
         return real_sweep(keys, slab_vertex, values, weights, frontier,
                           target, semiring=semiring, n_vertices=n_vertices)
 
+    # compaction builds new pools and leaves the old tensors as they were,
+    # so the census and walk inputs are kept without a copy
+    def live(keys, slab_vertex):
+        got.setdefault("live", (keys, slab_vertex))
+        return real_live(keys, slab_vertex)
+
+    def chain(next_slab, live_count, n_buckets):
+        got.setdefault("chain", (next_slab, live_count, n_buckets))
+        return real_chain(next_slab, live_count, n_buckets)
+
     # boot exactly as the serve phase does, with no request served yet
     args = serve_mod.parse_args(SERVE_ARGS[:-4] + ["--requests", "0",
                                                    "--seed", "0"])
     out = serve_mod.serve(args, log=lambda s: None)
     store, registry, ledger = out["store"], out["registry"], out["ledger"]
-    # the serve phase's first update and its two property reads
     pairs = serve_mod.EdgeLedger.pairs(ledger.keys)
     reqs = [req for _, req in serve_mod.build_requests(
         args.vertices, (pairs[:, 0], pairs[:, 1]),
-        np.random.default_rng(args.seed), n_requests=3, batch=args.batch,
-        delete_frac=args.delete_frac, prop_names=["pagerank", "bfs_0"])]
-    update_ops.slab_probe, update_ops.slab_commit = probe, commit
-    sweep_ops.slab_sweep = sweep
-    try:
+        np.random.default_rng(args.seed), n_requests=len(PROPS) + 3,
+        batch=args.batch, delete_frac=args.delete_frac, prop_names=PROPS)]
+    with swapped(update_ops, slab_probe=probe, slab_commit=commit), \
+            swapped(sweep_ops, slab_sweep=sweep), \
+            swapped(compact_ops, slab_live=live, chain_rank=chain):
         RequestPipeline(store, registry).run(reqs)
         torch.cuda.synchronize()
-    finally:
-        update_ops.slab_probe, update_ops.slab_commit = real_probe, \
-            real_commit
-        sweep_ops.slab_sweep = real_sweep
+    check(store.maintenance_count >= 1,
+          "the second update should compact on the policy's trigger")
     return got, store
 
 
@@ -237,6 +273,9 @@ def csr_of_pool(torch, keys, owner, n):
 
 def compare_kernels(torch, got) -> list:
     """Each kernel against its plain version on the captured inputs."""
+    from repro_torch.kernels.slab_compact import (chain_rank,
+                                                  chain_rank_torch,
+                                                  slab_live, slab_live_torch)
     from repro_torch.kernels.slab_sweep import slab_sweep, slab_sweep_ref
     from repro_torch.kernels.slab_update import (slab_commit,
                                                  slab_commit_torch,
@@ -244,7 +283,8 @@ def compare_kernels(torch, got) -> list:
                                                  slab_probe_torch)
     results = []
     # 256 MiB, five times the L2: the update probes rows no recent kernel
-    # touched, so each timed probe starts with the cache cold
+    # touched, so each timed probe (and chain walk) starts with the cache
+    # cold
     flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
 
     # -- probe: every batch size the update used ------------------------------
@@ -353,6 +393,48 @@ def compare_kernels(torch, got) -> list:
                     frontier=frontier, target=target)),
                 library_ms=library_ms, rows=S, rows_allocated=rows_alloc,
                 **bound(n_bytes, S * 128 * 2)))
+
+    # -- census: the forward view's pool at its first compaction ----------------
+    keys, owner = got["live"]
+    k = slab_live(keys, owner)
+    p = slab_live_torch(keys, owner)
+    torch.cuda.synchronize()
+    check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(k, p)),
+          "slab_live differs from its plain version")
+    S = keys.shape[0]
+    rows_alloc = int((owner >= 0).sum())
+    # keys of allocated rows, owner and count of every row, a rank per lane;
+    # no single PyTorch call computes the census, so no library time
+    results.append(dict(
+        name="slab_live", variant="forward view",
+        max_abs_err=max(int((a - b).abs().max()) for a, b in zip(k, p)),
+        ms=device_ms(torch, lambda: slab_live(keys, owner)),
+        plain_ms=time_ms(torch, lambda: slab_live_torch(keys, owner)),
+        rows=S, rows_allocated=rows_alloc, live_lanes=int(p[0].sum()),
+        library_ms=None,
+        **bound(rows_alloc * 512 + S * (4 + 4 + 512), S * 128)))
+    del k, p
+
+    # -- chain walk: the same compaction's plan ---------------------------------
+    nxt, cnt, nb = got["chain"]
+    k = chain_rank(nxt, cnt, nb)
+    p = chain_rank_torch(nxt, cnt, nb)
+    torch.cuda.synchronize()
+    check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(k, p)),
+          "slab_chain_rank differs from its plain version")
+    visited = int((p[1] >= 0).sum())
+    # next and count of each visited row, three outputs for every row, a
+    # count per bucket; the walk's time is its longest chain's dependent
+    # loads, not these bytes
+    results.append(dict(
+        name="slab_chain_rank", variant="forward view",
+        max_abs_err=max(int((a - b).abs().max()) for a, b in zip(k, p)),
+        ms=device_ms(torch, lambda: chain_rank(nxt, cnt, nb), flush=flush),
+        plain_ms=time_ms(torch, lambda: chain_rank_torch(nxt, cnt, nb)),
+        buckets=nb, slabs_visited=visited,
+        longest_chain=int(p[2].max()) + 1, library_ms=None,
+        **bound(visited * (4 + 4) + nxt.shape[0] * 3 * 4 + nb * 4,
+                visited)))
     for r in results:
         emit({"phase": "kernels", **r})
     return results
@@ -362,12 +444,42 @@ def compare_kernels(torch, got) -> list:
 # phase 3: serve at full size, then the self-check
 # ----------------------------------------------------------------------------
 
-def self_check(torch, np, out) -> dict:
-    """Hold the served state to a static rebuild from the edge ledger."""
+def static_reference(torch, np, out) -> dict:
+    """What the served state must equal, from the edge ledger alone: a
+    static rebuild's BFS tree and PageRank, and scipy's weak components
+    labelled by their minimum vertex."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
     from repro_torch.algorithms import bfs_tree_static, pagerank
+    from repro_torch.launch.serve import EdgeLedger
+    from repro_torch.stream import GraphStore
+
+    store, ledger = out["store"], out["ledger"]
+    V, dev = store.n_vertices, store.device
+    pairs = EdgeLedger.pairs(ledger.keys)
+    static = GraphStore.from_edges(V, pairs[:, 0], pairs[:, 1],
+                                   hashing=False, with_symmetric=False,
+                                   device=dev)
+    tree, _ = bfs_tree_static(static.forward, 0, edge_capacity=1,
+                              g_in=static.transpose)
+    pr, iters = pagerank(static.transpose, static.out_degree)
+    adj = coo_matrix((np.ones(len(pairs), np.int8),
+                      (pairs[:, 0].astype(np.int64),
+                       pairs[:, 1].astype(np.int64))), shape=(V, V))
+    n_comp, comp = connected_components(adj, directed=True,
+                                        connection="weak")
+    lowest = np.full(n_comp, V, np.int64)
+    np.minimum.at(lowest, comp, np.arange(V))
+    return {"tree": tree, "pagerank": pr, "pagerank_iters": iters,
+            "wcc": torch.from_numpy(lowest[comp].astype(np.int32)).to(dev),
+            "components": int(n_comp)}
+
+
+def check_state(torch, np, out, want, stage: str) -> dict:
+    """Hold the served state to the static reference."""
     from repro_torch.core.worklist import pool_edges
     from repro_torch.launch.serve import EdgeLedger, pair_keys
-    from repro_torch.stream import GraphStore
 
     store, registry, ledger = out["store"], out["registry"], out["ledger"]
     V = store.n_vertices
@@ -379,27 +491,25 @@ def self_check(torch, np, out) -> dict:
     live = (store.forward.slab_vertex[rows].long() << 32) | \
         store.forward.keys[rows, lanes].long()
     live = torch.sort(live).values
-    want = torch.from_numpy(ledger.keys.astype(np.int64)).to(dev)
-    check(live.numel() == want.numel() and torch.equal(live, want),
-          f"forward view holds {live.numel()} edges, ledger "
-          f"{want.numel()}")
-    check(store.n_edges == len(ledger), "n_edges disagrees with the ledger")
+    ledger_keys = torch.from_numpy(ledger.keys.astype(np.int64)).to(dev)
+    check(live.numel() == ledger_keys.numel()
+          and torch.equal(live, ledger_keys),
+          f"{stage}: forward view holds {live.numel()} edges, ledger "
+          f"{ledger_keys.numel()}")
+    check(store.n_edges == len(ledger),
+          f"{stage}: n_edges disagrees with the ledger")
 
-    pairs = EdgeLedger.pairs(ledger.keys)
-    static = GraphStore.from_edges(V, pairs[:, 0], pairs[:, 1],
-                                   hashing=False, with_symmetric=False,
-                                   device=dev)
     tree = registry.read("bfs_0")
-    want_tree, _ = bfs_tree_static(static.forward, 0, edge_capacity=1,
-                                   g_in=static.transpose)
-    check(torch.equal(tree.dist, want_tree.dist)
-          and torch.equal(tree.parent, want_tree.parent),
-          "maintained BFS tree differs from the static one")
-
+    check(torch.equal(tree.dist, want["tree"].dist)
+          and torch.equal(tree.parent, want["tree"].parent),
+          f"{stage}: maintained BFS tree differs from the static one")
     pr = registry.read("pagerank")
-    want_pr, iters = pagerank(static.transpose, static.out_degree)
-    l1 = float((pr - want_pr).abs().sum())
-    check(l1 <= PR_L1_TOL, f"PageRank L1 distance {l1} > {PR_L1_TOL}")
+    l1 = float((pr - want["pagerank"]).abs().sum())
+    check(l1 <= PR_L1_TOL, f"{stage}: PageRank L1 distance {l1} > "
+          f"{PR_L1_TOL}")
+    labels = registry.read("wcc")
+    check(torch.equal(labels, want["wcc"]),
+          f"{stage}: WCC labels differ from scipy's weak components")
 
     # membership: the last member request saw the final graph
     rng = np.random.default_rng(1)
@@ -407,18 +517,65 @@ def self_check(torch, np, out) -> dict:
     check(kind == "member", "the stream should end on a membership query")
     q = pair_keys(req.src, req.dst)
     check(np.array_equal(resp.payload["found"], np.isin(q, ledger.keys)),
-          "membership answers disagree with the ledger")
+          f"{stage}: membership answers disagree with the ledger")
     sample = ledger.keys[rng.choice(len(ledger), 4096, replace=False)]
     sp = EdgeLedger.pairs(sample)
     qs = np.concatenate([sp[:, 0], rng.integers(0, V, 4096)])
     qd = np.concatenate([sp[:, 1], rng.integers(0, V, 4096)])
     found = store.query(qs, qd)
     check(np.array_equal(found, np.isin(pair_keys(qs, qd), ledger.keys)),
-          "membership answers disagree with the ledger")
-    return {"edges": int(live.numel()), "bfs_reachable":
-            int((tree.dist < 2 ** 30).sum()), "pagerank_l1": l1,
-            "pagerank_static_iters": iters,
+          f"{stage}: membership answers disagree with the ledger")
+    return {"stage": stage, "edges": int(live.numel()),
+            "bfs_reachable": int((tree.dist < 2 ** 30).sum()),
+            "pagerank_l1": l1, "pagerank_static_iters":
+            want["pagerank_iters"], "components": want["components"],
             "member_hits": int(found.sum())}
+
+
+def check_maintenance(torch, np, out, want) -> list:
+    """Force a slab reclamation and then a compaction on the served store,
+    checking the state after each; the compacted forward view must equal a
+    compaction of the same pool planned by the plain census and chain walk,
+    and hold no tombstone."""
+    from repro_torch.core.slab_graph import FIELDS, pool_stats
+    from repro_torch.kernels.slab_compact import (chain_rank_torch, compact,
+                                                  ops as compact_ops,
+                                                  slab_live_torch)
+
+    store = out["store"]
+    done = []
+    t0 = time.perf_counter()
+    rec = store.maintain(action="reclaim")
+    torch.cuda.synchronize()
+    done.append({**check_state(torch, np, out, want, "after reclaim"),
+                 "reclaimed": rec.reclaimed, "duration_s": rec.duration_s,
+                 "scan_s": rec.scan_s,
+                 "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    before = store.forward      # compaction leaves these tensors as they are
+    rec = store.maintain(action="compact")
+    torch.cuda.synchronize()
+    rep = rec.reports["forward"]
+    with swapped(compact_ops, slab_live=slab_live_torch,
+                 chain_rank=chain_rank_torch):
+        plain, plain_rep = compact(before, capacity_slabs=rep.new_capacity)
+    torch.cuda.synchronize()
+    for name in FIELDS:
+        a, b = getattr(store.forward, name), getattr(plain, name)
+        check((a is None and b is None) or torch.equal(a, b),
+              f"compacted forward view: {name} differs from the plain "
+              f"versions' compaction")
+    check(torch.equal(rep.perm, plain_rep.perm),
+          "compaction perm differs from the plain versions'")
+    del before, plain
+    tombs = pool_stats(store.forward)["tombstone_lanes"]
+    check(tombs == 0, f"{tombs} tombstones after the compaction")
+    done.append({**check_state(torch, np, out, want, "after compaction"),
+                 "compaction": rec.describe(), "duration_s": rec.duration_s,
+                 "scan_s": rec.scan_s,
+                 "live_slabs": rep.live_slabs,
+                 "seconds": time.perf_counter() - t0})
+    return done
 
 
 def main() -> int:
@@ -462,6 +619,8 @@ def main() -> int:
         check(key in got["sweep"], f"main path never swept {key}")
     check(len(got["probe"]) >= 2 and len(got["commit"]) >= 2,
           "main path should probe and commit its delete and insert batches")
+    check("live" in got and "chain" in got,
+          "main path should plan a compaction")
     results = compare_kernels(torch, got)
     del got
     torch.cuda.empty_cache()
@@ -473,34 +632,60 @@ def main() -> int:
     out = serve_mod.main(SERVE_ARGS)
     torch.cuda.synchronize()
     launches = dict(runtime.LAUNCHES)
+    store = out["store"]
+    last = store.last_maintenance
     emit({"phase": "serve", "boot_s": out["boot_s"],
           "serve_s": out["serve_s"], "generate_s": out["generate_s"],
           "latency": out["latency"],
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "pool": out["pool"], "kernels": launches})
+          "pool": out["pool"], "kernels": launches,
+          "maintenance": {"passes": store.maintenance_count,
+                          "last": last.describe() if last else None,
+                          "scan_s": last.scan_s if last else None,
+                          "events": store.maintenance_events}})
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
+    check(store.maintenance_count >= 1,
+          "the maintenance policy never compacted during the serve")
     per_kind = {}
     for kind, _, _, launched in out["responses"]:
         for name, n in launched.items():
             per_kind.setdefault(kind, {}).setdefault(name, []).append(n)
-    emit({"phase": "serve", "launches_per_request": per_kind})
+    emit({"phase": "serve", "launches_per_request": per_kind,
+          "requests": [{"i": i, "kind": kind,
+                        "ms": 1e3 * resp.latency_s, "launched": launched}
+                       for i, (kind, _, resp, launched)
+                       in enumerate(out["responses"])]})
     t0 = time.perf_counter()
-    emit({"phase": "self_check", **self_check(torch, np, out),
+    want = static_reference(torch, np, out)
+    emit({"phase": "self_check", "static_reference_s":
+          time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "self_check", **check_state(torch, np, out, want,
+                                               "served"),
           "seconds": time.perf_counter() - t0})
+    for line in check_maintenance(torch, np, out, want):
+        emit({"phase": "self_check", **line})
 
     # ------------------------------------------------------------- summary
-    main_variant = {"slab_probe": "B=65536", "slab_commit": "B=65536",
-                    "slab_sweep": "sum (main path)"}
+    batch = f"B={serve_mod.parse_args(SERVE_ARGS).batch}"
+    main_variant = {"slab_probe": batch, "slab_commit": batch,
+                    "slab_sweep": "sum (main path)",
+                    "slab_live": "forward view",
+                    "slab_chain_rank": "forward view"}
     replaces = {
         "slab_probe": "src/repro/kernels/slab_update/kernel.py:81",
         "slab_commit": "src/repro/kernels/slab_update/kernel.py:160",
-        "slab_sweep": "src/repro/kernels/slab_sweep/kernel.py:80"}
+        "slab_sweep": "src/repro/kernels/slab_sweep/kernel.py:80",
+        "slab_live": "src/repro/kernels/slab_compact/kernel.py:60",
+        "slab_chain_rank": "src/repro/kernels/slab_compact/kernel.py:137"}
     source = {"slab_probe": "src/repro_torch/csrc/slab_update.cu",
               "slab_commit": "src/repro_torch/csrc/slab_update.cu",
-              "slab_sweep": "src/repro_torch/csrc/slab_sweep.cu"}
+              "slab_sweep": "src/repro_torch/csrc/slab_sweep.cu",
+              "slab_live": "src/repro_torch/csrc/slab_compact.cu",
+              "slab_chain_rank": "src/repro_torch/csrc/slab_compact.cu"}
     kernels = []
-    for name in ("slab_probe", "slab_commit", "slab_sweep"):
+    for name in main_variant:
         rows = [r for r in results if r["name"] == name]
         main_row = next(r for r in rows if r["variant"] == main_variant[name])
         kernels.append({

@@ -1,4 +1,4 @@
-"""Dynamic graph algorithms on the port's core: BFS, SSSP and PageRank.
+"""Dynamic graph algorithms on the port's core: BFS, SSSP, PageRank and WCC.
 Each ``stream_property`` hook (re-exported as ``<algo>_stream_property``)
 packages an incremental maintainer for the stream registry."""
 from .bfs import bfs_decremental, bfs_incremental, bfs_tree_static
@@ -8,9 +8,16 @@ from .pagerank import stream_property as pagerank_stream_property
 from .sssp import (INF, NO_PARENT, TreeState, init_state, relax_edges,
                    relax_sweep, run_to_convergence, sssp_decremental,
                    sssp_incremental, sssp_static)
+from .wcc import (count_components, wcc_incremental_batch,
+                  wcc_incremental_naive, wcc_labelprop_ref,
+                  wcc_labelprop_sweep, wcc_static)
+from .wcc import stream_property as wcc_stream_property
 
 __all__ = ["bfs_decremental", "bfs_incremental", "bfs_tree_static",
            "bfs_stream_property", "pagerank", "pagerank_dynamic",
            "pagerank_stream_property", "INF", "NO_PARENT", "TreeState",
            "init_state", "relax_edges", "relax_sweep", "run_to_convergence",
-           "sssp_decremental", "sssp_incremental", "sssp_static"]
+           "sssp_decremental", "sssp_incremental", "sssp_static",
+           "count_components", "wcc_incremental_batch",
+           "wcc_incremental_naive", "wcc_labelprop_ref",
+           "wcc_labelprop_sweep", "wcc_static", "wcc_stream_property"]

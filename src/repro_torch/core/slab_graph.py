@@ -28,7 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .hashing import EMPTY_KEY, INVALID_SLAB, SLAB_WIDTH, TOMBSTONE_KEY
+from .hashing import (EMPTY_KEY, INVALID_SLAB, SLAB_WIDTH, TOMBSTONE_KEY,
+                      is_valid_vertex)
 
 #: tensor fields in the reference's pytree order
 FIELDS = ("keys", "weights", "next_slab", "slab_vertex", "bucket_offset",
@@ -299,11 +300,13 @@ def from_edges_host(n_vertices: int, src, dst, weights=None, *,
 # Pool health
 # ============================================================================
 
-def pool_stats(g: SlabGraph) -> dict:
+def pool_stats(g: SlabGraph, *, chains: bool = True) -> dict:
     """Pool-health snapshot: live and tombstone lanes, dead slabs, chain
-    lengths (slabs per bucket, head included)."""
+    lengths (slabs per bucket, head included).  ``chains=False`` leaves out
+    ``max_chain`` and ``mean_chain``, whose walk syncs once per hop of the
+    longest chain."""
     alloc = g.slab_vertex >= 0
-    live_lane = alloc[:, None] & (g.keys >= 0)
+    live_lane = alloc[:, None] & is_valid_vertex(g.keys)
     tomb_lane = alloc[:, None] & (g.keys == TOMBSTONE_KEY)
     live_per_slab = live_lane.sum(dim=1)
     live_lanes = int(live_per_slab.sum())
@@ -312,18 +315,8 @@ def pool_stats(g: SlabGraph) -> dict:
     is_head = torch.arange(g.capacity_slabs, device=g.device) < g.n_buckets
     dead_slabs = int((alloc & ~is_head & (live_per_slab == 0)).sum())
 
-    # walk every chain at once from its head (row b is bucket b's head)
-    lengths = torch.zeros(g.n_buckets, dtype=torch.int64, device=g.device)
-    bucket = torch.arange(g.n_buckets, dtype=torch.int64, device=g.device)
-    cur = bucket
-    while cur.numel():
-        lengths[bucket] += 1
-        nxt = g.next_slab[cur].to(torch.int64)
-        keep = nxt >= 0
-        cur, bucket = nxt[keep], bucket[keep]
-
     occupied = live_lanes + tombstone_lanes
-    return {
+    stats = {
         "capacity_slabs": g.capacity_slabs,
         "next_free": int(g.next_free),
         "free_top": int(g.free_top),
@@ -334,9 +327,22 @@ def pool_stats(g: SlabGraph) -> dict:
         "tombstone_lanes": tombstone_lanes,
         "tombstone_ratio": tombstone_lanes / max(1, occupied),
         "occupancy": live_lanes / max(1, allocated_slabs * SLAB_WIDTH),
-        "max_chain": int(lengths.max()) if g.n_buckets else 0,
-        "mean_chain": float(lengths.double().mean()) if g.n_buckets else 0.0,
         "pool_bytes": int(g.keys.numel() * 4 + (
             g.weights.numel() * 4 if g.weights is not None else 0)),
         "n_edges": int(g.n_edges),
     }
+    if chains:
+        # walk every chain at once from its head (row b is bucket b's head)
+        lengths = torch.zeros(g.n_buckets, dtype=torch.int64, device=g.device)
+        bucket = torch.arange(g.n_buckets, dtype=torch.int64,
+                              device=g.device)
+        cur = bucket
+        while cur.numel():
+            lengths[bucket] += 1
+            nxt = g.next_slab[cur].to(torch.int64)
+            keep = nxt >= 0
+            cur, bucket = nxt[keep], bucket[keep]
+        stats["max_chain"] = int(lengths.max()) if g.n_buckets else 0
+        stats["mean_chain"] = (float(lengths.double().mean())
+                               if g.n_buckets else 0.0)
+    return stats

@@ -13,8 +13,7 @@ reproduces its whole-pool oracle bit for bit:
 3. **Commit.**  Keys, weights and degree deltas go into the pool through the
    commit kernel.  The reference made its commit kernel opt-in because the
    TPU runs it as a serial loop; on the GPU it is a parallel scatter, so
-   every commit runs through it.  ``use_commit_kernel`` is accepted for
-   parity with the reference's signature and changes nothing.
+   every commit runs through it.
 
 The engine mutates the graph's tensors in place (the reference donates its
 buffers for the same effect): a graph passed in is consumed, and the caller
@@ -80,8 +79,7 @@ def _classify(g: SlabGraph, src, dst):
 # ----------------------------------------------------------------------------
 
 def query_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor, *,
-                impl: str = "auto",
-                use_commit_kernel: bool = False) -> torch.Tensor:
+                impl: str = "auto") -> torch.Tensor:
     """Batched membership query; invalid lanes (out-of-range src, sentinel
     dst) answer False."""
     resolve_impl(impl, g.keys)
@@ -93,8 +91,7 @@ def query_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor, *,
 
 
 def insert_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor,
-                 w: Optional[torch.Tensor] = None, *, impl: str = "auto",
-                 use_commit_kernel: bool = False
+                 w: Optional[torch.Tensor] = None, *, impl: str = "auto"
                  ) -> Tuple[SlabGraph, torch.Tensor]:
     """Batched insert; returns (graph, inserted mask over the batch).
 
@@ -202,8 +199,7 @@ def insert_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor,
 
 
 def delete_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor, *,
-                 impl: str = "auto", use_commit_kernel: bool = False
-                 ) -> Tuple[SlabGraph, torch.Tensor]:
+                 impl: str = "auto") -> Tuple[SlabGraph, torch.Tensor]:
     """Batched delete (found lanes become TOMBSTONE); returns (graph,
     deleted mask).  Consumes ``g`` (in-place commit)."""
     resolve_impl(impl, g.keys)
@@ -223,11 +219,10 @@ def delete_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor, *,
 
 
 def apply_update(g: SlabGraph, ins_src=None, ins_dst=None, ins_w=None,
-                 del_src=None, del_dst=None, *, impl: str = "auto",
-                 use_commit_kernel: bool = False):
+                 del_src=None, del_dst=None, *, impl: str = "auto"):
     """One mixed epoch, deletes before inserts; returns
     ``(graph, inserted_mask | None, deleted_mask | None)``."""
-    kw = dict(impl=impl, use_commit_kernel=use_commit_kernel)
+    kw = dict(impl=impl)
     ins_mask = del_mask = None
     if del_src is not None:
         g, del_mask = delete_edges(g, del_src, del_dst, **kw)
@@ -237,8 +232,7 @@ def apply_update(g: SlabGraph, ins_src=None, ins_dst=None, ins_w=None,
 
 
 def update_views(views: Tuple[SlabGraph, ...], roles: Tuple[str, ...],
-                 ins=None, dels=None, *, impl: str = "auto",
-                 use_commit_kernel: bool = False):
+                 ins=None, dels=None, *, impl: str = "auto"):
     """Apply one canonical batch to every view; deletes before inserts.
 
     ``roles`` (parallel to ``views``) come from FORWARD, TRANSPOSE and
@@ -250,7 +244,7 @@ def update_views(views: Tuple[SlabGraph, ...], roles: Tuple[str, ...],
     """
     if FORWARD not in roles:
         raise ValueError("update_views requires a forward view")
-    kw = dict(impl=impl, use_commit_kernel=use_commit_kernel)
+    kw = dict(impl=impl)
     views = list(views)
     fidx = roles.index(FORWARD)
     ins_mask = del_mask = None

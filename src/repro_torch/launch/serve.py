@@ -1,13 +1,16 @@
 """Serving launcher: a streaming dynamic-graph analytics service.
 
-The request stream cycles ``update, read:pagerank, read:bfs_0, member``:
-batched edge updates (inserts and deletes), PageRank and BFS-tree reads and
-membership queries, served by a ``GraphStore`` (forward and transpose
-views, no symmetric one), a ``PropertyRegistry`` and a ``RequestPipeline``
-on one device.  The store runs without a maintenance policy.
+The request stream cycles ``update, read:pagerank, read:bfs_0, read:wcc,
+member``: batched edge updates (inserts and deletes), PageRank, BFS-tree
+and component reads and membership queries, served by a ``GraphStore``
+(forward and transpose views, no symmetric one), a ``PropertyRegistry``
+and a ``RequestPipeline`` on one device.  With ``--maintain`` (the
+default) a ``MaintenancePolicy`` checks every closed epoch: once the
+tombstones reach ``--tombstone-ratio`` of the occupied lanes, both views
+compact (and may shrink) instead of growing for as long as the server runs.
 
     python -m repro_torch.launch.serve --device cuda --vertices 1048576 \\
-        --initial-edges 16777216 --batch 65536 --requests 12
+        --initial-edges 16777216 --batch 65536 --requests 15
 """
 from __future__ import annotations
 
@@ -106,6 +109,8 @@ def describe(resp) -> str:
         v = (v[0] if isinstance(v, tuple) else v).cpu().numpy()
         if p["name"].startswith("bfs"):
             return f"reachable={int((v < 2 ** 30).sum())}"
+        if p["name"] == "wcc":
+            return f"components={int((v == np.arange(len(v))).sum())}"
         return f"top={float(v.max()):.5f}"
     return ""
 
@@ -121,6 +126,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--delete-frac", type=float, default=0.25,
                     help="fraction of each update batch that deletes")
     ap.add_argument("--policy", choices=["lazy", "eager"], default="lazy")
+    ap.add_argument("--maintain", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="attach a MaintenancePolicy (slab compaction at "
+                         "epoch close)")
+    ap.add_argument("--tombstone-ratio", type=float, default=0.2,
+                    help="compaction trigger: dead/occupied lanes")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -129,12 +140,13 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
     """Boot the store and registry, serve the request stream; returns the
     store, registry, ledger, per-class latencies and the responses as
     ``(kind, request, response, kernel launches)``."""
-    from ..algorithms import bfs_stream_property, pagerank_stream_property
+    from ..algorithms import (bfs_stream_property, pagerank_stream_property,
+                              wcc_stream_property)
     from ..core.device import resolve_device
     from ..data.synth import rmat_edges
     from ..kernels.runtime import LAUNCHES
-    from ..stream import (GraphStore, PropertyRegistry, RequestPipeline,
-                          dedup_pairs)
+    from ..stream import (GraphStore, MaintenancePolicy, PropertyRegistry,
+                          RequestPipeline, dedup_pairs)
 
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
@@ -142,15 +154,19 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
     t_boot = time.perf_counter()
     src, dst = rmat_edges(V, args.initial_edges, seed=args.seed)
     src, dst, _ = dedup_pairs(src, dst)
-    # pagerank and bfs read only the forward and transpose views
+    policy = (MaintenancePolicy(tombstone_ratio=args.tombstone_ratio)
+              if args.maintain else None)
+    # pagerank, bfs and wcc read only the forward and transpose views
     store = GraphStore.from_edges(
         V, src, dst, hashing=False, with_symmetric=False,
-        slack_slabs=args.requests * args.batch // 64 + 512, device=dev)
+        slack_slabs=args.requests * args.batch // 64 + 512,
+        maintenance=policy, device=dev)
     registry = PropertyRegistry(store)
     cap = len(src) + args.requests * args.batch + 4096
     registry.register(pagerank_stream_property(), policy=args.policy)
     registry.register(bfs_stream_property(0, edge_capacity=cap),
                       policy=args.policy)
+    registry.register(wcc_stream_property(), policy=args.policy)
     boot_s = time.perf_counter() - t_boot
     log(f"[serve] boot: V={V} E={store.n_edges} device={dev} "
         f"({boot_s:.1f}s)")
@@ -162,7 +178,8 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
     t0 = time.perf_counter()
     stream = build_requests(V, (src, dst), rng, n_requests=args.requests,
                             batch=args.batch, delete_frac=args.delete_frac,
-                            prop_names=["pagerank", "bfs_0"], ledger=ledger)
+                            prop_names=["pagerank", "bfs_0", "wcc"],
+                            ledger=ledger)
     gen_s = 0.0                     # host time drawing the requests
     t_gen = time.perf_counter()
     for i, (kind, req) in enumerate(stream):
@@ -198,6 +215,13 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
         f"tombstones={st['tombstone_lanes']} "
         f"occupancy={st['occupancy']:.3f} "
         f"chains mean={st['mean_chain']:.2f} max={st['max_chain']}")
+    if args.maintain:
+        rec = store.last_maintenance
+        last = (f"{rec.describe()} ({1e3 * rec.duration_s:.1f} ms, "
+                f"scan {1e3 * rec.scan_s:.1f} ms)" if rec
+                else "never triggered")
+        log(f"[serve] maintenance: {store.maintenance_count} passes, "
+            f"last: {last}")
     return {"store": store, "registry": registry, "ledger": ledger,
             "responses": responses, "latency": latency, "boot_s": boot_s,
             "serve_s": elapsed, "generate_s": gen_s, "pool": st}

@@ -1,5 +1,7 @@
 """The serving loop: a versioned multi-view GraphStore, an incremental
 property registry over it and a batched request pipeline."""
+from .maintenance import (COMPACT, RECLAIM, MaintenancePolicy,
+                          MaintenanceRecord)
 from .properties import EAGER, LAZY, PropertyRegistry, PropertySpec
 from .requests import (MembershipQuery, NeighborsQuery, PropertyRead, Request,
                        RequestPipeline, Response, UpdateBatch,
@@ -12,5 +14,6 @@ __all__ = [
     "GraphStore", "canonical_batch", "dedup_pairs", "EAGER", "LAZY",
     "PropertyRegistry", "PropertySpec", "MembershipQuery", "NeighborsQuery",
     "PropertyRead", "Request", "RequestPipeline", "Response", "UpdateBatch",
-    "coalesce_updates",
+    "coalesce_updates", "COMPACT", "RECLAIM", "MaintenancePolicy",
+    "MaintenanceRecord",
 ]

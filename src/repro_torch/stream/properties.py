@@ -5,7 +5,9 @@ versions.  ``eager`` entries advance inside every ``GraphStore.apply``
 while the epoch is open; ``lazy`` entries catch up on first read by
 replaying the store's batch log through ``on_batch`` (once, for a
 ``collapse_replay`` maintainer), or by ``refresh`` when the bounded log no
-longer reaches back far enough.
+longer reaches back far enough.  Maintenance batches (compaction, slab
+reclamation) change no edge and no vertex id: an eager entry only
+re-anchors its version, and a lazy catch-up skips them.
 """
 from __future__ import annotations
 
@@ -58,14 +60,22 @@ class PropertyRegistry:
 
     def _on_batch(self, batch: AppliedBatch) -> None:
         for e in self._entries.values():
-            if e.policy == EAGER:
-                e.state = e.spec.on_batch(self.store, e.state, batch)
-                e.version = batch.version
+            if e.policy != EAGER:
+                continue
+            if batch.maintenance:
+                # the state already holds for the new version
+                if e.version == batch.version - 1:
+                    e.version = batch.version
+                continue
+            e.state = e.spec.on_batch(self.store, e.state, batch)
+            e.version = batch.version
 
     def _catch_up(self, e: _Entry) -> None:
         if e.version == self.store.version:
             return
         missed = self.store.batches_since(e.version)
+        if missed is not None:
+            missed = [b for b in missed if not b.maintenance]
         if missed is None:
             e.state = e.spec.refresh(self.store)
         elif e.spec.collapse_replay and missed:

@@ -65,3 +65,35 @@ def np_of(t) -> np.ndarray:
     """A port tensor or reference array as numpy (uint32 viewed as int32)."""
     a = t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
     return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def assert_vectors_equal(t, j, what=""):
+    """Bit-identical vectors (WCC parents and labels, plan outputs)."""
+    got, want = np_of(t), np_of(j)
+    assert got.dtype == want.dtype, f"{what}: dtype {got.dtype} {want.dtype}"
+    assert np.array_equal(got, want), what
+
+
+def assert_reports_equal(rep_t, rep_j, what=""):
+    """A port CompactionReport equals the reference's: the slab map and the
+    five counts."""
+    assert_vectors_equal(rep_t.perm, rep_j.perm, f"{what}: perm")
+    for name in ("live_lanes", "live_slabs", "old_capacity", "new_capacity",
+                 "old_next_free", "new_next_free"):
+        assert getattr(rep_t, name) == getattr(rep_j, name), \
+            f"{what}: {name}"
+
+
+def assert_maintenance_equal(store_t, store_j, what=""):
+    """The two stores' maintenance counters and per-pass events agree
+    (durations aside)."""
+    for name in ("version", "maintenance_count", "_epochs_since_maint",
+                 "_deletes_since_maint", "_tombstone_base", "_last_reserve"):
+        assert getattr(store_t, name) == getattr(store_j, name), \
+            f"{what}: {name}"
+
+    def events(store):
+        return [{k: v for k, v in e.items() if k != "duration_s"}
+                for e in store.maintenance_events]
+
+    assert events(store_t) == events(store_j), f"{what}: maintenance events"

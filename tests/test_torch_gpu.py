@@ -2,7 +2,8 @@
 
 Run on a machine with a CUDA card: ``python -m pytest -q -m gpu``.  Without
 one every test here skips (the decision is made in the fixture, not at
-import).  Probe, commit and the min family must match exactly; the float
+import).  Probe, commit, census, chain walk and the min family must match
+exactly; the float
 ``sum`` sweep adds lanes in another order, so it is held to
 ``rtol=1e-6`` of the row totals.
 """
@@ -11,8 +12,13 @@ import pytest
 import torch
 
 from repro_torch.core import batch as tbatch
-from repro_torch.core.slab_graph import from_edges_host
+from repro_torch.core.bridge import slab_graph_from_numpy, \
+    slab_graph_to_numpy
+from repro_torch.core.slab_graph import FIELDS, from_edges_host
 from repro_torch.kernels import runtime
+from repro_torch.kernels.slab_compact import (chain_rank, chain_rank_torch,
+                                              compact, slab_live,
+                                              slab_live_torch)
 from repro_torch.kernels.slab_sweep import SEMIRINGS, slab_sweep, \
     slab_sweep_ref
 from repro_torch.kernels.slab_update import (slab_commit, slab_commit_torch,
@@ -139,3 +145,56 @@ def test_engine_on_card_matches_cpu(cuda, graph):
         assert torch.equal(out[0][name].cpu(), out[1][name]), name
     with pytest.raises(ValueError):
         tbatch.query_edges(gc, _ids(s, cuda), _ids(d, cuda), impl="torch")
+
+
+def _churned(cuda, graph):
+    """The fixture's edges and a hub of 1,000 distinct out-edges (an
+    eight-slab chain) after a delete epoch: tombstones, dead lanes along
+    the hub's chain, and a key at or above 2**31 in one row."""
+    rng, src, dst, _ = graph
+    src = np.concatenate([src, np.full(1000, 11)])
+    dst = np.concatenate([dst, np.arange(1000)])
+    g = from_edges_host(5000, src, dst, hashing=False, device=cuda)
+    g, _ = tbatch.delete_edges(g, _ids(src[::3], cuda), _ids(dst[::3], cuda))
+    g.keys[3, 5] = -7                        # uint32 id 2**32 - 7: live
+    return g
+
+
+def test_census_matches_plain(cuda, graph):
+    g = _churned(cuda, graph)
+    before = runtime.LAUNCHES["slab_live"]
+    got = slab_live(g.keys, g.slab_vertex)
+    want = slab_live_torch(g.keys, g.slab_vertex)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_live"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got[0][g.slab_vertex < 0].abs().sum()) == 0
+
+
+def test_chain_walk_matches_plain(cuda, graph):
+    g = _churned(cuda, graph)
+    cnt, _ = slab_live(g.keys, g.slab_vertex)
+    before = runtime.LAUNCHES["slab_chain_rank"]
+    got = chain_rank(g.next_slab, cnt, g.n_buckets)
+    want = chain_rank_torch(g.next_slab, cnt, g.n_buckets)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_chain_rank"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got[2].max()) >= 7            # the hub's chain was walked
+
+
+def test_compaction_on_card_matches_cpu(cuda, graph):
+    g = _churned(cuda, graph)
+    host = slab_graph_from_numpy(slab_graph_to_numpy(g), "cpu")
+    gc, rc = compact(g)
+    gh, rh = compact(host)
+    for name in FIELDS:
+        a, b = getattr(gc, name), getattr(gh, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a.cpu(), b), name
+    assert torch.equal(rc.perm.cpu(), rh.perm)
+    assert (rc.new_capacity, rc.live_lanes) == (rh.new_capacity,
+                                                rh.live_lanes)

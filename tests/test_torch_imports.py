@@ -1,0 +1,35 @@
+"""The port runs without JAX: every module of ``repro_torch``, and
+``chip_smoke.py``, imports in a process where ``import jax`` and
+``import repro`` fail."""
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro")
+             and sys.modules[m] is not None)
+print(len(names), bad)
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(ROOT / "src"), str(ROOT)],
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(maxsplit=1)
+    assert int(n) > 20, out.stdout
+    assert bad.strip() == "[]", out.stdout

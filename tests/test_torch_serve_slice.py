@@ -3,7 +3,10 @@ through the JAX reference (GraphStore + PropertyRegistry + RequestPipeline,
 PageRank on its slab-sweep engine) and through the port, on the CPU.
 
 After every epoch both views are leaf-identical, the BFS tree is
-bit-identical and membership answers are equal.  PageRank is held to
+bit-identical and membership answers are equal.  With a maintenance policy
+that compacts mid-stream and WCC served as a fifth request kind, the pools
+(maintenance epochs included), versions, component labels and maintenance
+counters are identical after every request.  PageRank is held to
 ``PR_ATOL``: the port sums each row's lanes in another order than XLA, and
 the convergence test (L1 change > 1e-5) may then stop one iteration apart,
 which moves no entry by more than the L1 margin itself.
@@ -12,26 +15,29 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import assert_pools_equal, np_of
+from _torch_port import (assert_maintenance_equal, assert_pools_equal,
+                         assert_vectors_equal, np_of)
 
 from repro.algorithms import bfs_stream_property as jax_bfs_prop
 from repro.algorithms import pagerank_stream_property as jax_pr_prop
+from repro.algorithms import wcc_stream_property as jax_wcc_prop
 from repro.data.synth import rmat_edges
 from repro.launch import serve as jax_serve
 from repro import stream as jstream
 from repro_torch import stream as tstream
-from repro_torch.algorithms import bfs_stream_property, \
-    pagerank_stream_property
+from repro_torch.algorithms import (bfs_stream_property,
+                                    pagerank_stream_property,
+                                    wcc_stream_property)
 from repro_torch.launch import serve as torch_serve
 
 PR_ATOL = 2e-5
 PROPS = ["pagerank", "bfs_0"]
 
 
-def _requests(mod, V, edges, seed, n, batch, **kw):
+def _requests(mod, V, edges, seed, n, batch, props=PROPS, **kw):
     return list(mod.build_requests(V, edges, np.random.default_rng(seed),
                                    n_requests=n, batch=batch,
-                                   delete_frac=0.25, prop_names=PROPS, **kw))
+                                   delete_frac=0.25, prop_names=props, **kw))
 
 
 def _same_request(a, b):
@@ -112,6 +118,73 @@ def test_serve_loop_matches_reference(policy):
             np.testing.assert_allclose(np_of(tresp.payload["value"]),
                                        np_of(jresp.payload["value"]),
                                        rtol=0, atol=PR_ATOL)
+
+
+@pytest.mark.parametrize("policy", ["lazy", "eager"])
+def test_maintained_serve_loop_matches_reference(policy):
+    """The five-kind cycle with a policy that compacts every second update
+    (16 tombstones per update against about 1,500 edges)."""
+    V, batch, cycles = 256, 64, 4
+    props = PROPS + ["wcc"]
+    src, dst = rmat_edges(V, 2000, seed=0)
+    src, dst, _ = jstream.dedup_pairs(src, dst)
+    n = cycles * (len(props) + 2)
+    slack = n * batch // 64 + 512
+    cap = len(src) + n * batch + 4096
+    ratio = 0.015
+
+    js = jstream.GraphStore.from_edges(
+        V, src, dst, hashing=False, with_symmetric=False, slack_slabs=slack,
+        maintenance=jstream.MaintenancePolicy(tombstone_ratio=ratio))
+    jreg = jstream.PropertyRegistry(js)
+    jreg.register(jax_pr_prop(contrib_impl="sweep"), policy=policy)
+    jreg.register(jax_bfs_prop(0, edge_capacity=cap), policy=policy)
+    jreg.register(jax_wcc_prop(), policy=policy)
+    jpipe = jstream.RequestPipeline(js, jreg)
+
+    ts = tstream.GraphStore.from_edges(
+        V, src, dst, hashing=False, with_symmetric=False, slack_slabs=slack,
+        maintenance=tstream.MaintenancePolicy(tombstone_ratio=ratio),
+        device="cpu")
+    treg = tstream.PropertyRegistry(ts)
+    treg.register(pagerank_stream_property(), policy=policy)
+    treg.register(bfs_stream_property(0, edge_capacity=cap), policy=policy)
+    treg.register(wcc_stream_property(), policy=policy)
+    tpipe = tstream.RequestPipeline(ts, treg)
+
+    jreqs = _requests(jax_serve, V, (src, dst), 0, n, batch, props)
+    treqs = _requests(torch_serve, V, (src, dst), 0, n, batch, props)
+    for i, ((kind, jr), (_, tr)) in enumerate(zip(jreqs, treqs)):
+        _same_request(tr, jr)
+        jresp, = jpipe.run([jr])
+        tresp, = tpipe.run([tr])
+        what = f"request {i} ({kind})"
+        assert (tresp.kind, tresp.version) == (jresp.kind, jresp.version)
+        for view in ("forward", "transpose"):
+            assert_pools_equal(ts.views[view], js.views[view],
+                               f"{what}: {view}")
+        assert_maintenance_equal(ts, js, what)
+        # the WCC entry as it stands, without a catch-up
+        state, version = jreg.peek("wcc")
+        entry = treg._entries["wcc"]
+        assert entry.version == version, what
+        assert_vectors_equal(entry.state, state, f"{what}: wcc")
+        if kind == "update":
+            assert tresp.payload == jresp.payload
+        elif kind == "read:wcc":
+            assert_vectors_equal(tresp.payload["value"],
+                                 jresp.payload["value"], what)
+        elif kind == "read:bfs_0":
+            for a, b in zip(tresp.payload["value"], jresp.payload["value"]):
+                assert np.array_equal(np_of(a), np_of(b))
+        elif kind == "read:pagerank":
+            np.testing.assert_allclose(np_of(tresp.payload["value"]),
+                                       np_of(jresp.payload["value"]),
+                                       rtol=0, atol=PR_ATOL)
+        else:
+            assert np.array_equal(tresp.payload["found"],
+                                  jresp.payload["found"])
+    assert ts.maintenance_count == cycles // 2
 
 
 def test_serve_main_on_cpu_and_cuda_guard():

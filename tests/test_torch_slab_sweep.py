@@ -16,9 +16,8 @@ from _torch_port import np_of, to_port
 from repro.core import batch as jbatch
 from repro.core import slab_graph as jsg
 from repro.kernels.slab_sweep.ops import sweep_partials as jax_partials
+from repro.kernels.slab_pagerank.kernel import slab_contrib_sums_pallas
 from repro.kernels.slab_sweep.ops import sweep_vertices as jax_vertices
-from repro_torch.kernels.slab_pagerank import (slab_contrib_sums,
-                                               slab_contrib_sums_ref)
 from repro_torch.kernels.slab_sweep import (SEMIRINGS, sweep_partials,
                                             sweep_vertices)
 
@@ -129,14 +128,15 @@ def test_int32_values(semiring):
     _assert_close(semiring, got, want)
 
 
-def test_contrib_sums_binding():
+def test_pagerank_sums_match_contrib_kernel():
+    """PageRank's contribution sums: the ``sum`` sweep with no frontier is
+    the port's counterpart of the reference's ``slab_contrib_sums_pallas``."""
     gj, rng = _dynamic_graph(7, weighted=False)
     gt = to_port(gj)
-    contrib = torch.from_numpy(rng.uniform(0, 1, gj.n_vertices)
-                               .astype(np.float32))
-    from repro_torch.core.worklist import pool_edges
-    view = pool_edges(gt)
-    want = slab_contrib_sums_ref(view.dst, view.valid, contrib)
-    got = slab_contrib_sums(gt.keys, gt.slab_vertex, contrib)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=SUM_RTOL,
-                               atol=SUM_RTOL * float(want.abs().max()))
+    contrib = rng.uniform(0, 1, gj.n_vertices).astype(np.float32)
+    want = slab_contrib_sums_pallas(gj.keys, gj.slab_vertex,
+                                    jnp.asarray(contrib),
+                                    n_vertices=gj.n_vertices,
+                                    rows_per_block=8, interpret=True)
+    got = sweep_partials(gt, torch.from_numpy(contrib), semiring="sum")
+    _assert_close("sum", got, want)
