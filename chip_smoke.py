@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three phases, each printing JSON lines:
+Four phases, each printing JSON lines:
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -30,6 +30,24 @@ Three phases, each printing JSON lines:
    membership answers must match the ledger.  The check runs again after a
    forced slab reclamation and after a forced compaction, whose forward view
    must equal a compaction planned by the plain census and chain walk.
+4. **triangles** - a second store on the same RMAT scale-20 graph, hashed,
+   with the forward and symmetric views and a maintenance policy that
+   compacts at a tombstone ratio of 0.0015, serves a live triangle count
+   (``read:triangles``) through ``RequestPipeline``: a read, two cycles of
+   an insert-only update (49,152 loop-free pairs), a read, a delete-only
+   update (16,384 ledger edges) and a read, then 1,024 membership queries.
+   The launch counts are zeroed before the property's static count and
+   read after the membership check.  Self-checks without the reference:
+   Count() over sampled boot edges and over every edge of the top hub
+   against numpy's intersections of a host CSR, the maintained count
+   against a static recount after the policy's own compaction, the
+   symmetric view against the ledger's symmetric closure, and the
+   kernel-path membership probe against ``query_edges`` and the closure.
+   The intersection count is held against its plain version on the
+   inputs it was captured with (the static chunk with the most active
+   items, the first Count(G', G') of an insert epoch, the first call whose
+   G2 is the batch graph), the membership probe on the member queries;
+   both are timed as in phase 2.
 
 Any failed check exits nonzero.  The last lines are the card's name and
 power limit, the per-kernel JSON line and ``{"ok": true, "device": ...}``.
@@ -39,6 +57,7 @@ when the repository's sources are missing.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -55,10 +74,28 @@ SERVE_ARGS = ["--device", "cuda", "--vertices", "1048576",
               "--seed", "0"]
 #: the serve's request kinds after ``update``, in its cycle
 PROPS = ["pagerank", "bfs_0", "wcc"]
+#: the triangles phase: the serve's graph (RMAT scale 20), two update
+#: cycles that split the serve's 65,536-edge batch into its insert and
+#: delete halves, and the maintenance trigger that compacts at the second
+#: delete epoch's close (16,384 tombstones per delete epoch against about
+#: 16.1 M forward edges: a ratio of 0.0010, then 0.0020)
+TRI_VERTICES, TRI_EDGES = 1 << 20, 1 << 24
+TRI_INSERTS, TRI_DELETES, TRI_MEMBER = 49152, 16384, 1024
+TRI_TOMBSTONE_RATIO = 0.0015
+#: the serve phase's kernels; the triangles phase adds the other two
+SERVE_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
+                 "slab_chain_rank")
+INT32_MAX = 2 ** 31 - 1
 #: H100 SXM published rates (NVIDIA H100 datasheet): HBM3 bytes/s and
-#: float32 (non-tensor-core) operations/s, used for every kernel's bound
+#: float32 (non-tensor-core) operations/s, which counts a fused multiply-add
+#: as two over 128 float32 lanes per SM
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: int32 operations/s: a Hopper SM has 64 int32 lanes (NVIDIA H100 Tensor
+#: Core GPU Architecture whitepaper), half the float32 lanes, and a compare
+#: is one operation, so a quarter of the float32 rate at the same clock;
+#: the bound of the kernels whose work is key compares
+INT32_OPS_PER_S = F32_OPS_PER_S / 4
 #: PageRank tolerance of the self-check, in L1: both the maintained and the
 #: static vector stop at an L1 step <= 1e-5 with damping 0.85, which leaves
 #: each within 1e-5 * 0.85 / 0.15 = 5.7e-5 (L1) of the fixed point
@@ -141,9 +178,18 @@ def device_ms(torch, fn, *, flush=None, warmup: int = 3,
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def in_sorted(np, x, keys):
+    """``np.isin(x, keys)`` for sorted unique ``keys``, by binary search
+    (``np.isin`` sorts both arrays together on every call)."""
+    if not len(keys):
+        return np.zeros(len(x), bool)
+    return keys[np.minimum(np.searchsorted(keys, x), len(keys) - 1)] == x
+
+
+def bound(n_bytes: float, n_ops: float, *,
+          ops_per_s: float = F32_OPS_PER_S) -> dict:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(n_bytes)}
@@ -306,7 +352,7 @@ def compare_kernels(torch, got) -> list:
             rows_read=rows, hits=int(k[0].sum()),
             library_ms=None,
             **bound(rows * (512 + 4) + B * (4 + 4) + B * (1 + 4 + 4),
-                    rows * 128)))
+                    rows * 128, ops_per_s=INT32_OPS_PER_S)))
 
     # -- commit: the delete and insert plans ------------------------------------
     for B, (keys, deg, w, *plan) in sorted(got["commit"].items()):
@@ -332,7 +378,8 @@ def compare_kernels(torch, got) -> list:
             plain_ms=time_ms(torch, lambda: slab_commit_torch(
                 kk, dd, None, *plan)),
             live_lanes=live, library_ms=None,
-            **bound(B * 5 * 4 + live * 4 + n_deg * 8, B)))
+            **bound(B * 5 * 4 + live * 4 + n_deg * 8, B,
+                    ops_per_s=INT32_OPS_PER_S)))
 
     # -- sweep: the four semirings, with and without frontier -------------------
     base = got["sweep"][("min_plus", True)]
@@ -412,7 +459,8 @@ def compare_kernels(torch, got) -> list:
         plain_ms=time_ms(torch, lambda: slab_live_torch(keys, owner)),
         rows=S, rows_allocated=rows_alloc, live_lanes=int(p[0].sum()),
         library_ms=None,
-        **bound(rows_alloc * 512 + S * (4 + 4 + 512), S * 128)))
+        **bound(rows_alloc * 512 + S * (4 + 4 + 512), S * 128,
+                ops_per_s=INT32_OPS_PER_S)))
     del k, p
 
     # -- chain walk: the same compaction's plan ---------------------------------
@@ -434,7 +482,7 @@ def compare_kernels(torch, got) -> list:
         buckets=nb, slabs_visited=visited,
         longest_chain=int(p[2].max()) + 1, library_ms=None,
         **bound(visited * (4 + 4) + nxt.shape[0] * 3 * 4 + nb * 4,
-                visited)))
+                visited, ops_per_s=INT32_OPS_PER_S)))
     for r in results:
         emit({"phase": "kernels", **r})
     return results
@@ -484,6 +532,8 @@ def check_state(torch, np, out, want, stage: str) -> dict:
     store, registry, ledger = out["store"], out["registry"], out["ledger"]
     V = store.n_vertices
     dev = store.device
+    t0 = time.perf_counter()
+    split = {}
 
     # the maintained forward view holds exactly the ledger's edges
     view = pool_edges(store.forward)
@@ -498,6 +548,7 @@ def check_state(torch, np, out, want, stage: str) -> dict:
           f"{ledger_keys.numel()}")
     check(store.n_edges == len(ledger),
           f"{stage}: n_edges disagrees with the ledger")
+    split["edge_set_s"] = time.perf_counter() - t0
 
     tree = registry.read("bfs_0")
     check(torch.equal(tree.dist, want["tree"].dist)
@@ -510,26 +561,30 @@ def check_state(torch, np, out, want, stage: str) -> dict:
     labels = registry.read("wcc")
     check(torch.equal(labels, want["wcc"]),
           f"{stage}: WCC labels differ from scipy's weak components")
+    split["properties_s"] = time.perf_counter() - t0
 
     # membership: the last member request saw the final graph
     rng = np.random.default_rng(1)
     kind, req, resp, _ = out["responses"][-1]
     check(kind == "member", "the stream should end on a membership query")
     q = pair_keys(req.src, req.dst)
-    check(np.array_equal(resp.payload["found"], np.isin(q, ledger.keys)),
+    check(np.array_equal(resp.payload["found"],
+                         in_sorted(np, q, ledger.keys)),
           f"{stage}: membership answers disagree with the ledger")
     sample = ledger.keys[rng.choice(len(ledger), 4096, replace=False)]
     sp = EdgeLedger.pairs(sample)
     qs = np.concatenate([sp[:, 0], rng.integers(0, V, 4096)])
     qd = np.concatenate([sp[:, 1], rng.integers(0, V, 4096)])
     found = store.query(qs, qd)
-    check(np.array_equal(found, np.isin(pair_keys(qs, qd), ledger.keys)),
+    check(np.array_equal(found,
+                         in_sorted(np, pair_keys(qs, qd), ledger.keys)),
           f"{stage}: membership answers disagree with the ledger")
     return {"stage": stage, "edges": int(live.numel()),
             "bfs_reachable": int((tree.dist < 2 ** 30).sum()),
             "pagerank_l1": l1, "pagerank_static_iters":
             want["pagerank_iters"], "components": want["components"],
-            "member_hits": int(found.sum())}
+            "member_hits": int(found.sum()),
+            "split_s": {**split, "membership_s": time.perf_counter() - t0}}
 
 
 def check_maintenance(torch, np, out, want) -> list:
@@ -576,6 +631,394 @@ def check_maintenance(torch, np, out, want) -> list:
                  "live_slabs": rep.live_slabs,
                  "seconds": time.perf_counter() - t0})
     return done
+
+
+# ----------------------------------------------------------------------------
+# phase 4: live triangle counting on the symmetric view
+# ----------------------------------------------------------------------------
+
+class CountCapture:
+    """Stands in for ``slab_count`` in the engine and records its inputs:
+    in the ``static`` stage the chunk with the most active items (the pool
+    cloned once, since the static count leaves it as it is), in the
+    ``delta`` stage the first call whose G1 is its G2 (Count(G', G') of an
+    insert epoch) and the first call whose G2 is another graph (the batch
+    graph).  The pools mutate in place later, so captured G1 pools are
+    cloned; a batch graph is never written after it is built."""
+
+    def __init__(self, real):
+        self.real = real
+        self.stage = None
+        self.got = {}
+        self._clones = {}
+
+    def _pool(self, keys, nxt, boff, bcnt):
+        key = (self.stage, keys.data_ptr())
+        if key not in self._clones:
+            self._clones[key] = (keys.clone(), nxt.clone(), boff.clone(),
+                                 bcnt.clone())
+        return self._clones[key]
+
+    def __call__(self, g1k, g1n, g1o, g1c, g2k, g2n, start, us):
+        if self.stage == "static":
+            n = int((start != -1).sum())
+            best = self.got.get("static")
+            if best is None or n > best["active"]:
+                pool = self._pool(g1k, g1n, g1o, g1c)
+                self.got["static"] = dict(
+                    args=pool + pool[:2] + (start.clone(), us.clone()),
+                    active=n)
+        elif self.stage == "delta":
+            name = "incremental" if g2k is g1k else "batch graph"
+            if name not in self.got:
+                pool = self._pool(g1k, g1n, g1o, g1c)
+                g2 = pool[:2] if g2k is g1k else (g2k, g2n)
+                self.got[name] = dict(
+                    args=pool + g2 + (start.clone(), us.clone()),
+                    active=int((start != -1).sum()))
+        return self.real(g1k, g1n, g1o, g1c, g2k, g2n, start, us)
+
+
+def triangle_requests(np, V, ledger, rng):
+    """Yield ``(kind, request)``: a read, two cycles of an insert-only
+    update, a read, a delete-only update and a read, then a membership
+    query.  Reads sit between updates, so the pipeline coalesces none."""
+    from repro_torch.launch.serve import EdgeLedger, pair_keys
+    from repro_torch.stream import MembershipQuery, PropertyRead, UpdateBatch
+
+    yield "read:triangles", PropertyRead("triangles")
+    for _ in range(2):
+        s = rng.integers(0, V, TRI_INSERTS).astype(np.uint32)
+        d = rng.integers(0, V, TRI_INSERTS).astype(np.uint32)
+        d = np.where(s == d, (d + 1) % V, d).astype(np.uint32)
+        ledger.update(ledger.keys[:0], pair_keys(s, d))
+        yield "insert", UpdateBatch(ins_src=s, ins_dst=d)
+        yield "read:triangles", PropertyRead("triangles")
+        gone = ledger.keys[rng.choice(len(ledger), TRI_DELETES,
+                                      replace=False)]
+        ledger.update(gone, gone[:0])
+        p = EdgeLedger.pairs(gone)
+        yield "delete", UpdateBatch(del_src=p[:, 0], del_dst=p[:, 1])
+        yield "read:triangles", PropertyRead("triangles")
+    q = rng.integers(0, V, (TRI_MEMBER, 2)).astype(np.uint32)
+    yield "member", MembershipQuery(src=q[:, 0], dst=q[:, 1])
+
+
+def closure_keys(np, src, dst):
+    """Sorted ``pair_keys`` of the symmetric closure of (src, dst)."""
+    from repro_torch.launch.serve import pair_keys
+    return np.unique(np.concatenate([pair_keys(src, dst),
+                                     pair_keys(dst, src)]))
+
+
+def check_boot_counts(torch, np, store, src, dst) -> dict:
+    """Count() on the boot graph against numpy, independent of the port:
+    4,096 sampled symmetric edges (the sum of ``np.intersect1d`` of the
+    endpoints' neighbour lists in a host CSR) and every edge of the highest-
+    degree vertex h (the symmetric edges with both ends in N(h))."""
+    from repro_torch.algorithms.triangle import _sym_bpv
+    from repro_torch.kernels.slab_intersect import count_edges
+
+    t0 = time.perf_counter()
+    V, dev, g = store.n_vertices, store.device, store.symmetric
+    keys = closure_keys(np, src, dst)
+    cu = (keys >> np.uint64(32)).astype(np.int64)
+    cv = (keys & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    indptr = np.searchsorted(cu, np.arange(V + 1))
+    rng = np.random.default_rng(2)
+    pick = rng.choice(len(keys), 4096, replace=False)
+    want_sample = sum(
+        len(np.intersect1d(cv[indptr[u]:indptr[u + 1]],
+                           cv[indptr[v]:indptr[v + 1]], assume_unique=True))
+        for u, v in zip(cu[pick], cv[pick]))
+    h = int(np.argmax(np.diff(indptr)))
+    nbrs = cv[indptr[h]:indptr[h + 1]]
+    mark = np.zeros(V, bool)
+    mark[nbrs] = True
+    want_hub = int(np.sum(mark[cu] & mark[cv]))
+
+    def ids(a):
+        return torch.from_numpy(np.asarray(a).astype(np.uint32)
+                                .view(np.int32)).to(dev)
+
+    host_s = time.perf_counter() - t0
+    mb = _sym_bpv(g)
+    got = {}
+    for name, us, vs in (("sample", cu[pick], cv[pick]),
+                         ("hub", np.full(len(nbrs), h), nbrs)):
+        got[name] = int(count_edges(g, g, ids(us), ids(vs),
+                                    torch.ones(len(us), dtype=torch.bool,
+                                               device=dev), max_bpv=mb))
+    check(got["sample"] == want_sample,
+          f"Count() over 4,096 sampled edges: {got['sample']}, numpy "
+          f"{want_sample}")
+    check(got["hub"] == want_hub,
+          f"Count() over the hub's {len(nbrs)} edges: {got['hub']}, numpy "
+          f"{want_hub}")
+    return {"host_s": host_s, "sample_count": got["sample"], "hub": h,
+            "hub_degree": int(len(nbrs)), "hub_count": got["hub"],
+            "symmetric_edges": int(len(keys)), "max_bpv": mb}
+
+
+def count_work(torch, g1k, g1n, g1o, g1c, g2k, g2n, start, us) -> dict:
+    """What the count must read and compare for these items: the distinct
+    G2 rows the items walk, the candidates, the (candidate, G1 row) visits
+    of their probes and the distinct G1 rows probed."""
+    from repro_torch.core.hashing import bucket_hash, is_valid_vertex
+
+    act = start != -1
+    cur, u = start[act].long(), us[act].long()
+    n_u = int(torch.unique(u).numel())
+    boff, bcnt = g1o[u], g1c[u]
+    g2_rows, g1_rows = [], []
+    cands = visits = 0
+    while cur.numel():
+        g2_rows.append(cur)
+        rows = g2k[cur]
+        it, lane = torch.nonzero(is_valid_vertex(rows) & (bcnt > 0)[:, None],
+                                 as_tuple=True)
+        w_all = rows[it, lane]
+        cands += w_all.numel()
+        for c0 in range(0, w_all.numel(), 1 << 22):
+            i, w = it[c0:c0 + (1 << 22)], w_all[c0:c0 + (1 << 22)]
+            pc = (boff[i] + bucket_hash(w, bcnt[i])).long()
+            while pc.numel():
+                g1_rows.append(torch.unique(pc))
+                visits += pc.numel()
+                hit = (g1k[pc] == w[:, None]).any(dim=1)
+                nxt = g1n[pc]
+                keep = ~hit & (nxt != -1)
+                pc, w = nxt[keep].long(), w[keep]
+        nx = g2n[cur]
+        keep = nx != -1
+        cur, boff, bcnt = nx[keep].long(), boff[keep], bcnt[keep]
+
+    def distinct(parts):
+        return int(torch.unique(torch.cat(parts)).numel()) if parts else 0
+
+    return {"items": int(start.numel()), "active_items": int(act.sum()),
+            "g2_rows": distinct(g2_rows), "candidates": cands,
+            "g1_visits": visits, "g1_rows": distinct(g1_rows),
+            "distinct_u": n_u}
+
+
+def compare_triangle_kernels(torch, cap, member) -> list:
+    """The intersection count and the membership probe against their plain
+    versions on the captured inputs, timed as in phase 2."""
+    from repro_torch.kernels.slab_intersect import (probe_hits,
+                                                    probe_hits_torch,
+                                                    slab_count,
+                                                    slab_count_torch)
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=member[2].device)
+    results = []
+    for variant in ("static", "incremental", "batch graph"):
+        args = cap[variant]["args"]
+        k = slab_count(*args)
+        p = slab_count_torch(*args)
+        torch.cuda.synchronize()
+        check(k.dtype == p.dtype and torch.equal(k, p),
+              f"slab_count differs from its plain version ({variant})")
+        work = count_work(torch, *args)
+        B = work["items"]
+        # start and count of every item, u of each active item (an
+        # inactive item counts 0 whatever its u), u's bucket window once
+        # per distinct u, each walked G2 row and each probed G1 row once
+        # (keys and link); 128 lane compares per (candidate, G1 row) visit
+        n_bytes = (B * (4 + 4) + work["active_items"] * 4
+                   + work["distinct_u"] * 8
+                   + (work["g2_rows"] + work["g1_rows"]) * (512 + 4))
+        results.append(dict(
+            name="slab_count", variant=variant,
+            max_abs_err=int((k - p).abs().max()), total=int(p.sum()),
+            ms=device_ms(torch, lambda: slab_count(*args), flush=flush),
+            plain_ms=time_ms(torch, lambda: slab_count_torch(*args)),
+            library_ms=None, **work,
+            **bound(n_bytes, work["g1_visits"] * 128,
+                    ops_per_s=INT32_OPS_PER_S)))
+        del k, p
+
+    ws, rows, keys = member
+    k = probe_hits(ws, rows, keys)
+    p = probe_hits_torch(ws, rows, keys)
+    torch.cuda.synchronize()
+    check(torch.equal(k, p), "probe_hits differs from its plain version")
+    Q, C = rows.shape
+    distinct = int(torch.unique(rows[rows >= 0]).numel())
+    # the queries, their rows and each distinct row once, a bool out
+    results.append(dict(
+        name="probe_hits", variant=f"Q={Q}, C={C}",
+        max_abs_err=int((k.int() - p.int()).abs().max()),
+        ms=device_ms(torch, lambda: probe_hits(ws, rows, keys), flush=flush),
+        plain_ms=time_ms(torch, lambda: probe_hits_torch(ws, rows, keys)),
+        rows_read=distinct, hits=int(k.sum()), library_ms=None,
+        **bound(Q * 4 + Q * C * 4 + distinct * 512 + Q, distinct * 128,
+                ops_per_s=INT32_OPS_PER_S)))
+    for r in results:
+        emit({"phase": "triangle_kernels", **r})
+    return results
+
+
+def triangles_phase(torch, np) -> dict:
+    """Serve the live triangle count on the symmetric view at RMAT scale 20
+    and check it; returns the launch counts and the kernels' results."""
+    from repro_torch.algorithms import (triangle_stream_property,
+                                        triangles_static)
+    from repro_torch.algorithms.triangle import _sym_bpv
+    from repro_torch.core.batch import query_edges
+    from repro_torch.core.slab_graph import pool_stats
+    from repro_torch.core.worklist import pool_edges
+    from repro_torch.data import synth
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.slab_intersect import (materialize_chains,
+                                                    ops as intersect_ops,
+                                                    search_edges_kernel)
+    from repro_torch.launch.serve import EdgeLedger, pair_keys
+    from repro_torch.stream import (GraphStore, MaintenancePolicy,
+                                    PropertyRegistry, RequestPipeline,
+                                    dedup_pairs)
+
+    V = TRI_VERTICES
+    torch.cuda.reset_peak_memory_stats()
+    t0 = t_phase = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter() - t_phase
+
+    src, dst = synth.rmat_edges(V, TRI_EDGES, seed=0)
+    src, dst, _ = dedup_pairs(src, dst)
+    mark("graph generated")
+    # two insert epochs, each opening at most one slab per symmetric lane
+    store = GraphStore.from_edges(
+        V, src, dst, hashing=True, with_transpose=False,
+        with_symmetric=True, slack_slabs=4 * TRI_INSERTS + 512,
+        maintenance=MaintenancePolicy(tombstone_ratio=TRI_TOMBSTONE_RATIO),
+        device="cuda")
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    boot = check_boot_counts(torch, np, store, src, dst)
+    mark("boot counts checked")
+    emit({"phase": "triangles", "boot_s": boot_s,
+          "count_check_s": time.perf_counter() - t0, **boot,
+          "forward_edges": store.n_edges,
+          "symmetric_pool": pool_stats(store.symmetric)})
+
+    capture = CountCapture(intersect_ops.slab_count)
+    registry = PropertyRegistry(store)
+    pipeline = RequestPipeline(store, registry)
+    ledger = EdgeLedger(src, dst)
+    rng = np.random.default_rng(3)
+    mark("ledger")
+    responses = []
+    runtime.reset_launches()
+    with swapped(intersect_ops, slab_count=capture):
+        capture.stage = "static"
+        t0 = time.perf_counter()
+        registry.register(triangle_stream_property())
+        torch.cuda.synchronize()
+        static_s = time.perf_counter() - t0
+        capture.stage = None
+        mark("static count")
+        inserted = False
+        for kind, req in triangle_requests(np, V, ledger, rng):
+            capture.stage = ("delta" if kind == "read:triangles" and inserted
+                             and "incremental" not in capture.got else None)
+            before = dict(runtime.LAUNCHES)
+            resp = pipeline.run([req])[0]
+            launched = {k: n - before[k] for k, n in runtime.LAUNCHES.items()
+                        if n > before[k]}
+            responses.append((kind, req, resp, launched))
+            inserted = inserted or kind == "insert"
+            mark(f"request {len(responses) - 1}")
+            emit({"phase": "triangles", "request": len(responses) - 1,
+                  "kind": kind, "ms": 1e3 * resp.latency_s,
+                  "version": resp.version, "launched": launched,
+                  "maintenance_count": store.maintenance_count,
+                  **({"triangles": int(resp.payload["value"])}
+                     if resp.kind == "property" else {})})
+        capture.stage = None
+    maintained = int(registry.read("triangles"))
+    check(store.maintenance_count >= 1,
+          "the policy never compacted during the triangle stream")
+
+    # membership through the probe kernel: the member queries and 4,096
+    # edges of the ledger's symmetric closure
+    g = store.symmetric
+    pairs = EdgeLedger.pairs(ledger.keys)
+    closure = closure_keys(np, pairs[:, 0], pairs[:, 1])
+    mark("closure")
+    member = responses[-1][1]
+    sample = closure[np.random.default_rng(4).choice(len(closure), 4096,
+                                                     replace=False)]
+    sp = EdgeLedger.pairs(sample)
+    qs = np.concatenate([np.asarray(member.src, np.uint32), sp[:, 0]])
+    qd = np.concatenate([np.asarray(member.dst, np.uint32), sp[:, 1]])
+    tq = [torch.from_numpy(a.view(np.int32).copy()).to(g.device)
+          for a in (qs, qd)]
+    mask = torch.ones(len(qs), dtype=torch.bool, device=g.device)
+    max_chain = pool_stats(g)["max_chain"]
+    mark("pool stats")
+    found = search_edges_kernel(g, tq[0], tq[1], mask, max_chain=max_chain)
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    mark("membership")
+
+    t0 = time.perf_counter()
+    recount = int(triangles_static(g, max_bpv=_sym_bpv(g)))
+    recount_s = time.perf_counter() - t0
+    check(recount == maintained,
+          f"maintained count {maintained} != static recount {recount}")
+
+    # the symmetric view holds exactly the ledger's symmetric closure
+    view = pool_edges(g)
+    rows, lanes = torch.nonzero(view.valid, as_tuple=True)
+    live = torch.sort((g.slab_vertex[rows].long() << 32)
+                      | g.keys[rows, lanes].long()).values
+    want = torch.from_numpy(closure.astype(np.int64)).to(g.device)
+    check(live.numel() == want.numel() and torch.equal(live, want),
+          f"symmetric view holds {live.numel()} lanes, the closure "
+          f"{want.numel()}")
+    del view, rows, lanes, live, want
+    mark("recount and edge set")
+
+    want_found = in_sorted(np, pair_keys(qs, qd), closure)
+    check(np.array_equal(found.cpu().numpy(), want_found),
+          "search_edges_kernel disagrees with the closure")
+    check(torch.equal(found, query_edges(g, tq[0], tq[1])),
+          "search_edges_kernel disagrees with query_edges")
+    for name in ("slab_count", "probe_hits"):
+        check(launches[name] > 0,
+              f"{name} was never launched on the triangle path")
+    for name in ("static", "incremental", "batch graph"):
+        check(name in capture.got, f"slab_count never saw a {name} call")
+    mark("membership checked")
+    last = store.last_maintenance
+    emit({"phase": "triangles", "static_s": static_s,
+          "recount_s": recount_s, "triangles": maintained,
+          "six_t": 6 * maintained,
+          "static_total_int64": recount,
+          "static_sum_above_int32": 6 * recount > INT32_MAX,
+          "maintenance": {"passes": store.maintenance_count,
+                          "last": last.describe() if last else None,
+                          "events": store.maintenance_events},
+          "membership_hits": int(found.sum()), "max_chain": max_chain,
+          "kernels": launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "captured_active_items": {k: v["active"]
+                                    for k, v in capture.got.items()},
+          "marks_s": marks})
+    print(f"triangles: {recount} (int64; the sum of |N(u) & N(v)| over the "
+          f"symmetric edges is {6 * recount}, "
+          f"{'above' if 6 * recount > INT32_MAX else 'within'} int32)",
+          flush=True)
+
+    rows = materialize_chains(g, tq[0], tq[1], mask, max_chain=max_chain)
+    results = compare_triangle_kernels(torch, capture.got,
+                                       (tq[1], rows, g.keys))
+    return {"launches": launches, "results": results}
+
 
 
 def main() -> int:
@@ -643,8 +1086,9 @@ def main() -> int:
                           "last": last.describe() if last else None,
                           "scan_s": last.scan_s if last else None,
                           "events": store.maintenance_events}})
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"{name} was never launched on the main path")
     check(store.maintenance_count >= 1,
           "the maintenance policy never compacted during the serve")
     per_kind = {}
@@ -666,24 +1110,42 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     for line in check_maintenance(torch, np, out, want):
         emit({"phase": "self_check", **line})
+    del out, want, store, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ triangles
+    t0 = time.perf_counter()
+    tri = triangles_phase(torch, np)
+    results += tri["results"]
+    launches.update({k: tri["launches"][k]
+                     for k in ("slab_count", "probe_hits")})
+    emit({"phase": "triangles", "seconds": time.perf_counter() - t0})
 
     # ------------------------------------------------------------- summary
     batch = f"B={serve_mod.parse_args(SERVE_ARGS).batch}"
     main_variant = {"slab_probe": batch, "slab_commit": batch,
                     "slab_sweep": "sum (main path)",
                     "slab_live": "forward view",
-                    "slab_chain_rank": "forward view"}
+                    "slab_chain_rank": "forward view",
+                    "slab_count": "static",
+                    "probe_hits": next(r["variant"] for r in results
+                                       if r["name"] == "probe_hits")}
     replaces = {
         "slab_probe": "src/repro/kernels/slab_update/kernel.py:81",
         "slab_commit": "src/repro/kernels/slab_update/kernel.py:160",
         "slab_sweep": "src/repro/kernels/slab_sweep/kernel.py:80",
         "slab_live": "src/repro/kernels/slab_compact/kernel.py:60",
-        "slab_chain_rank": "src/repro/kernels/slab_compact/kernel.py:137"}
+        "slab_chain_rank": "src/repro/kernels/slab_compact/kernel.py:137",
+        "slab_count": "src/repro/kernels/slab_intersect/kernel.py:120",
+        "probe_hits": "src/repro/kernels/slab_intersect/kernel.py:180"}
     source = {"slab_probe": "src/repro_torch/csrc/slab_update.cu",
               "slab_commit": "src/repro_torch/csrc/slab_update.cu",
               "slab_sweep": "src/repro_torch/csrc/slab_sweep.cu",
               "slab_live": "src/repro_torch/csrc/slab_compact.cu",
-              "slab_chain_rank": "src/repro_torch/csrc/slab_compact.cu"}
+              "slab_chain_rank": "src/repro_torch/csrc/slab_compact.cu",
+              "slab_count": "src/repro_torch/csrc/slab_intersect.cu",
+              "probe_hits": "src/repro_torch/csrc/slab_intersect.cu"}
     kernels = []
     for name in main_variant:
         rows = [r for r in results if r["name"] == name]

@@ -1,4 +1,5 @@
-"""Dynamic graph algorithms on the port's core: BFS, SSSP, PageRank and WCC.
+"""Dynamic graph algorithms on the port's core: BFS, SSSP, PageRank, WCC and
+triangle counting.
 Each ``stream_property`` hook (re-exported as ``<algo>_stream_property``)
 packages an incremental maintainer for the stream registry."""
 from .bfs import bfs_decremental, bfs_incremental, bfs_tree_static
@@ -8,6 +9,10 @@ from .pagerank import stream_property as pagerank_stream_property
 from .sssp import (INF, NO_PARENT, TreeState, init_state, relax_edges,
                    relax_sweep, run_to_convergence, sssp_decremental,
                    sssp_incremental, sssp_static)
+from .triangle import (batch_graph, count_kernel, search_edges,
+                       triangles_decremental, triangles_incremental,
+                       triangles_static, undirected_host)
+from .triangle import stream_property as triangle_stream_property
 from .wcc import (count_components, wcc_incremental_batch,
                   wcc_incremental_naive, wcc_labelprop_ref,
                   wcc_labelprop_sweep, wcc_static)
@@ -18,6 +23,9 @@ __all__ = ["bfs_decremental", "bfs_incremental", "bfs_tree_static",
            "pagerank_stream_property", "INF", "NO_PARENT", "TreeState",
            "init_state", "relax_edges", "relax_sweep", "run_to_convergence",
            "sssp_decremental", "sssp_incremental", "sssp_static",
+           "batch_graph", "count_kernel", "search_edges",
+           "triangles_decremental", "triangles_incremental",
+           "triangles_static", "undirected_host", "triangle_stream_property",
            "count_components", "wcc_incremental_batch",
            "wcc_incremental_naive", "wcc_labelprop_ref",
            "wcc_labelprop_sweep", "wcc_static", "wcc_stream_property"]

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .hashing import (EMPTY_KEY, INVALID_SLAB, SLAB_WIDTH, TOMBSTONE_KEY,
                       is_valid_vertex)
 
@@ -95,40 +96,47 @@ def empty(n_vertices: int, bucket_count: np.ndarray, capacity_slabs: int, *,
           weighted: bool = False, device="cuda") -> SlabGraph:
     """An empty graph: head slab of bucket ``b`` is row ``b``; overflow slabs
     are bump-allocated from row ``n_buckets`` up.  On ``cuda`` unless
-    ``device="cpu"``; raises without a card."""
+    ``device="cpu"``; raises without a card.
+
+    Only ``bucket_count`` crosses from the host; the pool is filled on the
+    device (the triangle plane builds one per update epoch)."""
+    dev = resolve_device(device)
     bucket_count = np.asarray(bucket_count, dtype=np.int32)
     if bucket_count.shape != (n_vertices,):
         raise ValueError(f"bucket_count has shape {bucket_count.shape}, "
                          f"expected ({n_vertices},)")
-    bucket_offset = np.zeros(n_vertices + 1, dtype=np.int32)
-    np.cumsum(bucket_count, out=bucket_offset[1:])
-    n_buckets = int(bucket_offset[-1])
+    n_buckets = int(bucket_count.sum(dtype=np.int64))
     S = int(max(capacity_slabs, n_buckets + 1))
-    bucket_vertex = np.repeat(np.arange(n_vertices, dtype=np.int32),
-                              bucket_count)
-    slab_vertex = np.full(S, -1, dtype=np.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    count = torch.tensor(bucket_count, device=dev)
+    bucket_offset = torch.zeros(n_vertices + 1, **i32)
+    bucket_offset[1:] = torch.cumsum(count, 0, dtype=torch.int32)
+    bucket_vertex = torch.repeat_interleave(
+        torch.arange(n_vertices, **i32), count, output_size=n_buckets)
+    slab_vertex = torch.full((S,), -1, **i32)
     slab_vertex[:n_buckets] = bucket_vertex
-    return _from_host(dict(
-        keys=np.full((S, SLAB_WIDTH), EMPTY_KEY, np.int32),
-        weights=(np.zeros((S, SLAB_WIDTH), np.float32) if weighted
-                 else None),
-        next_slab=np.full(S, INVALID_SLAB, np.int32),
+    return SlabGraph(
+        keys=torch.full((S, SLAB_WIDTH), EMPTY_KEY, **i32),
+        weights=(torch.zeros((S, SLAB_WIDTH), dtype=torch.float32,
+                             device=dev) if weighted else None),
+        next_slab=torch.full((S,), INVALID_SLAB, **i32),
         slab_vertex=slab_vertex,
         bucket_offset=bucket_offset,
-        bucket_count=bucket_count,
+        bucket_count=count,
         bucket_vertex=bucket_vertex,
-        tail_slab=np.arange(n_buckets, dtype=np.int32),
-        tail_fill=np.zeros(n_buckets, np.int32),
-        upd_flag=np.zeros(n_buckets, bool),
-        upd_slab=np.arange(n_buckets, dtype=np.int32),
-        upd_lane=np.zeros(n_buckets, np.int32),
-        next_free=np.int32(n_buckets),
-        epoch_next_free=np.int32(n_buckets),
-        free_list=np.full(S, INVALID_SLAB, np.int32),
-        free_top=np.int32(0),
-        slab_new=np.zeros(S, bool),
-        degree=np.zeros(n_vertices, np.int32),
-        n_edges=np.int32(0)), device)
+        tail_slab=torch.arange(n_buckets, **i32),
+        tail_fill=torch.zeros(n_buckets, **i32),
+        upd_flag=torch.zeros(n_buckets, dtype=torch.bool, device=dev),
+        upd_slab=torch.arange(n_buckets, **i32),
+        upd_lane=torch.zeros(n_buckets, **i32),
+        next_free=torch.tensor(n_buckets, **i32),
+        epoch_next_free=torch.tensor(n_buckets, **i32),
+        free_list=torch.full((S,), INVALID_SLAB, **i32),
+        free_top=torch.zeros((), **i32),
+        slab_new=torch.zeros(S, dtype=torch.bool, device=dev),
+        degree=torch.zeros(n_vertices, **i32),
+        n_edges=torch.zeros((), **i32),
+        n_vertices=n_vertices, n_buckets=n_buckets, weighted=weighted)
 
 
 def _from_host(fields: dict, device) -> SlabGraph:

@@ -2,8 +2,8 @@
 
 Run on a machine with a CUDA card: ``python -m pytest -q -m gpu``.  Without
 one every test here skips (the decision is made in the fixture, not at
-import).  Probe, commit, census, chain walk and the min family must match
-exactly; the float
+import).  Probe, commit, census, chain walk, the intersection count, the
+membership probe and the min family must match exactly; the float
 ``sum`` sweep adds lanes in another order, so it is held to
 ``rtol=1e-6`` of the row totals.
 """
@@ -16,11 +16,17 @@ from repro_torch.core.bridge import slab_graph_from_numpy, \
     slab_graph_to_numpy
 from repro_torch.core.slab_graph import FIELDS, from_edges_host
 from repro_torch.kernels import runtime
+from repro_torch.algorithms import triangle as ttri
 from repro_torch.kernels.slab_compact import (chain_rank, chain_rank_torch,
                                               compact, slab_live,
                                               slab_live_torch)
 from repro_torch.kernels.slab_sweep import SEMIRINGS, slab_sweep, \
     slab_sweep_ref
+from repro_torch.kernels.slab_intersect import (count_edges,
+                                                materialize_chains,
+                                                probe_hits, probe_hits_torch,
+                                                slab_count, slab_count_torch)
+from repro_torch.kernels.slab_intersect.ops import _work_items
 from repro_torch.kernels.slab_update import (slab_commit, slab_commit_torch,
                                              slab_probe, slab_probe_torch)
 
@@ -198,3 +204,93 @@ def test_compaction_on_card_matches_cpu(cuda, graph):
     assert torch.equal(rc.perm.cpu(), rh.perm)
     assert (rc.new_capacity, rc.live_lanes) == (rh.new_capacity,
                                                 rh.live_lanes)
+
+
+@pytest.fixture(scope="module")
+def undirected(cuda):
+    """A hashed symmetric graph with a hub of several buckets, on the card
+    and on the CPU, and its loop-free undirected edges."""
+    rng = np.random.default_rng(1)
+    V, E = 3000, 40000
+    src = rng.integers(0, V, E)
+    dst = rng.integers(0, V, E)
+    src[:2000] = 5
+    keep = src != dst
+    lo, hi = ttri.undirected_host(src[keep], dst[keep])
+    s2, d2 = np.concatenate([lo, hi]), np.concatenate([hi, lo])
+    return rng, V, lo, hi, [from_edges_host(V, s2, d2, hashing=True,
+                                            device=dev)
+                            for dev in (cuda, "cpu")]
+
+
+def _items(g2, lo, hi, rng, dev):
+    n = 2048
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    return _work_items(g2, _ids(lo[:n], dev), _ids(hi[:n], dev), mask,
+                       max_bpv=ttri._sym_bpv(g2))
+
+
+@pytest.mark.parametrize("g2_kind", ["same", "batch graph"])
+def test_slab_count_matches_plain(cuda, undirected, g2_kind):
+    rng, V, lo, hi, (g, _) = undirected
+    g2 = g
+    if g2_kind == "batch graph":
+        b = 512
+        g2 = ttri.batch_graph(V, _ids(lo[-b:], cuda), _ids(hi[-b:], cuda),
+                              torch.ones(b, dtype=torch.bool, device=cuda))
+    start, us, _ = _items(g2, lo, hi, rng, cuda)
+    assert int((start != -1).sum()) > 0
+    args = (g.keys, g.next_slab, g.bucket_offset, g.bucket_count, g2.keys,
+            g2.next_slab, start, us)
+    before = runtime.LAUNCHES["slab_count"]
+    got = slab_count(*args)
+    want = slab_count_torch(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_count"] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert int(want.sum()) > 0
+
+
+def test_slab_count_stops_on_a_corrupt_chain(cuda, undirected):
+    """A chain that loops on itself ends after as many hops as the pool
+    has rows instead of hanging the card."""
+    rng, _, lo, hi, (g, _) = undirected
+    start, us, _ = _items(g, lo, hi, rng, cuda)
+    nxt = g.next_slab.clone()
+    row = int(start[start != -1][0])
+    nxt[row] = row
+    slab_count(g.keys, nxt, g.bucket_offset, g.bucket_count, g.keys, nxt,
+               start, us)
+    torch.cuda.synchronize()
+
+
+def test_probe_hits_matches_plain(cuda, undirected):
+    rng, V, lo, hi, (g, _) = undirected
+    Q = 4096
+    qs = np.concatenate([lo[:Q // 2], rng.integers(0, V, Q // 2)])
+    qd = np.concatenate([hi[:Q // 2], rng.integers(0, V, Q // 2)])
+    mask = torch.ones(Q, dtype=torch.bool, device=cuda)
+    rows = materialize_chains(g, _ids(qs, cuda), _ids(qd, cuda), mask,
+                              max_chain=4)
+    before = runtime.LAUNCHES["probe_hits"]
+    got = probe_hits(_ids(qd, cuda), rows, g.keys)
+    want = probe_hits_torch(_ids(qd, cuda), rows, g.keys)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["probe_hits"] == before + 1
+    assert torch.equal(got, want)
+    assert bool(got[:Q // 2].all())
+
+
+def test_count_edges_on_card_matches_cpu(cuda, undirected):
+    rng, _, lo, hi, (gc, gh) = undirected
+    n = 4096
+    mask = rng.random(n) < 0.9
+    mb = ttri._sym_bpv(gh)
+    out = []
+    for g, dev in ((gc, cuda), (gh, torch.device("cpu"))):
+        out.append(int(count_edges(
+            g, g, _ids(lo[:n], dev), _ids(hi[:n], dev),
+            torch.from_numpy(mask).to(dev), max_bpv=mb)))
+    assert out[0] == out[1] > 0
+    assert int(ttri.triangles_static(gc, max_bpv=mb)) == \
+        int(ttri.triangles_static(gh, max_bpv=mb))

@@ -1,0 +1,165 @@
+"""Port parity: the slab_intersect family (triangle counting's engine)
+against the JAX reference on the CPU.
+
+The reference's kernels run in interpret mode.  Everything here is integer:
+per-item counts, totals, candidate rows and membership answers must be
+bit-identical (no tolerance).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import assert_vectors_equal, ids, to_port
+from test_triangle_stream import _und_graph
+
+from repro.algorithms import search_edges as jsearch_edges
+from repro.core import from_edges_host
+from repro.kernels import slab_intersect as jsi
+from repro.kernels.slab_intersect.ops import _work_items as j_work_items
+from repro_torch.kernels import slab_intersect as tsi
+from repro_torch.kernels.slab_intersect.ops import _work_items
+
+
+def _case(seed, hashing, pair):
+    """A random undirected graph G1 and the (G2, edges) Count() reads: G1
+    itself, or a second, sparser graph of the other bucket layout."""
+    rng = np.random.default_rng(seed)
+    V = int(rng.integers(16, 80))
+    E = int(rng.integers(100, 200))
+    src = rng.integers(0, V, E).astype(np.uint32)
+    dst = rng.integers(0, V, E).astype(np.uint32)
+    g1 = _und_graph(V, src, dst, hashing=hashing)
+    g2 = g1
+    if pair == "cross":
+        src = rng.integers(0, V, 40).astype(np.uint32)
+        dst = rng.integers(0, V, 40).astype(np.uint32)
+        g2 = _und_graph(V, src, dst, hashing=not hashing)
+    mask = rng.random(len(src)) < 0.9
+    return g1, g2, src, dst, mask
+
+
+@pytest.mark.parametrize("pair", ["same", "cross"])
+@pytest.mark.parametrize("hashing", [True, False])
+def test_slab_count_per_item_matches_pallas(hashing, pair):
+    g1, g2, src, dst, mask = _case(3 + 2 * hashing + (pair == "cross"),
+                                   hashing, pair)
+    mb = int(jnp.max(g2.bucket_count))
+    jcur, ju, jm = j_work_items(g2, jnp.asarray(src), jnp.asarray(dst),
+                                jnp.asarray(mask), max_bpv=mb)
+    t1 = to_port(g1)
+    t2 = t1 if pair == "same" else to_port(g2)
+    tcur, tu, tm = _work_items(t2, ids(src), ids(dst),
+                               torch.from_numpy(mask), max_bpv=mb)
+    for a, b, what in ((tcur, jcur, "start"), (tu, ju, "u"),
+                       (tm, jm, "mask")):
+        assert_vectors_equal(a, b, what)
+    want = jsi.slab_count_pallas(g1.keys, g1.next_slab, g1.bucket_offset,
+                                 g1.bucket_count, g2.keys, g2.next_slab,
+                                 jcur, ju, interpret=True)
+    args = (t1.keys, t1.next_slab, t1.bucket_offset, t1.bucket_count,
+            t2.keys, t2.next_slab, tcur, tu)
+    got = tsi.slab_count_torch(*args)
+    assert_vectors_equal(got, want, "per-item counts")
+    assert int(want.sum()) > 0
+    # on CPU tensors the wrapper is its plain version
+    assert torch.equal(tsi.slab_count(*args), got)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_count_edges_matches_reference(seed):
+    hashing = bool(seed % 2)
+    g1, g2, src, dst, mask = _case(seed, hashing,
+                                   "cross" if seed >= 2 else "same")
+    mb = int(jnp.max(g2.bucket_count))
+    us, vs, m = jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask)
+    want = int(jsi.count_edges_ref(g1, g2, us, vs, m, max_bpv=mb))
+    assert want == int(jsi.count_edges(g1, g2, us, vs, m, impl="jnp",
+                                       max_bpv=mb))
+    t1, t2 = to_port(g1), to_port(g2)
+    targs = (ids(src), ids(dst), torch.from_numpy(mask))
+    for impl in ("auto", "torch", "oracle"):
+        got = tsi.count_edges(t1, t2, *targs, impl=impl, max_bpv=mb)
+        assert got.dtype == torch.int64 and got.dim() == 0
+        assert int(got) == want, impl
+    assert int(tsi.count_edges_ref(t1, t2, *targs, max_bpv=mb,
+                                   lane_chunk=16)) == want
+
+
+def test_count_edges_unknown_impl_raises():
+    g = to_port(_und_graph(8, np.array([0], np.uint32),
+                           np.array([1], np.uint32)))
+    args = (g, g, ids([0]), ids([1]), torch.ones(1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="unknown impl"):
+        tsi.count_edges(*args, impl="pallas")
+    with pytest.raises(ValueError, match="does not match"):
+        tsi.count_edges(*args, impl="cuda")
+
+
+@pytest.mark.parametrize("Q,C,S", [(8, 2, 16), (300, 4, 64), (1024, 8, 256)])
+def test_probe_hits_matches(Q, C, S):
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1000, (S, 128)).astype(np.uint32)
+    keys[::7, ::3] = 0xFFFFFFFE                      # EMPTY lanes
+    ws = rng.integers(0, 1000, Q).astype(np.uint32)
+    ws[::11] = 0xFFFFFFFE                            # a sentinel key
+    rows = rng.integers(-1, S, (Q, C)).astype(np.int32)
+    want = jsi.probe_hits_pallas(jnp.asarray(ws), jnp.asarray(rows),
+                                 jnp.asarray(keys), queries_per_block=128,
+                                 interpret=True)
+    assert np.array_equal(np.asarray(want), np.asarray(jsi.probe_hits_ref(
+        jnp.asarray(ws), jnp.asarray(rows), jnp.asarray(keys))))
+    tk = torch.from_numpy(keys.view(np.int32).copy())
+    tw = torch.from_numpy(ws.view(np.int32).copy())
+    tr = torch.from_numpy(rows)
+    for fn in (tsi.probe_hits_torch, tsi.probe_hits, tsi.probe_hits_ref):
+        assert_vectors_equal(fn(tw, tr, tk), want, fn.__name__)
+
+
+@pytest.fixture(scope="module")
+def hashed():
+    rng = np.random.default_rng(6)
+    n = 256
+    src = rng.integers(0, n, 400).astype(np.uint32)
+    dst = rng.integers(0, n, 400).astype(np.uint32)
+    src[:200] = 3                            # a vertex of three buckets
+    dst[:200] = np.arange(200)
+    gj = from_edges_host(n, src, dst, hashing=True)
+    qs = rng.integers(0, n, 128).astype(np.uint32)
+    qd = np.concatenate([dst[:64], rng.integers(0, n, 64)]).astype(np.uint32)
+    qs[:64] = src[:64]
+    mask = rng.random(128) < 0.9
+    return gj, to_port(gj), qs, qd, mask
+
+
+@pytest.mark.parametrize("max_chain", [1, 3, 8])
+def test_adjacency_rows_and_chains_match(hashed, max_chain):
+    gj, gt, qs, qd, mask = hashed
+    mb = int(jnp.max(gj.bucket_count))
+    assert mb > 1
+    jm = jnp.asarray(mask)
+    tm = torch.from_numpy(mask)
+    assert_vectors_equal(
+        tsi.adjacency_rows(gt, ids(qs), tm, max_bpv=mb, max_chain=max_chain),
+        jsi.adjacency_rows(gj, jnp.asarray(qs), jm, max_bpv=mb,
+                           max_chain=max_chain), "adjacency rows")
+    assert_vectors_equal(
+        tsi.materialize_chains(gt, ids(qs), ids(qd), tm,
+                               max_chain=max_chain),
+        jsi.materialize_chains(gj, jnp.asarray(qs), jnp.asarray(qd), jm,
+                               max_chain=max_chain), "chains")
+
+
+def test_search_edges_kernel_matches(hashed):
+    gj, gt, qs, qd, mask = hashed
+    jm, tm = jnp.asarray(mask), torch.from_numpy(mask)
+    want = jsearch_edges(gj, jnp.asarray(qs), jnp.asarray(qd), jm)
+    assert_vectors_equal(
+        jsi.search_edges_kernel(gj, jnp.asarray(qs), jnp.asarray(qd), jm,
+                                max_chain=8), want, "reference kernel path")
+    assert int(np.asarray(want).sum()) > 0
+    assert_vectors_equal(
+        tsi.search_edges_kernel(gt, ids(qs), ids(qd), tm, max_chain=8),
+        want, "port kernel path")
+    assert_vectors_equal(tsi.search_edges_ref(gt, ids(qs), ids(qd), tm),
+                         want, "oracle")

@@ -66,6 +66,54 @@ def test_empty_grow_and_close_match(hashing):
     assert tsg.next_pow2(70) == jsg.next_pow2(70) == 128
 
 
+def _empty_host(V, bucket_count, capacity, weighted):
+    """The fields of an empty pool, filled on the host with numpy."""
+    offset = np.zeros(V + 1, np.int32)
+    np.cumsum(bucket_count, out=offset[1:])
+    nb = int(offset[-1])
+    S = max(capacity, nb + 1)
+    bucket_vertex = np.repeat(np.arange(V, dtype=np.int32), bucket_count)
+    slab_vertex = np.full(S, -1, np.int32)
+    slab_vertex[:nb] = bucket_vertex
+    return dict(
+        keys=np.full((S, 128), -2, np.int32),
+        weights=np.zeros((S, 128), np.float32) if weighted else None,
+        next_slab=np.full(S, -1, np.int32), slab_vertex=slab_vertex,
+        bucket_offset=offset, bucket_count=bucket_count,
+        bucket_vertex=bucket_vertex, tail_slab=np.arange(nb, dtype=np.int32),
+        tail_fill=np.zeros(nb, np.int32), upd_flag=np.zeros(nb, bool),
+        upd_slab=np.arange(nb, dtype=np.int32),
+        upd_lane=np.zeros(nb, np.int32), next_free=np.int32(nb),
+        epoch_next_free=np.int32(nb), free_list=np.full(S, -1, np.int32),
+        free_top=np.int32(0), slab_new=np.zeros(S, bool),
+        degree=np.zeros(V, np.int32), n_edges=np.int32(0))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("counts", ["ones", "planned", "zeros"])
+def test_empty_device_build_matches_host_build(counts, weighted):
+    """``empty`` fills the pool with tensor ops on the target device; it is
+    leaf-identical to the same pool filled with numpy on the host."""
+    V = 37
+    bc = {"ones": np.ones(V, np.int32),
+          "planned": tsg.plan_buckets(V, np.arange(V) * 30),
+          "zeros": np.where(np.arange(V) % 5 == 0, 0, 2).astype(np.int32)
+          }[counts]
+    for cap in (8, 300):
+        host = slab_graph_from_numpy(_empty_host(V, bc, cap, weighted), CPU)
+        got = tsg.empty(V, bc, cap, weighted=weighted, device="cpu")
+        assert (got.n_vertices, got.n_buckets, got.weighted) == (
+            host.n_vertices, host.n_buckets, host.weighted)
+        for name in tsg.FIELDS:
+            a, b = getattr(got, name), getattr(host, name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b), name
+    before = got.bucket_count.clone()
+    bc += 1                          # the graph keeps no view of the input
+    assert torch.equal(got.bucket_count, before)
+
+
 def test_update_slab_pointers_breaks_aliases():
     g = tsg.update_slab_pointers(tsg.empty(4, np.ones(4, np.int32), 16,
                                            device="cpu"))
