@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four phases, each printing JSON lines:
+Six phases, each printing JSON lines:
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -48,6 +48,28 @@ Four phases, each printing JSON lines:
    items, the first Count(G', G') of an insert epoch, the first call whose
    G2 is the batch graph), the membership probe on the member queries;
    both are timed as in phase 2.
+5. **lm** - gemma2-9b at its full config (42 layers, d_model 3584, bf16,
+   random weights from a seeded generator) serves two prompts of 8,192
+   tokens (``lm_batches``, seed 0): request 1 is the prefill through
+   ``build_lm_prefill_step`` (one ``flash_attention`` launch per layer),
+   requests 2-129 are 128 greedy decode steps through
+   ``build_lm_decode_step`` against a cache of 8,320 slots seeded from the
+   prefill's.  The launch counts are zeroed just before the prefill and
+   read after the last step.  Self-checks without the reference: ``forward``
+   over the 8,320 prompt and generated tokens (through the kernel) must
+   give the prefill's logits at position 8,191 and each decode step's at
+   its position.  The same weights in float32 then serve a prefill and 16
+   decode steps against a float32 forward, at a limit that the phase shows
+   two planted faults (the position and the ring slot off by one) fail.
+   Kernel 10 is held to ``attention_ref`` on the q/k/v the prefill gave
+   its first local and first global layer, at a limit that fails a
+   dropped key tile or a mask edge moved by a tile on the last query tile,
+   and timed on the device alone beside PyTorch's SDPA (without softcap,
+   which SDPA lacks).
+6. **embedding_bag** - kernel 9 through its op on MIND's table (2**21 x 64
+   float32, and a bfloat16 copy) for 50-slot history bags from
+   ``recsys_batches`` (B = 512 and 65,536), against its plain version and
+   ``F.embedding_bag``, timed on the device alone.
 
 Any failed check exits nonzero.  The last lines are the card's name and
 power limit, the per-kernel JSON line and ``{"ok": true, "device": ...}``.
@@ -57,6 +79,7 @@ when the repository's sources are missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -86,6 +109,46 @@ TRI_TOMBSTONE_RATIO = 0.0015
 SERVE_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
                  "slab_chain_rank")
 INT32_MAX = 2 ** 31 - 1
+#: the LM phase: gemma2-9b serving 2 prompts of 8,192 tokens (a multiple of
+#: the 4,096-token window, so the prefill's last-window cache lines up with
+#: the decode ring) and 128 greedy tokens
+LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 128
+#: decode (and prefill) logits against forward's at the same positions.
+#: Both are bf16 serves of the same weights; each lands up to ~4.4 (mean
+#: ~0.27) from a float32 forward of those weights (the float32 oracle below,
+#: printed every run), and at this seed they differ from each other by up
+#: to 0.997.  A decode at the position off by one lands 1.63 from forward,
+#: one with the ring slots off by one only 1.09 (PERF.md, Findings), so 1.3
+#: sits between the clean reading and the position fault; the bf16 noise
+#: leaves the ring fault in reach only of the float32 gate below.
+LM_LOGIT_ATOL = 1.3
+#: decode steps rerun as served and with each planted fault (position off
+#: by one, ring slots off by one), in bf16 and in float32
+LM_FAULT_STEPS = 16
+#: the float32 model's prefill and decode against its own forward: float32
+#: reordering alone moves them 3.7e-4 at most, the planted faults 0.0125
+#: (ring) and 0.147 (position); 2e-3 is about the geometric mean of the
+#: clean reading and the smaller fault, and the phase checks both faults
+#: fail it
+LM_F32_ATOL = 2e-3
+#: kernel 10 against attention_ref in bf16: rtol 2e-2 as the reference test
+#: (tests/test_kernels.py:47), which covers one bf16 rounding of either
+#: output; atol 1e-3, well under the outputs' typical magnitude (the phase
+#: prints the mean and per-row median |output| of both captured layers), so
+#: that an output near 0 is held to its own scale.  The phase also plants a
+#: dropped key tile and a mask edge moved by one tile in a dense float32
+#: version of the last query tile and prints whether this tolerance fails
+#: them.
+ATTN_ATOL, ATTN_RTOL = 1e-3, 2e-2
+#: SDPA against the kernel rerun without softcap: another algorithm, so the
+#: reference test's bf16 tolerance
+LIB_TOL = 2e-2
+#: the EmbeddingBag phase: MIND's table (repro/configs/mind.py: 2**21 items,
+#: embed_dim 64, 50-item histories), its serve_p99 and train_batch batches
+BAG_ROWS, BAG_DIM, BAG_HIST = 2 ** 21, 64, 50
+BAG_BATCHES = (512, 65536)
+#: kernel 9 against its plain version (tests/test_kernels.py:176)
+BAG_TOL = {"f32": 1e-5, "bf16": 3e-2}
 #: H100 SXM published rates (NVIDIA H100 datasheet): HBM3 bytes/s and
 #: float32 (non-tensor-core) operations/s, which counts a fused multiply-add
 #: as two over 128 float32 lanes per SM
@@ -96,6 +159,9 @@ F32_OPS_PER_S = 67e12
 #: is one operation, so a quarter of the float32 rate at the same clock;
 #: the bound of the kernels whose work is key compares
 INT32_OPS_PER_S = F32_OPS_PER_S / 4
+#: dense bf16 tensor-core operations/s (NVIDIA H100 datasheet): the least
+#: time of attention's matrix products on this card
+BF16_OPS_PER_S = 989e12
 #: PageRank tolerance of the self-check, in L1: both the maintained and the
 #: static vector stop at an L1 step <= 1e-5 with damping 0.85, which leaves
 #: each within 1e-5 * 0.85 / 0.15 = 5.7e-5 (L1) of the fixed point
@@ -176,6 +242,38 @@ def device_ms(torch, fn, *, flush=None, warmup: int = 3,
         else:
             spin <<= 2
     return statistics.median(times)
+
+
+def busy_time(torch, fn, top: int = 6):
+    """One call of ``fn`` under ``torch.profiler``: the card's busy time (the
+    sum of its kernels' device time), its kernel count, the wall time of
+    the profiled call and the ``top`` kernels by device time.  None when the
+    trace holds no device time.  For a call of too many launches to queue
+    behind ``device_ms``'s spin (the launch queue fills while the card
+    sleeps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy <= 0:
+        return None
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.self_device_time_total / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"busy_ms": busy, "kernels": len(kern),
+            "profiled_wall_ms": 1e3 * wall,
+            "top_ms": {name[:80]: ms for name, ms in ranked}}
 
 
 def in_sorted(np, x, keys):
@@ -1020,6 +1118,510 @@ def triangles_phase(torch, np) -> dict:
     return {"launches": launches, "results": results}
 
 
+# ----------------------------------------------------------------------------
+# phase 5: gemma2-9b prefill and decode at full width
+# ----------------------------------------------------------------------------
+
+def visible_pairs(S: int, window: int) -> int:
+    """(q, k) pairs a causal query sequence of S tokens attends to (query i
+    sees min(i + 1, window) keys under a window)."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def capture_attention(torch, tfm, got: dict):
+    """Stands in for the flash-attention op in the model and keeps the
+    inputs of its first local and first global call (k and v cloned: they
+    are views of the prefill's cache; ``impl`` dropped, as the comparison
+    calls the kernel and its plain version by name)."""
+    real = tfm.flash_attention
+
+    def attn(q, k, v, **kw):
+        name = "local" if kw.get("window", 0) > 0 else "global"
+        if name not in got:
+            got[name] = (q, k.clone(), v.clone(),
+                         {a: b for a, b in kw.items() if a != "impl"})
+        return real(q, k, v, **kw)
+    return attn
+
+
+def rows_attention(torch, q, k, v, rows, *, window: int, softcap: float,
+                   drop=None, edge: int = 0):
+    """Dense float32 attention of the query rows ``rows`` (absolute
+    positions) under the causal / window mask, with a planted fault: the
+    key range ``drop`` hidden, or the mask's edge moved by ``edge`` keys
+    (the window's start later, or the causal edge later).  q (B, Hq, S, D),
+    k and v (B, Hkv, S, D) -> (B, Hq, len(rows), D) float32."""
+    group = q.shape[1] // k.shape[1]
+    kk = k.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows].float(), kk)
+    del kk
+    s.mul_(q.shape[-1] ** -0.5)
+    if softcap > 0:
+        s.div_(softcap).tanh_().mul_(softcap)
+    qi = rows[:, None]
+    kj = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = qi + (0 if window else edge) >= kj
+    if window > 0:
+        mask &= qi - kj < window - edge
+    if drop is not None:
+        mask &= (kj < drop[0]) | (kj >= drop[1])
+    s.masked_fill_(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.float().repeat_interleave(group, dim=1))
+
+
+def attention_tolerance_readings(torch, q, k, v, kw, plain) -> dict:
+    """How large the compared outputs are, and whether the tolerance fails
+    a kernel that is wrong by one 64-key tile: on the last 64-row query
+    tile, a dense float32 attention with the middle key tile of the last
+    row's band dropped, and one with the mask's edge moved by a tile (a
+    local layer's window start 64 keys later, a global layer's causal edge
+    64 keys later), each rounded to bf16 and held to ``plain`` as the
+    kernel is."""
+    S, window = q.shape[2], kw.get("window", 0)
+    a = plain.float().abs()
+    row_median = a.median(dim=-1).values.flatten()
+    out = {"mean_abs": float(a.mean()),
+           "row_median_abs": {
+               "median": float(row_median.median()),
+               "p01": float(torch.quantile(row_median, 0.01))}}
+    del a, row_median
+    rows = torch.arange(S - 64, S, device=q.device)
+    want = plain[:, :, S - 64:].float()
+    lo = S - window if 0 < window < S else 0
+    mid = (lo + S) // 2 // 64 * 64
+    sane = rows_attention(torch, q, k, v, rows, window=window,
+                          softcap=kw.get("softcap", 0.0))
+    sane = sane.to(q.dtype).float()
+    out["dense_rows_err"] = float((sane - want).abs().max())
+    out["dense_rows_close"] = torch.allclose(sane, want, atol=ATTN_ATOL,
+                                             rtol=ATTN_RTOL)
+    del sane
+    for fault, extra in (("tile_dropped", {"drop": (mid, mid + 64)}),
+                         ("edge_by_tile", {"edge": 64})):
+        bad = rows_attention(torch, q, k, v, rows, window=window,
+                             softcap=kw.get("softcap", 0.0), **extra)
+        bad = bad.to(q.dtype).float()
+        d = (bad - want).abs()
+        outside = d > ATTN_ATOL + ATTN_RTOL * want.abs()
+        out[fault] = {
+            "max_abs": float(d.max()), "mean_abs": float(d.mean()),
+            "share_outside": float(outside.float().mean()),
+            "caught": bool(outside.any()),
+            "caught_at_2e-2": not torch.allclose(bad, want, atol=2e-2,
+                                                 rtol=2e-2)}
+        del bad, d, outside
+    return out
+
+
+def compare_attention(torch, captured) -> list:
+    """Kernel 10 against ``attention_ref`` on the captured local and global
+    layers, at bf16 with the reference test's tolerance; both timed on the
+    device alone.  Beside them the library call: SDPA (causal, GQA) on the
+    global shape against the kernel rerun with softcap 0, and SDPA with a
+    boolean band mask on the local shape, likewise without softcap (SDPA has
+    no softcap)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    results = []
+    for name in ("local", "global"):
+        q, k, v, kw = captured[name]
+        B, Hq, S, D = q.shape
+        kern = flash_attention(q, k, v, **kw)
+        plain = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((kern.float() - plain.float()).abs().max())
+        check(torch.allclose(kern.float(), plain.float(), atol=ATTN_ATOL,
+                             rtol=ATTN_RTOL),
+              f"flash_attention differs from attention_ref on the {name} "
+              f"layer by {err}")
+        readings = attention_tolerance_readings(torch, q, k, v, kw, plain)
+        del plain
+        emit({"phase": "lm_attention_tolerance", "layer": name,
+              "atol": ATTN_ATOL, "rtol": ATTN_RTOL, **readings})
+        check(readings["dense_rows_close"],
+              f"the dense rows differ from attention_ref on the {name} "
+              f"layer by {readings['dense_rows_err']}")
+        for fault in ("tile_dropped", "edge_by_tile"):
+            check(readings[fault]["caught"],
+                  f"the kernel's tolerance passes a planted fault ({fault}) "
+                  f"on the {name} layer")
+        window = kw.get("window", 0)
+        nocap = dict(kw, softcap=0.0)
+        kern0 = flash_attention(q, k, v, **nocap)
+        if window > 0:
+            i = torch.arange(S, device=q.device)
+            band = (i[:, None] >= i[None, :]) & \
+                (i[:, None] - i[None, :] < window)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=band, enable_gqa=True)
+            library_what = "SDPA, boolean band mask, no softcap"
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            library_what = "SDPA, is_causal, no softcap"
+        lib_out = library()
+        torch.cuda.synchronize()
+        lib_err = float((kern0.float() - lib_out.float()).abs().max())
+        check(torch.allclose(kern0.float(), lib_out.float(), atol=LIB_TOL,
+                             rtol=LIB_TOL),
+              f"the kernel without softcap differs from SDPA on the {name} "
+              f"layer by {lib_err}")
+        del kern0, lib_out
+        pairs = visible_pairs(S, window)
+        n_bytes = (q.numel() + k.numel() + v.numel() + kern.numel()) \
+            * q.element_size()
+        results.append(dict(
+            name="flash_attention", variant=f"{name} (layer "
+            f"{0 if name == 'local' else 1})", window=window,
+            shape={"q": list(q.shape), "kv": list(k.shape)},
+            max_abs_err=err,
+            ms=device_ms(torch, lambda: flash_attention(q, k, v, **kw)),
+            plain_ms=device_ms(torch, lambda: attention_ref(q, k, v, **kw)),
+            ms_softcap0=device_ms(torch,
+                                  lambda: flash_attention(q, k, v, **nocap)),
+            library_ms=device_ms(torch, library), library=library_what,
+            library_max_abs_err=lib_err, pairs_per_head=pairs,
+            **bound(n_bytes, pairs * B * Hq * 4 * D,
+                    ops_per_s=BF16_OPS_PER_S)))
+        del kern
+        torch.cuda.empty_cache()
+    for r in results:
+        emit({"phase": "lm_kernels", **r})
+    return results
+
+
+def decode_readings(torch, model, cache, generated, want) -> dict:
+    """The first LM_FAULT_STEPS decode steps again on ``cache`` (seeded
+    from a prefill of LM_PROMPT tokens, its slots past the prompt unused),
+    fed the generated tokens: as served, with the position off by one
+    (RoPE and the cache slot), and with the ring caches one slot off.  Each
+    run's logits against ``want`` (B, LM_FAULT_STEPS, V), forward's at the
+    same positions: max and mean |difference| and argmax agreement.  The
+    ring slots the runs write are restored between them; the ring fault
+    runs last, as it leaves the ring rolled."""
+    n = LM_FAULT_STEPS
+    rings = [cache["k_local"], cache["v_local"]]
+    saved = [r[:, :, :, :n + 1].clone() for r in rings]
+    out = {}
+    for fault, shift, ring_shift in (("none", 0, 0),
+                                     ("position_plus_1", 1, 0),
+                                     ("ring_slot_plus_1", 0, 1)):
+        for r, kept in zip(rings, saved):
+            r[:, :, :, :n + 1].copy_(kept)
+            if ring_shift:
+                r.copy_(r.roll(ring_shift, dims=3))
+        for name in ("k", "v"):
+            cache[name][:, :, :, LM_PROMPT:].zero_()
+        got = torch.stack([model.decode_step(cache, generated[i],
+                                             LM_PROMPT + i + shift)[0]
+                           for i in range(n)], dim=1)
+        d = (got - want).abs()
+        out[fault] = {"max": float(d.max()), "mean": float(d.mean()),
+                      "argmax_agreement": float(
+                          (got.argmax(-1) == want.argmax(-1))
+                          .float().mean())}
+        del got, d
+    return out
+
+
+def lm_phase(torch, np) -> dict:
+    """Serve gemma2-9b at full width: a prefill of 2 prompts of 8,192 tokens
+    and 128 greedy decode steps, with the launch counts zeroed just before
+    the prefill and read after the last step; then the self-checks and the
+    kernel against its plain version."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synth
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.steps import (build_lm_decode_step,
+                                          build_lm_prefill_step)
+    from repro_torch.models import transformer as tfm
+
+    # 42 layers, d_model 3584, GQA 16/8, head_dim 256, local(4096)/global
+    # alternation, softcaps 50 and 30, bf16
+    cfg = get_arch("gemma2-9b").full_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tfm.init_params(cfg, gen, dtype=torch.bfloat16)
+    model = tfm.TransformerLM(cfg, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks, _ = next(synth.lm_batches(cfg.vocab_size, LM_BATCH, LM_PROMPT,
+                                    seed=0))
+    tokens = torch.from_numpy(toks).to("cuda")
+    prefill = build_lm_prefill_step(cfg)
+    decode = build_lm_decode_step(cfg)
+
+    captured = {}
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    with swapped(tfm, flash_attention=capture_attention(torch, tfm,
+                                                        captured)):
+        logits, pc = prefill(model, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = runtime.LAUNCHES["flash_attention"]
+
+    # the decode cache, seeded from the prefill's: k/v into slots 0..S-1,
+    # the ring caches as they are (S is a multiple of the window, so slot
+    # pos % window of the ring holds position pos)
+    def seeded_cache():
+        cache = tfm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+        for name, t in pc.items():
+            cache[name][:, :, :, :t.shape[3]].copy_(t)
+        return cache
+
+    cache = seeded_cache()
+    kv_bytes = {"prefill": sum(t.numel() * t.element_size()
+                               for t in pc.values()),
+                "decode": sum(t.numel() * t.element_size()
+                              for t in cache.values())}
+    token = logits.argmax(dim=-1)
+    generated, step_logits, decode_ms = [], [], []
+    for i in range(LM_NEW):
+        generated.append(token)
+        t0 = time.perf_counter()
+        lg, cache = decode(model, cache, token, LM_PROMPT + i)
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        step_logits.append(lg)
+        token = lg.argmax(dim=-1)
+    launches = dict(runtime.LAUNCHES)
+    # the last step again under the profiler (it writes the same key and
+    # value into the same slots): the card's busy time in a decode step
+    pos = LM_PROMPT + LM_NEW - 1
+    decode_busy = busy_time(torch, lambda: decode(model, cache,
+                                                  generated[-1], pos))
+    del cache
+    torch.cuda.empty_cache()
+    decode_s = sum(decode_ms) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "lm", "model": cfg.name, "n_params": cfg.n_params(),
+          "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+          "init_s": init_s, "prefill_ms": 1e3 * prefill_s,
+          "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+          "decode_ms_median": statistics.median(decode_ms),
+          "decode_ms_first": decode_ms[0], "decode_ms_max": max(decode_ms),
+          "decode_tokens_per_s": LM_BATCH * LM_NEW / decode_s,
+          "decode_step_profile": decode_busy,
+          "decode_idle_share": None if decode_busy is None else
+          1 - decode_busy["busy_ms"] / statistics.median(decode_ms),
+          "kv_cache_bytes": kv_bytes, "max_memory_allocated": peak,
+          "prefill_launches": prefill_launches, "kernels": launches})
+    emit({"phase": "lm", "request_ms": [1e3 * prefill_s] + decode_ms})
+    check(prefill_launches == cfg.n_layers,
+          f"the prefill launched flash_attention {prefill_launches} times, "
+          f"not once per layer ({cfg.n_layers})")
+    check(launches["flash_attention"] == cfg.n_layers,
+          "decode should launch no flash_attention")
+    check(set(captured) == {"local", "global"},
+          "the prefill should run local and global layers")
+
+    # self-checks without the reference: forward over prompt + generated
+    # tokens, through the kernel, at the prefill's and every decode step's
+    # position
+    seq = torch.cat([tokens, torch.stack(generated, dim=1)], dim=1)
+    before = runtime.LAUNCHES["flash_attention"]
+    t0 = time.perf_counter()
+    full = model(seq)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    fwd_launches = runtime.LAUNCHES["flash_attention"] - before
+    want = full[:, LM_PROMPT - 1:].float()          # (B, 1 + LM_NEW, V)
+    check(bool(torch.isfinite(full).all()), "forward logits not finite")
+    del full
+    torch.cuda.empty_cache()
+    got = torch.cat([logits[:, None], torch.stack(step_logits, dim=1)],
+                    dim=1)
+    check(got.shape == want.shape == (LM_BATCH, 1 + LM_NEW,
+                                      cfg.vocab_size),
+          f"logits of shape {tuple(got.shape)}, forward's {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), "served logits not finite")
+    diff = (got - want).abs()
+    err_prefill = float(diff[:, 0].max())
+    err_decode = float(diff[:, 1:].max())
+    same_argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    check(fwd_launches == cfg.n_layers,
+          f"forward launched flash_attention {fwd_launches} times")
+    del diff, step_logits
+
+    # the gates' power: the first steps again with planted faults
+    n = LM_FAULT_STEPS
+    faults = decode_readings(torch, model, seeded_cache(), generated,
+                             want[:, 1:1 + n])
+    del pc, model
+    gc.collect()
+
+    # the float32 oracle: the same weights and tokens through a float32
+    # forward (the kernel's float32 variant, matrix products without TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params["embed"] = params["embed"].float()
+    params["final_norm"] = params["final_norm"].float()
+    for name in list(params["layers"]):
+        params["layers"][name] = params["layers"][name].float()
+    torch.cuda.empty_cache()
+    model32 = tfm.TransformerLM(dataclasses.replace(cfg, dtype=torch.float32),
+                                params)
+    t0 = time.perf_counter()
+    full = model32(seq)
+    exact = full[:, LM_PROMPT - 1:].clone()
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    del full
+    torch.cuda.empty_cache()
+
+    # the float32 model serves too: its prefill seeds a float32 cache (k and
+    # v grown by the slots the runs write, the ring caches as they are), and
+    # decode_readings runs its first steps against the float32 forward.
+    # Without bf16 rounding the two paths differ by float32 reordering
+    # alone, so LM_F32_ATOL can sit below what a planted fault moves.
+    last32, pc32 = model32.prefill(tokens)
+    err32_prefill = float((last32 - exact[:, 0]).abs().max())
+    del last32
+    cache32 = {name: pc32.pop(name) for name in ("k_local", "v_local")}
+    for name in ("k", "v"):
+        t = pc32.pop(name)
+        cache32[name] = t.new_zeros(t.shape[:3] + (LM_PROMPT + n + 1,)
+                                    + t.shape[4:])
+        cache32[name][:, :, :, :LM_PROMPT].copy_(t)
+        del t
+    faults32 = decode_readings(torch, model32, cache32, generated,
+                               exact[:, 1:1 + n])
+    del cache32, pc32, model32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def dist(a, b):
+        d = (a - b).abs()
+        return {"max": float(d.max()), "mean": float(d.mean())}
+    emit({"phase": "lm_check", "forward_ms": 1e3 * forward_s,
+          "forward_tokens": int(seq.numel()),
+          "forward_launches": fwd_launches, "f32_oracle_ms": 1e3 * oracle_s,
+          "prefill_vs_forward": dist(got[:, :1], want[:, :1]),
+          "decode_vs_forward": dist(got[:, 1:], want[:, 1:]),
+          "forward_vs_f32": dist(want, exact),
+          "decode_vs_f32": dist(got[:, 1:], exact[:, 1:]),
+          "prefill_vs_f32": dist(got[:, :1], exact[:, :1]),
+          "max_abs_logit": float(want.abs().max()),
+          "argmax_agreement": same_argmax, "atol": LM_LOGIT_ATOL,
+          "fault_steps": n, "bf16_decode_readings": faults,
+          "f32_atol": LM_F32_ATOL, "f32_prefill_vs_forward": err32_prefill,
+          "f32_decode_readings": faults32})
+    del got, want, exact
+    check(err_prefill <= LM_LOGIT_ATOL,
+          f"prefill logits differ from forward's by {err_prefill}")
+    check(err_decode <= LM_LOGIT_ATOL,
+          f"decode logits differ from forward's by {err_decode}")
+    check(err32_prefill <= LM_F32_ATOL,
+          f"the float32 prefill differs from its forward by {err32_prefill}")
+    check(faults32["none"]["max"] <= LM_F32_ATOL,
+          f"the float32 decode differs from its forward by "
+          f"{faults32['none']['max']}")
+    for fault in ("position_plus_1", "ring_slot_plus_1"):
+        check(faults32[fault]["max"] > LM_F32_ATOL,
+              f"the float32 decode check passes a planted fault ({fault}: "
+              f"{faults32[fault]['max']})")
+    torch.cuda.empty_cache()
+    results = compare_attention(torch, captured)
+    return {"launches": launches, "results": results}
+
+
+# ----------------------------------------------------------------------------
+# phase 6: EmbeddingBag at MIND's full table
+# ----------------------------------------------------------------------------
+
+def embedding_bag_phase(torch, np) -> dict:
+    """The EmbeddingBag op on MIND's table (2**21 items x 64, float32, and a
+    bfloat16 copy) for bags of 50-slot histories: the op's three calls with
+    the launch counts zeroed just before, then each against its plain
+    version, timed on the device alone, beside ``F.embedding_bag``."""
+    import torch.nn.functional as F
+
+    from repro_torch.data import synth
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    table = torch.randn((BAG_ROWS, BAG_DIM), generator=gen, device="cuda")
+    tables = {"f32": table, "bf16": table.to(torch.bfloat16)}
+    bags = {}
+    for B in BAG_BATCHES:
+        hist, mask, _ = next(synth.recsys_batches(BAG_ROWS, B, BAG_HIST,
+                                                  seed=0))
+        idx = np.where(mask > 0, hist, -1).astype(np.int32)
+        w = np.random.default_rng(2).standard_normal(idx.shape) \
+            .astype(np.float32)
+        bags[B] = (torch.from_numpy(idx).to("cuda"),
+                   torch.from_numpy(w).to("cuda"))
+    variants = [(f"B={B} f32", B, "f32") for B in BAG_BATCHES] + \
+        [(f"B={BAG_BATCHES[-1]} bf16", BAG_BATCHES[-1], "bf16")]
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    outs = {name: embedding_bag(*bags[B], tables[dt])
+            for name, B, dt in variants}
+    torch.cuda.synchronize()
+    launches = runtime.LAUNCHES["embedding_bag"]
+    check(launches == len(variants),
+          f"embedding_bag launched {launches} times for {len(variants)} "
+          "calls")
+
+    results = []
+    for name, B, dt in variants:
+        idx, w = bags[B]
+        tab = tables[dt]
+        got = outs[name]
+        plain = embedding_bag_ref(idx, w, tab)
+        torch.cuda.synchronize()
+        check(got.dtype == tab.dtype and got.shape == (B, BAG_DIM),
+              f"embedding_bag {name}: {got.dtype} {tuple(got.shape)}")
+        tol = BAG_TOL[dt]
+        err = float((got.float() - plain).abs().max())
+        check(torch.allclose(got.float(), plain, atol=tol, rtol=tol),
+              f"embedding_bag differs from its plain version ({name}) by "
+              f"{err}")
+        valid = idx >= 0
+        flat = idx[valid].long()
+        offsets = torch.zeros(B, dtype=torch.long, device=idx.device)
+        offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)[:-1]
+        psw = w[valid].to(tab.dtype)
+
+        def library():
+            return F.embedding_bag(flat, tab, offsets, mode="sum",
+                                   per_sample_weights=psw)
+        lib_err = float((library().float() - plain).abs().max())
+        check(lib_err <= tol * (1 + float(plain.abs().max())),
+              f"F.embedding_bag disagrees with the plain version ({name})")
+        rows = int(torch.unique(flat).numel())
+        item = tab.element_size()
+        # each slot's index and weight, each distinct row once, the output
+        n_bytes = B * BAG_HIST * 8 + rows * BAG_DIM * item \
+            + B * BAG_DIM * item
+        results.append(dict(
+            name="embedding_bag", variant=name, max_abs_err=err,
+            ms=device_ms(torch, lambda: embedding_bag(idx, w, tab)),
+            plain_ms=device_ms(torch, lambda: embedding_bag_ref(idx, w,
+                                                                tab)),
+            library_ms=device_ms(torch, library),
+            library="F.embedding_bag(mode='sum', per_sample_weights)",
+            library_max_abs_err=lib_err, valid_slots=int(flat.numel()),
+            distinct_rows=rows,
+            **bound(n_bytes, 2 * int(flat.numel()) * BAG_DIM)))
+        del plain
+    for r in results:
+        emit({"phase": "embedding_bag", **r})
+    return {"launches": launches, "results": results}
+
+
 
 def main() -> int:
     try:
@@ -1121,6 +1723,26 @@ def main() -> int:
     launches.update({k: tri["launches"][k]
                      for k in ("slab_count", "probe_hits")})
     emit({"phase": "triangles", "seconds": time.perf_counter() - t0})
+    del tri
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------- lm
+    t0 = time.perf_counter()
+    lm = lm_phase(torch, np)
+    results += lm["results"]
+    launches["flash_attention"] = lm["launches"]["flash_attention"]
+    emit({"phase": "lm", "seconds": time.perf_counter() - t0})
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- embedding_bag
+    t0 = time.perf_counter()
+    bag = embedding_bag_phase(torch, np)
+    results += bag["results"]
+    launches["embedding_bag"] = bag["launches"]
+    emit({"phase": "embedding_bag", "seconds": time.perf_counter() - t0})
 
     # ------------------------------------------------------------- summary
     batch = f"B={serve_mod.parse_args(SERVE_ARGS).batch}"
@@ -1130,7 +1752,9 @@ def main() -> int:
                     "slab_chain_rank": "forward view",
                     "slab_count": "static",
                     "probe_hits": next(r["variant"] for r in results
-                                       if r["name"] == "probe_hits")}
+                                       if r["name"] == "probe_hits"),
+                    "flash_attention": "global (layer 1)",
+                    "embedding_bag": f"B={BAG_BATCHES[-1]} f32"}
     replaces = {
         "slab_probe": "src/repro/kernels/slab_update/kernel.py:81",
         "slab_commit": "src/repro/kernels/slab_update/kernel.py:160",
@@ -1138,14 +1762,18 @@ def main() -> int:
         "slab_live": "src/repro/kernels/slab_compact/kernel.py:60",
         "slab_chain_rank": "src/repro/kernels/slab_compact/kernel.py:137",
         "slab_count": "src/repro/kernels/slab_intersect/kernel.py:120",
-        "probe_hits": "src/repro/kernels/slab_intersect/kernel.py:180"}
+        "probe_hits": "src/repro/kernels/slab_intersect/kernel.py:180",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
+        "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:29"}
     source = {"slab_probe": "src/repro_torch/csrc/slab_update.cu",
               "slab_commit": "src/repro_torch/csrc/slab_update.cu",
               "slab_sweep": "src/repro_torch/csrc/slab_sweep.cu",
               "slab_live": "src/repro_torch/csrc/slab_compact.cu",
               "slab_chain_rank": "src/repro_torch/csrc/slab_compact.cu",
               "slab_count": "src/repro_torch/csrc/slab_intersect.cu",
-              "probe_hits": "src/repro_torch/csrc/slab_intersect.cu"}
+              "probe_hits": "src/repro_torch/csrc/slab_intersect.cu",
+              "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+              "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu"}
     kernels = []
     for name in main_variant:
         rows = [r for r in results if r["name"] == name]

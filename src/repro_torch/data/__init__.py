@@ -1,4 +1,5 @@
-"""Synthetic data: RMAT edge lists made with numpy from a seed."""
-from .synth import rmat_edges
+"""Synthetic data made with numpy from a seed: RMAT edge lists, LM token
+batches and recsys interaction batches."""
+from .synth import lm_batches, recsys_batches, rmat_edges
 
-__all__ = ["rmat_edges"]
+__all__ = ["lm_batches", "recsys_batches", "rmat_edges"]

@@ -1,12 +1,12 @@
-"""R-MAT power-law edge lists (Graph500-style), deterministic per seed.
+"""Synthetic data, deterministic per seed: R-MAT power-law edge lists
+(Graph500-style), LM token batches and recsys interaction batches.
 
-The same generator as the reference's ``repro.data.synth.rmat_edges``: the
-same numpy draws in the same order, so one seed gives the same graph in
-both packages.
+The same generators as the reference's ``repro.data.synth``: the same numpy
+draws in the same order, so one seed gives the same data in both packages.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -34,3 +34,29 @@ def rmat_edges(n_vertices: int, n_edges: int, *, seed: int = 0,
     dst %= n_vertices
     keep = src != dst
     return src[keep].astype(np.uint32), dst[keep].astype(np.uint32)
+
+
+def lm_batches(vocab_size: int, batch: int, seq_len: int, *,
+               seed: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Synthetic next-token data: Zipf-ish tokens (batch, seq_len) int32 and
+    their labels, the tokens shifted by one."""
+    rng = np.random.default_rng(seed)
+    while True:
+        z = rng.zipf(1.3, size=(batch, seq_len + 1)) % vocab_size
+        yield z[:, :-1].astype(np.int32), z[:, 1:].astype(np.int32)
+
+
+def recsys_batches(n_items: int, batch: int, hist_len: int, *,
+                   seed: int = 0
+                   ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Synthetic interaction data: Zipf-ish item histories (batch, hist_len)
+    int32, a float32 mask of each history's first ``lens`` slots (lens
+    uniform in 1..hist_len) and a target item per row."""
+    rng = np.random.default_rng(seed)
+    while True:
+        hist = (rng.zipf(1.2, size=(batch, hist_len)) % n_items) \
+            .astype(np.int32)
+        lens = rng.integers(1, hist_len + 1, batch)
+        mask = (np.arange(hist_len)[None] < lens[:, None]).astype(np.float32)
+        target = (rng.zipf(1.2, size=batch) % n_items).astype(np.int32)
+        yield hist, mask, target

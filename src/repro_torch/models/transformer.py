@@ -1,0 +1,459 @@
+"""Decoder-only LM serving path, from ``repro.models.transformer``.
+
+One parameterised stack for the dense configs of the reference's pool
+(gemma-2b: MQA, GeGLU, embedding scaling; gemma2-9b: GQA, local(4096) and
+global layers alternating, attention and final softcaps; qwen1.5-32b: MHA,
+QKV bias).  ``TransformerLM`` holds the layer-stacked parameters under the
+reference's pytree names (``embed``, ``final_norm``, ``lm_head``,
+``layers.<name>`` with a leading layer dimension) and serves ``forward``,
+``prefill`` and ``decode_step`` with the reference's outputs.
+
+Departures from the reference:
+
+* Attention goes through ``kernels.flash_attention``: the hand-written
+  kernel for tensors on the card, the plain ``attention_ref`` for CPU
+  tensors.  The reference defaults to its plain version and reaches its
+  Pallas kernel only when asked (``attn_impl="pallas"``).  Its XLA
+  ``"chunked"`` schedule is not ported, so the port has no ``attn_impl``.
+* A Python loop over the layers replaces ``lax.scan``; a layer's attention
+  is local or global by its parity (``LMConfig.layer_window``), and only
+  that attention is computed.
+* ``decode_step`` writes the new key and value into the cache in place and
+  returns the same dict.
+* The sharding constraints (``distributed.sharding.constrain``) are
+  identities on one device and are dropped.
+* MoE configs (``moe_ffn``) and the one-layer alternating stack the
+  reference keeps for dry-run calibration raise ``NotImplementedError``.
+* Training (``loss_fn``, remat, the scan-unroll and FSDP-cast knobs) is not
+  ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.device import resolve_device
+from ..kernels.flash_attention import flash_attention
+
+#: the layer-stacked parameter names a config may have
+LAYER_PARAMS = ("wq", "wk", "wv", "wo", "ln_attn", "ln_mlp", "bq", "bk",
+                "bv", "q_norm", "k_norm", "w_gate", "w_up", "w_down")
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    # MoE (n_experts == 0 -> dense FFN); not ported: its top_k and
+    # capacity_factor come with moe_ffn
+    n_experts: int = 0
+    # attention flavour
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    sliding_window: int = 0            # >0 enables local attention layers
+    local_global_alternate: bool = False  # even layers local, odd global
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    # misc
+    activation: str = "swiglu"         # or "geglu"
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    embed_scale: bool = False          # gemma: x *= sqrt(d_model)
+    tie_embeddings: bool = True
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def has_local(self) -> bool:
+        """Alternating local (ring-buffer cache) and global layers."""
+        return bool(self.local_global_alternate and self.sliding_window)
+
+    def layer_window(self, layer: int) -> int:
+        """Sliding window of ``layer``'s attention (0: global)."""
+        if self.has_local and layer % 2:
+            return 0
+        return self.sliding_window
+
+    def n_params(self) -> int:
+        """Total parameter count."""
+        D, hd = self.d_model, self.head_dim
+        attn = D * (self.n_heads + 2 * self.n_kv_heads) * hd \
+            + self.n_heads * hd * D
+        if self.is_moe:
+            ffn = D * self.n_experts + self.n_experts * 3 * D * self.d_ff
+        else:
+            ffn = 3 * D * self.d_ff
+        per_layer = attn + ffn + 2 * D
+        emb = self.vocab_size * D * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + D
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: LMConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32) -> Dict:
+    """Layer-stacked parameters (leading dim = n_layers) on the generator's
+    device: normal weights scaled by fan_in ** -0.5 (the embedding by 1,
+    ``w_down`` by d_ff ** -0.5), ones for the norms, zeros for the biases.
+    The reference's initialiser with a ``torch.Generator`` for its key: the
+    same distributions, not the same numbers."""
+    L, D, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
+    Hq, Hkv, Fd, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
+    dev = generator.device
+
+    def w(shape, scale=None):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else fan_in ** -0.5
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32).mul_(s).to(dtype)
+
+    def const(value, shape):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    if cfg.is_moe:
+        _no_moe(cfg)
+    layers = {
+        "wq": w((L, D, Hq * hd)),
+        "wk": w((L, D, Hkv * hd)),
+        "wv": w((L, D, Hkv * hd)),
+        "wo": w((L, Hq * hd, D)),
+        "ln_attn": const(1.0, (L, D)),
+        "ln_mlp": const(1.0, (L, D)),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = const(0.0, (L, Hq * hd))
+        layers["bk"] = const(0.0, (L, Hkv * hd))
+        layers["bv"] = const(0.0, (L, Hkv * hd))
+    if cfg.qk_norm:
+        layers["q_norm"] = const(1.0, (L, hd))
+        layers["k_norm"] = const(1.0, (L, hd))
+    layers["w_gate"] = w((L, D, Fd))
+    layers["w_up"] = w((L, D, Fd))
+    layers["w_down"] = w((L, Fd, D), scale=Fd ** -0.5)
+
+    params = {"embed": w((V, D), scale=1.0),
+              "final_norm": const(1.0, (D,)), "layers": layers}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = w((D, V))
+    return params
+
+
+def params_from_numpy(tree: Dict, cfg: LMConfig, device,
+                      dtype: Optional[torch.dtype] = None) -> Dict:
+    """The reference's parameter pytree, as numpy arrays (bfloat16 ones
+    included), as the port's parameter dict on ``device``; ``dtype`` casts
+    every leaf."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        t = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+             if a.dtype.name == "bfloat16" else torch.from_numpy(a.copy()))
+        return t.to(device=dev, dtype=dtype or t.dtype)
+
+    out = {"embed": leaf(tree["embed"]),
+           "final_norm": leaf(tree["final_norm"]),
+           "layers": {k: leaf(v) for k, v in tree["layers"].items()}}
+    if "lm_head" in tree:
+        out["lm_head"] = leaf(tree["lm_head"])
+    if cfg.tie_embeddings != ("lm_head" not in out):
+        raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} "
+                         "but the tree "
+                         f"{'lacks' if 'lm_head' not in out else 'has'} "
+                         "lm_head")
+    return out
+
+
+def _no_moe(cfg: LMConfig):
+    raise NotImplementedError(
+        f"{cfg.name}: the MoE FFN (moe_ffn, {cfg.n_experts} experts) is not "
+        "ported yet; ROADMAP §1, model surface, queue item 1")
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """RMS norm in float32, cast back to x's dtype before the scale."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding, halves rotated: x (..., S, H, hd), positions
+    (..., S)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq              # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def _activation(gate: torch.Tensor, up: torch.Tensor, kind: str
+                ) -> torch.Tensor:
+    if kind == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    return F.silu(gate) * up
+
+
+def dense_ffn(x: torch.Tensor, lw: Dict, cfg: LMConfig) -> torch.Tensor:
+    h = _activation(x @ lw["w_gate"], x @ lw["w_up"], cfg.activation)
+    return h @ lw["w_down"]
+
+
+def _qkv(x: torch.Tensor, lw: Dict, cfg: LMConfig, positions: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projected, normed and rotated q, k, v of x (B, S, D), each
+    contiguous (B, H, S, hd)."""
+    B, S, _ = x.shape
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ lw["wq"]
+    k = x @ lw["wk"]
+    v = x @ lw["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
+    q = q.reshape(B, S, Hq, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, lw["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, lw["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+
+def _attend(qt, kt, vt, cfg: LMConfig, window: int):
+    """Causal attention of one layer through the flash-attention op:
+    (B, Hq, S, hd) -> (B, S, Hq * hd)."""
+    o = flash_attention(qt, kt, vt, causal=True, window=window,
+                        softcap=cfg.attn_softcap)
+    B, _, S, _ = o.shape
+    return o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+
+
+def attention(x: torch.Tensor, lw: Dict, cfg: LMConfig,
+              positions: torch.Tensor, *, local: bool) -> torch.Tensor:
+    """One layer's attention block (training / prefill form): x (B, S, D)
+    -> (B, S, D)."""
+    qt, kt, vt = _qkv(x, lw, cfg, positions)
+    window = cfg.sliding_window if local else 0
+    return _attend(qt, kt, vt, cfg, window) @ lw["wo"]
+
+
+# ---------------------------------------------------------------------------
+# decode (serving)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device="cuda") -> Dict:
+    """KV cache, layer-stacked (L, batch, Hkv, slots, hd).  Alternating
+    stacks add a ring buffer bounded by the sliding window for their local
+    layers."""
+    dev = resolve_device(device)
+    Hkv, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+
+    def zeros(slots):
+        return torch.zeros((L, batch, Hkv, slots, hd), dtype=dtype,
+                           device=dev)
+
+    cache = {"k": zeros(max_len), "v": zeros(max_len)}
+    if cfg.has_local:
+        w = min(cfg.sliding_window, max_len)
+        cache["k_local"] = zeros(w)
+        cache["v_local"] = zeros(w)
+    return cache
+
+
+def _decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      pos: int, *, softcap: float, window: int, ring: bool
+                      ) -> torch.Tensor:
+    """q (B, Hq, 1, hd); ck/cv (B, Hkv, Smax, hd); pos the current position.
+    Plain float32 attention over every slot of the cache, the ones not yet
+    written (or outside the window) masked."""
+    B, Hq, _, hd = q.shape
+    Hkv, Smax = ck.shape[1], ck.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bkgd,bksd->bkgs", qg.float(), ck.float()) * hd ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    slots = torch.arange(Smax, device=q.device)
+    if ring:
+        valid = slots < min(pos + 1, Smax)
+    else:
+        valid = slots <= pos
+        if window > 0:
+            valid &= slots > pos - window
+    s = torch.where(valid, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p, cv.float())
+    return o.reshape(B, Hq, 1, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+class TransformerLM(nn.Module):
+    """A dense decoder-only LM over the parameters ``params`` (from
+    ``init_params`` or ``params_from_numpy``), for serving: the parameters
+    take no gradient."""
+
+    def __init__(self, cfg: LMConfig, params: Dict):
+        if cfg.is_moe:
+            _no_moe(cfg)
+        if cfg.has_local and cfg.n_layers == 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the one-layer alternating stack (the "
+                "reference's dry-run calibration variant) is not ported")
+        super().__init__()
+        self.cfg = cfg
+
+        def frozen(t):
+            return nn.Parameter(t, requires_grad=False)
+
+        self.embed = frozen(params["embed"])
+        self.final_norm = frozen(params["final_norm"])
+        if cfg.tie_embeddings:
+            self.register_parameter("lm_head", None)
+        else:
+            self.lm_head = frozen(params["lm_head"])
+        unknown = set(params["layers"]) - set(LAYER_PARAMS)
+        if unknown:
+            raise ValueError(f"unknown layer parameters {sorted(unknown)}")
+        self.layers = nn.ParameterDict(
+            {k: frozen(v) for k, v in params["layers"].items()})
+        # sqrt(d_model) rounded to the compute dtype, as the reference
+        # scales by a scalar of that dtype
+        self._embed_mult = float(torch.tensor(cfg.d_model ** 0.5,
+                                              dtype=cfg.dtype))
+
+    # -- pieces ---------------------------------------------------------------
+    def _layer(self, i: int) -> Dict:
+        return {k: p[i].to(self.cfg.dtype) for k, p in self.layers.items()}
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens.long()].to(self.cfg.dtype)
+        if self.cfg.embed_scale:
+            x = x * self._embed_mult
+        return x
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = rms_norm(x, self.final_norm.to(cfg.dtype), cfg.norm_eps)
+        head = self.embed.T if self.lm_head is None else self.lm_head
+        return x @ head.to(cfg.dtype)
+
+    def _ffn(self, x: torch.Tensor, lw: Dict) -> torch.Tensor:
+        """The FFN half of a layer, residual included."""
+        h = rms_norm(x, lw["ln_mlp"], self.cfg.norm_eps)
+        return x + dense_ffn(h, lw, self.cfg)
+
+    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        B, S = tokens.shape
+        return torch.arange(S, dtype=torch.int32,
+                            device=tokens.device)[None].expand(B, S)
+
+    # -- entry points ---------------------------------------------------------
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) int -> logits (B, S, V) in ``cfg.dtype``."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        positions = self._positions(tokens)
+        for i in range(cfg.n_layers):
+            lw = self._layer(i)
+            h = rms_norm(x, lw["ln_attn"], cfg.norm_eps)
+            x = x + attention(h, lw, cfg, positions,
+                              local=cfg.layer_window(i) > 0)
+            x = self._ffn(x, lw)
+        logits = self._head(x)
+        if cfg.final_softcap > 0:   # in place: the (B, S, V) logits once
+            logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
+        return logits
+
+    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """Serving prefill: last-position logits (B, V) float32 and the KV
+        cache {k, v}: (L, B, Hkv, S, hd) in ``cfg.dtype``; alternating
+        stacks also fill the ring caches ``k_local``/``v_local`` with the
+        last ``window`` positions of every layer."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self._embed(tokens)
+        positions = self._positions(tokens)
+        shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
+        ks = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
+        vs = torch.empty_like(ks)
+        for i in range(cfg.n_layers):
+            lw = self._layer(i)
+            h = rms_norm(x, lw["ln_attn"], cfg.norm_eps)
+            qt, ks[i], vs[i] = _qkv(h, lw, cfg, positions)
+            x = x + _attend(qt, ks[i], vs[i], cfg,
+                            cfg.layer_window(i)) @ lw["wo"]
+            x = self._ffn(x, lw)
+        logits = self._head(x[:, -1]).float()
+        if cfg.final_softcap > 0:
+            logits = cfg.final_softcap * torch.tanh(
+                logits / cfg.final_softcap)
+        cache = {"k": ks, "v": vs}
+        if cfg.has_local:
+            w = min(cfg.sliding_window, S)
+            cache["k_local"] = ks[:, :, :, S - w:].clone()
+            cache["v_local"] = vs[:, :, :, S - w:].clone()
+        return logits, cache
+
+    def decode_step(self, cache: Dict, token: torch.Tensor, pos
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """One token for every sequence of the batch: token (B,) int, pos
+        the shared position (int or 0-d tensor).  Writes the token's key
+        and value into ``cache`` in place (a local layer its ring slot
+        ``pos % window``, any other layer slot ``pos``) and returns the
+        logits (B, V) float32 and the cache."""
+        cfg = self.cfg
+        pos = int(pos)
+        B = token.shape[0]
+        x = self._embed(token)[:, None, :]                  # (B, 1, D)
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=token.device)
+        for i in range(cfg.n_layers):
+            lw = self._layer(i)
+            h = rms_norm(x, lw["ln_attn"], cfg.norm_eps)
+            qt, kt, vt = _qkv(h, lw, cfg, positions)       # (B, H, 1, hd)
+            ring = cfg.has_local and i % 2 == 0
+            names = ("k_local", "v_local") if ring else ("k", "v")
+            ck, cv = cache[names[0]][i], cache[names[1]][i]
+            slot = pos % ck.shape[2] if ring else pos
+            ck[:, :, slot] = kt[:, :, 0]
+            cv[:, :, slot] = vt[:, :, 0]
+            o = _decode_attention(qt, ck, cv, pos, softcap=cfg.attn_softcap,
+                                  window=cfg.layer_window(i), ring=ring)
+            x = x + o.transpose(1, 2).reshape(B, 1, -1) @ lw["wo"]
+            x = self._ffn(x, lw)
+        logits = self._head(x[:, 0]).float()
+        if cfg.final_softcap > 0:
+            logits = cfg.final_softcap * torch.tanh(
+                logits / cfg.final_softcap)
+        return logits, cache

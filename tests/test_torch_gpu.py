@@ -5,7 +5,10 @@ one every test here skips (the decision is made in the fixture, not at
 import).  Probe, commit, census, chain walk, the intersection count, the
 membership probe and the min family must match exactly; the float
 ``sum`` sweep adds lanes in another order, so it is held to
-``rtol=1e-6`` of the row totals.
+``rtol=1e-6`` of the row totals.  Flash attention and EmbeddingBag are
+held to the reference tests' tolerances (attention 2e-5 in float32, 2e-2
+in bfloat16; the bag 1e-5 and 3e-2).  This module imports no JAX (the card's
+machine has none): ``ATTN_CASES`` is shared with the CPU parity test.
 """
 import numpy as np
 import pytest
@@ -29,6 +32,14 @@ from repro_torch.kernels.slab_intersect import (count_edges,
 from repro_torch.kernels.slab_intersect.ops import _work_items
 from repro_torch.kernels.slab_update import (slab_commit, slab_commit_torch,
                                              slab_probe, slab_probe_torch)
+from repro_torch.kernels.embedding_bag import embedding_bag, \
+    embedding_bag_ref
+from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+from repro_torch.kernels.flash_attention import attention_ref, \
+    flash_attention
+from repro_torch.kernels.flash_attention import kernel as attn_kernel
+from repro_torch.models.transformer import (LMConfig, TransformerLM,
+                                            init_cache, init_params)
 
 pytestmark = pytest.mark.gpu
 
@@ -294,3 +305,157 @@ def test_count_edges_on_card_matches_cpu(cuda, undirected):
     assert out[0] == out[1] > 0
     assert int(ttri.triangles_static(gc, max_bpv=mb)) == \
         int(ttri.triangles_static(gh, max_bpv=mb))
+
+
+# ----------------------------------------------------------------------------
+# flash attention and EmbeddingBag
+# ----------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, dtype, extra kwargs):
+# tests/test_kernels.py's sweep, then kv_len, Sq > Skv, head_dim 256,
+# sm_scale and a query tile with no visible key
+ATTN_CASES = [
+    (1, 4, 4, 128, 128, 64, True, 0, 0.0, "float32", {}),
+    (2, 4, 2, 256, 256, 64, True, 0, 0.0, "float32", {}),
+    (1, 4, 1, 128, 128, 64, True, 0, 0.0, "float32", {}),
+    (1, 2, 2, 256, 256, 64, True, 64, 0.0, "float32", {}),
+    (1, 2, 2, 128, 128, 64, True, 0, 30.0, "float32", {}),
+    (1, 2, 2, 128, 128, 64, False, 0, 0.0, "float32", {}),
+    (1, 2, 1, 128, 256, 128, True, 0, 0.0, "bfloat16", {}),
+    (1, 4, 2, 256, 256, 64, True, 128, 50.0, "float32", {}),
+    (1, 2, 2, 128, 256, 64, False, 0, 0.0, "float32", {"kv_len": 130}),
+    (1, 2, 2, 256, 128, 64, True, 0, 0.0, "float32", {}),
+    (1, 4, 2, 128, 128, 256, True, 64, 50.0, "float32", {}),
+    (1, 4, 2, 128, 128, 256, True, 64, 50.0, "bfloat16", {}),
+    (1, 2, 1, 128, 128, 128, True, 0, 0.0, "float32", {"sm_scale": 0.3}),
+    (1, 2, 2, 128, 128, 64, True, 0, 0.0, "float32", {"kv_len": 0}),
+]
+# gemma2-9b's attention at a card-sized length: bf16, head_dim 256, GQA
+# 16/8, a window and softcap 50, and a ragged length (not a tile multiple)
+GEMMA2_CASE = (2, 16, 8, 1000, 1000, 256, True, 256, 50.0, "bfloat16", {})
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _attn_inputs(case, dev, seed=0):
+    B, Hq, Hkv, Sq, Skv, D, *_, dtype, _ = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(DTYPES[dtype])
+            for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + [GEMMA2_CASE],
+                         ids=[f"attn{i}" for i in range(len(ATTN_CASES))]
+                         + ["gemma2"])
+def test_flash_attention_matches_plain(cuda, case):
+    torch.backends.cuda.matmul.allow_tf32 = False   # a float32 plain version
+    *_, causal, window, softcap, dtype, extra = case
+    q, k, v = _attn_inputs(case, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap, **extra)
+    before = runtime.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if extra.get("kv_len") == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 100])
+def test_embedding_bag_matches_plain(cuda, dtype, D):
+    rng = np.random.default_rng(4)
+    B, L, N = 2000, 50, 100000
+    idx = (rng.zipf(1.2, (B, L)) % N).astype(np.int32)
+    idx[rng.random((B, L)) < 0.3] = -1
+    idx[:17] = -1                                   # all-pad bags
+    w = rng.standard_normal((B, L)).astype(np.float32)
+    table = torch.randn((N, D), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).to(DTYPES[dtype])
+    ti, tw = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
+    before = runtime.LAUNCHES["embedding_bag"]
+    got = embedding_bag(ti, tw, table)
+    want = embedding_bag_ref(ti, tw, table)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["embedding_bag"] == before + 1
+    assert got.dtype == table.dtype and got.shape == (B, D)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    assert not got[:17].any()
+
+
+def test_unbuildable_kernel_raises(cuda, tmp_path, monkeypatch):
+    """A kernel that does not build raises on CUDA tensors; the op does not
+    fall back to its plain version."""
+    (tmp_path / "flash_attention.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(runtime, "CSRC", tmp_path)
+    monkeypatch.setattr(runtime, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(runtime._libs, "flash_attention", raising=False)
+    q, k, v = _attn_inputs(ATTN_CASES[0], cuda)
+    before = runtime.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        flash_attention(q, k, v)
+    assert runtime.LAUNCHES["flash_attention"] == before
+
+
+class _RefusedLaunch:
+    """A kernel library whose every launch reports
+    cudaErrorInvalidConfiguration (9)."""
+
+    def __getattr__(self, name):
+        if name.endswith("_error_string"):
+            return lambda code: b"invalid configuration argument"
+        return lambda *args: 9
+
+
+def test_failed_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses raises, counts no launch and falls back to
+    nothing."""
+    monkeypatch.setattr(attn_kernel, "_lib", _RefusedLaunch)
+    monkeypatch.setattr(bag_kernel, "_lib", _RefusedLaunch)
+    q, k, v = _attn_inputs(ATTN_CASES[0], cuda)
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(RuntimeError, match="flash_attention launch failed"):
+        flash_attention(q, k, v)
+    idx = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="embedding_bag launch failed"):
+        embedding_bag(idx, torch.ones((4, 3), device=cuda),
+                      torch.ones((8, 64), device=cuda))
+    assert runtime.LAUNCHES == before
+
+
+def test_lm_on_card_matches_cpu(cuda):
+    """A two-layer gemma2-style model (head_dim 64, window 64, softcaps,
+    float32) on the card, through the kernel, against the same model on
+    the CPU through the plain version; and decode after prefill against
+    forward on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LMConfig(name="gemma2-card", n_layers=2, d_model=256, n_heads=4,
+                   n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=1024,
+                   activation="geglu", sliding_window=64,
+                   local_global_alternate=True, attn_softcap=50.0,
+                   final_softcap=30.0, embed_scale=True, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    host = TransformerLM(cfg, params)
+    card = TransformerLM(cfg, {k: ({n: t.to(cuda) for n, t in v.items()}
+                                   if isinstance(v, dict) else v.to(cuda))
+                               for k, v in params.items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 200)))
+    before = runtime.LAUNCHES["flash_attention"]
+    full = card(toks.to(cuda))
+    assert runtime.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(full.cpu(), host(toks), atol=1e-4, rtol=1e-4)
+    logits, pc = card.prefill(toks[:, :128].to(cuda))
+    torch.testing.assert_close(logits, full[:, 127], atol=1e-4, rtol=1e-4)
+    cache = init_cache(cfg, 2, 200, torch.float32, device=cuda)
+    cache["k"][:, :, :, :128] = pc["k"]
+    cache["v"][:, :, :, :128] = pc["v"]
+    cache["k_local"].copy_(pc["k_local"])
+    cache["v_local"].copy_(pc["v_local"])
+    for pos in range(128, 200):
+        logits, cache = card.decode_step(cache, toks[:, pos].to(cuda), pos)
+        torch.testing.assert_close(logits, full[:, pos], atol=1e-4,
+                                   rtol=1e-4)
