@@ -48,11 +48,15 @@ Six phases, each printing JSON lines:
    items, the first Count(G', G') of an insert epoch, the first call whose
    G2 is the batch graph), the membership probe on the member queries;
    both are timed as in phase 2.
-5. **lm** - gemma2-9b at its full config (42 layers, d_model 3584, bf16,
-   random weights from a seeded generator) serves two prompts of 8,192
-   tokens (``lm_batches``, seed 0): request 1 is the prefill through
-   ``build_lm_prefill_step`` (one ``flash_attention`` launch per layer),
-   requests 2-129 are 128 greedy decode steps through
+5. **lm** - first the attention kernel's build: for each instantiation,
+   the registers and spill bytes ``ptxas -v`` reported and the count of
+   ``HMMA``/``HGMMA`` instructions in its SASS (``cuobjdump -sass``); every
+   bf16 one (head_dim 64, 128, 256) must spill nothing and run on the
+   tensor cores.  Then gemma2-9b at its full config (42 layers, d_model
+   3584, bf16, random weights from a seeded generator) serves two prompts
+   of 8,192 tokens (``lm_batches``, seed 0): request 1 is the prefill
+   through ``build_lm_prefill_step`` (one ``flash_attention`` launch per
+   layer), requests 2-129 are 128 greedy decode steps through
    ``build_lm_decode_step`` against a cache of 8,320 slots seeded from the
    prefill's.  The launch counts are zeroed just before the prefill and
    read after the last step.  Self-checks without the reference: ``forward``
@@ -61,11 +65,13 @@ Six phases, each printing JSON lines:
    its position.  The same weights in float32 then serve a prefill and 16
    decode steps against a float32 forward, at a limit that the phase shows
    two planted faults (the position and the ring slot off by one) fail.
+   The bf16 prefill runs again, warm, timed and under the profiler.
    Kernel 10 is held to ``attention_ref`` on the q/k/v the prefill gave
    its first local and first global layer, at a limit that fails a
    dropped key tile or a mask edge moved by a tile on the last query tile,
    and timed on the device alone beside PyTorch's SDPA (without softcap,
-   which SDPA lacks).
+   which SDPA lacks); its float32 variant is timed likewise on the layers
+   of the float32 prefill.
 6. **embedding_bag** - kernel 9 through its op on MIND's table (2**21 x 64
    float32, and a bfloat16 copy) for 50-slot history bags from
    ``recsys_batches`` (B = 512 and 65,536), against its plain version and
@@ -82,6 +88,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1122,6 +1129,67 @@ def triangles_phase(torch, np) -> dict:
 # phase 5: gemma2-9b prefill and decode at full width
 # ----------------------------------------------------------------------------
 
+def attention_build_readings(runtime, built: dict) -> dict:
+    """Per instantiation of the attention kernel (``attn_<dtype>_kernel<D>``):
+    the registers, stack frame and spill bytes ``ptxas -v`` reported in the
+    build log, and the count of tensor-core instructions (``HMMA``,
+    ``HGMMA``) in its SASS from ``cuobjdump -sass`` of the built library."""
+    kernels = {}
+    cur = None
+    for ln in built["log"].splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", ln)
+        if m:
+            cur = None
+            name = re.search(r"attn_(bf16|f32)_kernelILi(\d+)E", m.group(1))
+            if name:
+                cur = kernels.setdefault(f"{name[1]} D={name[2]}",
+                                         {"mangled": m.group(1)})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers")):
+            m = re.search(pat, ln)
+            if m:
+                cur[key] = int(m.group(1))
+    sass = subprocess.run(
+        [str(Path(runtime.nvcc()).with_name("cuobjdump")), "-sass",
+         built["path"]], capture_output=True, text=True, check=True).stdout
+    owner = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            owner = next((r for r in kernels.values()
+                          if r["mangled"] == m.group(1)), None)
+            if owner is not None:
+                owner["tensor_core_instructions"] = 0
+        elif owner is not None and re.search(r"\bHG?MMA\b", ln):
+            owner["tensor_core_instructions"] += 1
+    return kernels
+
+
+def check_attention_build(runtime, built: dict) -> None:
+    """Every bf16 instantiation of the attention kernel (head_dim 64, 128,
+    256) builds with no spill and runs on the tensor cores."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+
+    kernels = attention_build_readings(runtime, built)
+    emit({"phase": "lm_attention_build", "kernels": kernels})
+    for D in HEAD_DIMS:
+        r = kernels.get(f"bf16 D={D}")
+        check(r is not None and "registers" in r,
+              f"ptxas reported no bf16 attention kernel for head_dim {D}")
+        check(r.get("spill_store_bytes") == 0
+              and r.get("spill_load_bytes") == 0,
+              f"the bf16 attention kernel spills at head_dim {D}: {r}")
+        check(r.get("tensor_core_instructions", 0) > 0,
+              f"the bf16 attention kernel's SASS holds no HMMA/HGMMA at "
+              f"head_dim {D}")
+
+
 def visible_pairs(S: int, window: int) -> int:
     """(q, k) pairs a causal query sequence of S tokens attends to (query i
     sees min(i + 1, window) keys under a window)."""
@@ -1217,6 +1285,23 @@ def attention_tolerance_readings(torch, q, k, v, kw, plain) -> dict:
     return out
 
 
+def sdpa(torch, q, k, v, window: int):
+    """PyTorch's SDPA on the shape of a captured layer, the yardstick beside
+    kernel 10 (never called by the port): causal with GQA, or with a
+    boolean band mask for a window; it has no softcap.  -> (call, what)."""
+    import torch.nn.functional as F
+
+    if window > 0:
+        i = torch.arange(q.shape[2], device=q.device)
+        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        return (lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=band, enable_gqa=True),
+            "SDPA, boolean band mask, no softcap")
+    return (lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True),
+        "SDPA, is_causal, no softcap")
+
+
 def compare_attention(torch, captured) -> list:
     """Kernel 10 against ``attention_ref`` on the captured local and global
     layers, at bf16 with the reference test's tolerance; both timed on the
@@ -1224,8 +1309,6 @@ def compare_attention(torch, captured) -> list:
     global shape against the kernel rerun with softcap 0, and SDPA with a
     boolean band mask on the local shape, likewise without softcap (SDPA has
     no softcap)."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     results = []
@@ -1254,20 +1337,7 @@ def compare_attention(torch, captured) -> list:
         window = kw.get("window", 0)
         nocap = dict(kw, softcap=0.0)
         kern0 = flash_attention(q, k, v, **nocap)
-        if window > 0:
-            i = torch.arange(S, device=q.device)
-            band = (i[:, None] >= i[None, :]) & \
-                (i[:, None] - i[None, :] < window)
-
-            def library():
-                return F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=band, enable_gqa=True)
-            library_what = "SDPA, boolean band mask, no softcap"
-        else:
-            def library():
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
-            library_what = "SDPA, is_causal, no softcap"
+        library, library_what = sdpa(torch, q, k, v, window)
         lib_out = library()
         torch.cuda.synchronize()
         lib_err = float((kern0.float() - lib_out.float()).abs().max())
@@ -1293,6 +1363,49 @@ def compare_attention(torch, captured) -> list:
             **bound(n_bytes, pairs * B * Hq * 4 * D,
                     ops_per_s=BF16_OPS_PER_S)))
         del kern
+        torch.cuda.empty_cache()
+    for r in results:
+        emit({"phase": "lm_kernels", **r})
+    return results
+
+
+def time_attention_f32(torch, captured) -> list:
+    """Kernel 10's float32 variant (the CUDA-core kernel the float32 serve
+    runs) on the q/k/v of that serve's first local and first global layer:
+    its error against ``attention_ref`` (printed; the float32 serve's own
+    gate holds it), and its time beside the plain version's and SDPA's
+    without softcap, each on the device alone.  Its bound is the float32
+    CUDA-core rate: a float32 product on the tensor cores (TF32) would not
+    hold the float32 gates."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    results = []
+    for name in ("local", "global"):
+        q, k, v, kw = captured.pop(name)
+        B, Hq, S, D = q.shape
+        window = kw.get("window", 0)
+        kern = flash_attention(q, k, v, **kw)
+        plain = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((kern - plain).abs().max())
+        del kern, plain
+        nocap = dict(kw, softcap=0.0)
+        library, library_what = sdpa(torch, q, k, v, window)
+        pairs = visible_pairs(S, window)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        results.append(dict(
+            name="flash_attention", variant=f"{name} float32 (float32 "
+            "serve)", window=window,
+            shape={"q": list(q.shape), "kv": list(k.shape)},
+            max_abs_err=err,
+            ms=device_ms(torch, lambda: flash_attention(q, k, v, **kw)),
+            plain_ms=device_ms(torch, lambda: attention_ref(q, k, v, **kw)),
+            ms_softcap0=device_ms(torch,
+                                  lambda: flash_attention(q, k, v, **nocap)),
+            library_ms=device_ms(torch, library), library=library_what,
+            pairs_per_head=pairs,
+            **bound(n_bytes, pairs * B * Hq * 4 * D)))
+        del q, k, v
         torch.cuda.empty_cache()
     for r in results:
         emit({"phase": "lm_kernels", **r})
@@ -1333,17 +1446,22 @@ def decode_readings(torch, model, cache, generated, want) -> dict:
     return out
 
 
-def lm_phase(torch, np) -> dict:
+def lm_phase(torch, np, attn_build: dict) -> dict:
     """Serve gemma2-9b at full width: a prefill of 2 prompts of 8,192 tokens
     and 128 greedy decode steps, with the launch counts zeroed just before
     the prefill and read after the last step; then the self-checks and the
-    kernel against its plain version."""
+    kernel against its plain version.  First, the attention kernel's build
+    (``attn_build``: ``runtime.build(verbose=True)``'s entry for it, with
+    the ``ptxas -v`` log) is checked: no spill and tensor-core instructions
+    in every bf16 instantiation."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synth
     from repro_torch.kernels import runtime
     from repro_torch.launch.steps import (build_lm_decode_step,
                                           build_lm_prefill_step)
     from repro_torch.models import transformer as tfm
+
+    check_attention_build(runtime, attn_build)
 
     # 42 layers, d_model 3584, GQA 16/8, head_dim 256, local(4096)/global
     # alternation, softcaps 50 and 30, bf16
@@ -1405,10 +1523,18 @@ def lm_phase(torch, np) -> dict:
     torch.cuda.empty_cache()
     decode_s = sum(decode_ms) / 1e3
     peak = torch.cuda.max_memory_allocated()
+    # the prefill again, warm: its time, then where the card spends it
+    t0 = time.perf_counter()
+    prefill(model, tokens)
+    torch.cuda.synchronize()
+    prefill_warm_s = time.perf_counter() - t0
+    prefill_busy = busy_time(torch, lambda: prefill(model, tokens), top=8)
     emit({"phase": "lm", "model": cfg.name, "n_params": cfg.n_params(),
           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
           "init_s": init_s, "prefill_ms": 1e3 * prefill_s,
           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+          "prefill_warm_ms": 1e3 * prefill_warm_s,
+          "prefill_profile": prefill_busy,
           "decode_ms_median": statistics.median(decode_ms),
           "decode_ms_first": decode_ms[0], "decode_ms_max": max(decode_ms),
           "decode_tokens_per_s": LM_BATCH * LM_NEW / decode_s,
@@ -1484,7 +1610,10 @@ def lm_phase(torch, np) -> dict:
     # decode_readings runs its first steps against the float32 forward.
     # Without bf16 rounding the two paths differ by float32 reordering
     # alone, so LM_F32_ATOL can sit below what a planted fault moves.
-    last32, pc32 = model32.prefill(tokens)
+    captured32 = {}
+    with swapped(tfm, flash_attention=capture_attention(torch, tfm,
+                                                        captured32)):
+        last32, pc32 = model32.prefill(tokens)
     err32_prefill = float((last32 - exact[:, 0]).abs().max())
     del last32
     cache32 = {name: pc32.pop(name) for name in ("k_local", "v_local")}
@@ -1532,6 +1661,7 @@ def lm_phase(torch, np) -> dict:
               f"{faults32[fault]['max']})")
     torch.cuda.empty_cache()
     results = compare_attention(torch, captured)
+    results += time_attention_f32(torch, captured32)
     return {"launches": launches, "results": results}
 
 
@@ -1729,7 +1859,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------- lm
     t0 = time.perf_counter()
-    lm = lm_phase(torch, np)
+    lm = lm_phase(torch, np, built["flash_attention"])
     results += lm["results"]
     launches["flash_attention"] = lm["launches"]["flash_attention"]
     emit({"phase": "lm", "seconds": time.perf_counter() - t0})

@@ -10,37 +10,82 @@
 // i >= j (causal) and i - j < window (window > 0), with absolute indices
 // from 0 for both, as the reference masks.
 //
-// Work split.  The TPU kernel walks the key blocks of one (b, h, q block)
-// in order on one core and carries (acc, m, l) in VMEM scratch.  Here one
-// block of 256 threads owns one (b, h, 64-row query tile) and a loop over
-// 64-key tiles takes the place of that sequential grid dimension.  Key
-// tiles wholly outside the causal / window band or past kv_len are never
-// loaded, as the reference's ``needed`` skips them.
+// Two kernels behind one entry point, chosen by dtype:
 //
-// Per key tile: K and V are converted to float32 into shared memory; each
-// thread computes a 4 x 4 block of scores (rows rg*4..+3, columns cg +
-// 16*j) from float4 reads of Q and K; scale, softcap (tanhf, not a fast
-// approximation) and mask; the row max and row sum are reduced over the 16
-// threads that share the rows with shuffles; the probabilities go to shared
-// memory, and each thread adds P·V into its float32 accumulator of 4 rows x
-// D/16 columns (float4 groups cg*4 + 64*jj).  The running max starts at
-// NEG_INF = -1e30 as in the reference; a masked score is -inf, whose exp is
-// exactly 0, so it adds nothing, as the reference's where(mask, ., 0) does.
-// A row with no visible key ends with l = 0 and is written as 0.
+// * bfloat16 (the served path): attn_bf16_kernel, on the tensor cores.
+// * float32 (the float32 oracle of the LM and the float32 tests):
+//   attn_f32_kernel, on the CUDA cores, exact float32 products.
 //
-// Shared memory (float32 tiles, rows padded by 4 floats so that 8 threads
-// reading float4 at the same column of 8 rows hit 32 distinct banks): Q, K
-// and V tiles of 64 x (D + 4) and a 64 x 68 probability tile: 217,088 bytes
-// at D = 256, above the 48 KB static limit, so the launch raises the
-// kernel's dynamic shared-memory limit first.  One block fits an SM at
-// D = 256.
+// Both follow the TPU kernel's schedule: the TPU walks the key blocks of
+// one (b, h, q block) in order on one core and carries (acc, m, l) in VMEM
+// scratch; here one thread block owns one (b, h, query tile) and a loop
+// over 64-key tiles takes the place of that sequential grid dimension, with
+// (acc, m, l) in registers.  Key tiles wholly outside the causal / window
+// band or past kv_len are never loaded, as the reference's ``needed`` skips
+// them.  Numerics are the reference's: scores scaled by sm_scale in
+// float32, the softcap as softcap * tanhf(x / softcap) (tanhf, not a fast
+// approximation), expf, a masked score -inf whose exp is exactly 0, a
+// running max that starts at NEG_INF = -1e30, a row with no visible key
+// (l = 0) written as 0, and the output rounded once.
+//
+// ---- bfloat16: tensor cores (wgmma, FlashAttention-3's products) -------
 //
 // Bound on this card: operations.  The scores and P·V are 4·D flops per
-// visible (q, k) pair; the inputs are read once a query tile, far fewer
-// bytes than that work at 295 flops a byte.  This first version multiplies
-// on the CUDA cores in float32 (67 TFLOP/s peak), not on the tensor cores
-// (989 TFLOP/s bf16), and does not overlap the tile loads with the
-// arithmetic; both are the work of a later version (wgmma, TMA).
+// visible (q, k) pair on the tensor cores (989 TFLOP/s bf16 dense); the
+// inputs are read once per 128-row query tile.  Besides the products,
+// every score takes a float32 scale, softcap (tanhf, and a division done
+// as a product and two fmas), max, expf and sum on the CUDA cores.
+//
+// A block of 2 warpgroups (8 warps) owns 128 query rows, 64 a warpgroup,
+// 16 a warp.  Per 64-key tile, each warpgroup:
+// * S = Q·Kᵀ: D / 16 wgmma.m64n64k16 (bf16 operands, float32
+//   accumulators), Q and K read by the tensor cores from shared memory
+//   through matrix descriptors.  A warp's S is 16 x 64: 32 floats a
+//   thread, rows g and g + 8 (g = lane / 4), columns 2 (lane % 4) + {0, 1}
+//   of each 8-key group.
+// * The online softmax runs on those accumulator fragments: a row's max
+//   and sum reduce over the 4 lanes that share it (shuffles by 1 and 2);
+//   l is kept per lane and reduced once at the end.  The mask is applied
+//   only where a warp's 16 x 64 block crosses the causal diagonal, the
+//   window's edge or kv_len; a tile wholly outside a warpgroup's band is
+//   skipped.
+// * O += P·V: 4 wgmma.m64nDk16 of the register-A form.  The accumulator
+//   layout of two 8-key groups is the A fragment of one 16-key step, so P
+//   is converted in registers and never goes through shared memory.  P is
+//   carried as two bf16 terms, P_hi = bf16(P) and P_lo = bf16(P - P_hi),
+//   each multiplied into O: a single bf16 rounding of P moved outputs near
+//   0 by more than the phase-5 gate (atol 1e-3) allows.  l is the float32
+//   sum of the unrounded P.
+// * O (16 x D a warp, D / 2 floats a thread: 128 at D = 256) stays in
+//   registers; 8 warps a block leave 255 registers a thread.
+// Warpgroup 1 issues its score products once warpgroup 0's are done (a
+// named barrier), so one warpgroup's softmax runs beside the other's
+// products.
+//
+// Tiles stay bf16 in shared memory: Q (128 x D) and a 2-stage ring of K
+// and V (64 x D each), 192 KB at D = 256, 96 KB at 128, 48 KB at 64.  They
+// arrive by cp.async.cg, 16 B a thread, rows past Sq (Q) or kv_len (K, V)
+// zero-filled; tile t + 1's copy is issued before tile t's products.  The
+// layout is the one wgmma reads with 128-byte swizzling (``sw128``), which
+// also keeps each 8-row phase of the copies free of bank conflicts.
+// Query tiles launch longest first (the grid's slow axis walks them from
+// the last, most causal work, down), so the causal tail balances across
+// the SMs.
+//
+// ---- float32: CUDA cores -----------------------------------------------
+//
+// One block of 256 threads owns a 64-row query tile.  Per key tile: K and
+// V are loaded into shared memory; each thread computes a 4 x 4 block of
+// scores (rows rg*4..+3, columns cg + 16*j) from float4 reads of Q and K;
+// scale, softcap and mask; the row max and row sum are reduced over the 16
+// threads that share the rows with shuffles; the probabilities go to shared
+// memory, and each thread adds P·V into its float32 accumulator of 4 rows x
+// D/16 columns (float4 groups cg*4 + 64*jj).  Shared memory (float32 tiles,
+// rows padded by 4 floats so that 8 threads reading float4 at the same
+// column of 8 rows hit 32 distinct banks): Q, K and V tiles of 64 x (D + 4)
+// and a 64 x 68 probability tile, 217,088 bytes at D = 256.  Bound:
+// operations, on the CUDA cores (67 TFLOP/s float32); a TF32 product would
+// not hold the float32 gates.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,12 +94,17 @@
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kPStride = kBK + 4;
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 static_assert(kBQ == kBK, "load_tile fills kBK rows, for Q tiles too");
 
 template <int D>
@@ -82,44 +132,6 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
   }
 }
 
-template <int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int row0, int n_rows) {
-  constexpr int kOcts = D / 8;
-  for (int i = threadIdx.x; i < kBK * kOcts; i += kThreads) {
-    const int r = i / kOcts, c = (i % kOcts) * 8;
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (row0 + r < n_rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * D + c);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h2[0]), b = __bfloat1622float2(h2[1]);
-      const float2 e = __bfloat1622float2(h2[2]), f = __bfloat1622float2(h2[3]);
-      lo = make_float4(a.x, a.y, b.x, b.y);
-      hi = make_float4(e.x, e.y, f.x, f.y);
-    }
-    float* d = dst + r * Tiles<D>::kStride + c;
-    *reinterpret_cast<float4*>(d) = lo;
-    *reinterpret_cast<float4*>(d + 4) = hi;
-  }
-}
-
-__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
-}
-
 // max / sum over the 16 lanes that share a row group (lanes 0-15 or 16-31)
 __device__ __forceinline__ float group_max(float x) {
 #pragma unroll
@@ -133,12 +145,12 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
-                int Sq, int Skv, int causal, int window, int kv_len,
-                float softcap, float sm_scale) {
+    attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    int Hq, int Hkv, int Sq, int Skv, int causal, int window,
+                    int kv_len, float softcap, float sm_scale) {
   constexpr int kStride = Tiles<D>::kStride;
   constexpr int kCols = D / 16;  // accumulator columns a thread owns
   extern __shared__ float4 smem4[];
@@ -150,9 +162,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const T* qh = q + (static_cast<size_t>(b) * Hq + h) * Sq * D;
-  const T* kh = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
-  const T* vh = v + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
+  const float* qh = q + (static_cast<size_t>(b) * Hq + h) * Sq * D;
+  const float* kh = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
+  const float* vh = v + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
   const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
 
   load_tile<D>(Qs, qh, q0, Sq);
@@ -261,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  T* oh = out + (static_cast<size_t>(b) * Hq + h) * Sq * D;
+  float* oh = out + (static_cast<size_t>(b) * Hq + h) * Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + rg * 4 + i;
@@ -269,47 +281,521 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float safe = l[i] > 0.f ? l[i] : 1.f;
 #pragma unroll
     for (int jj = 0; jj < D / 64; ++jj)
-      store4(oh + static_cast<size_t>(qi) * D + cg * 4 + 64 * jj,
-             acc[i][jj * 4 + 0] / safe, acc[i][jj * 4 + 1] / safe,
-             acc[i][jj * 4 + 2] / safe, acc[i][jj * 4 + 3] / safe);
+      *reinterpret_cast<float4*>(oh + static_cast<size_t>(qi) * D + cg * 4 +
+                                 64 * jj) =
+          make_float4(acc[i][jj * 4 + 0] / safe, acc[i][jj * 4 + 1] / safe,
+                      acc[i][jj * 4 + 2] / safe, acc[i][jj * 4 + 3] / safe);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-           int kv_len, float softcap, float sm_scale, cudaStream_t stream) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Hq, int Hkv, int Sq, int Skv, int causal, int window,
+               int kv_len, float softcap, float sm_scale,
+               cudaStream_t stream) {
   const size_t smem = Tiles<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  attn_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, causal,
-      window, kv_len, softcap, sm_scale);
+  attn_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
+      causal, window, kv_len, softcap, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dim(const void* q, const void* k, const void* v, void* o, int B,
-                 int Hq, int Hkv, int Sq, int Skv, int D, int causal,
-                 int window, int kv_len, float softcap, float sm_scale,
-                 cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
-                           kv_len, softcap, sm_scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
-                            kv_len, softcap, sm_scale, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
-                            kv_len, softcap, sm_scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWG = 2;                  // warpgroups a block
+constexpr int kTcBQ = 64 * kTcWG;         // query rows per block
+constexpr int kTcBK = 64;                 // keys per tile
+constexpr int kTcThreads = 128 * kTcWG;
+
+template <int D>
+struct TcTiles {
+  static constexpr uint32_t kQBytes = kTcBQ * D * 2;
+  static constexpr uint32_t kKVBytes = kTcBK * D * 2;  // one K or V tile
+  // Q, 2 stages of K and V, and room to align the base to 1 KB
+  static constexpr size_t kBytes = kQBytes + 2 * 2 * kKVBytes + 1024;
+  static_assert(D % 64 == 0, "tiles are stored in 64-column blocks");
+  static_assert(kBytes <= 232448, "over the 227 KB a block can use");
+};
+
+// Byte offset of 16-byte chunk c of row r in a tile of kRows rows, in the
+// layout wgmma reads with 128-byte swizzling: each 64-column block of the
+// tile is stored whole, rows of 128 bytes, and chunk c % 8 of row r sits
+// at (c % 8) ^ (r % 8).
+template <int kRows>
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * (kRows * 128) + r * 128 +
+                               (((c & 7) ^ (r & 7)) << 4));
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// kRows rows of a head slice from row ``row0`` into a tile at shared
+// address ``dst``; rows at or past ``n_rows`` are zero-filled (their source
+// address is the slice's first row, which is never read).
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile_async(
+    uint32_t dst, const __nv_bfloat16* __restrict__ src, int row0,
+    int n_rows) {
+  constexpr int kChunks = D / 8;
+  static_assert(kRows * kChunks % kTcThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < kRows * kChunks / kTcThreads; ++it) {
+    const int i = it * kTcThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + sw128<kRows>(r, c),
+               src + (in ? static_cast<size_t>(row0 + r) * D + c * 8 : 0),
+               in);
   }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Named barrier 1 hands the tensor cores from warpgroup 0 to warpgroup 1
+// once a tile: warpgroup 0 arrives (without waiting) when its score
+// products are done, or at once when it skips the tile; warpgroup 1 waits
+// for that before issuing its own.  Both pass it exactly once a tile.
+__device__ __forceinline__ void turn_arrive() {
+  asm volatile("bar.arrive 1, %0;\n" ::"n"(kTcThreads) : "memory");
+}
+
+__device__ __forceinline__ void turn_wait() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kTcThreads) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of ``r`` across the
+// asynchronous products that own it
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64 a warpgroup) += A (64 x 16 bf16, K-major in shared memory)
+// * B (16 x 64 bf16, K-major in shared memory)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 64 a warpgroup) += A (64 x 16 bf16, registers) * B (16 x 64
+// bf16, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128 a warpgroup) += A (64 x 16 bf16, registers) * B (16 x 128
+// bf16, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 256 a warpgroup) += A (64 x 16 bf16, registers) * B (16 x 256
+// bf16, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// (a, b) as two bf16x2 words: ``hi`` rounds them, ``lo`` rounds what that
+// left over, so hi + lo carries 16 bits of each significand
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                          uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Sq,
+                     int Skv, int causal, int window, int kv_len,
+                     float softcap, float sm_scale) {
+  constexpr uint32_t kKV = TcTiles<D>::kKVBytes;
+  constexpr int kNT = kTcBK / 8;   // 8-key column groups of S
+  constexpr int kDT = D / 8;       // 8-column groups of O
+  extern __shared__ uint4 smem_tc[];
+  // tiles start on a 1 KB boundary: the swizzle repeats every 8 rows of
+  // 128 bytes, and descriptors carry no base offset
+  const uint32_t q_s =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_tc)) + 1023u) &
+      ~1023u;
+  const uint32_t kv_s = q_s + TcTiles<D>::kQBytes;  // stage t: K, then V
+
+  // the grid's slow axis walks the query tiles from the last one down
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int hk = h / (Hq / Hkv);
+  const __nv_bfloat16* qh = q + (static_cast<size_t>(b) * Hq + h) * Sq * D;
+  const __nv_bfloat16* kh = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
+  const __nv_bfloat16* vh = v + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int gq0 = q0 + wg * 64;     // this warpgroup's first query row
+  const int wq0 = gq0 + warp * 16;  // this warp's first query row
+
+  // key tiles that hold a visible key for some row of this query tile
+  int k_hi = kv_len;
+  if (causal) k_hi = min(k_hi, q0 + kTcBQ);
+  int k_lo = 0;
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt0 = k_lo / kTcBK;
+  const int n_kt = max(0, (k_hi + kTcBK - 1) / kTcBK - kt0);
+
+  load_tile_async<D, kTcBQ>(q_s, qh, q0, Sq);
+  if (n_kt > 0) {
+    load_tile_async<D, kTcBK>(kv_s, kh, kt0 * kTcBK, kv_len);
+    load_tile_async<D, kTcBK>(kv_s + kKV, vh, kt0 * kTcBK, kv_len);
+  }
+  cp_async_commit();
+
+  // descriptors: Q (this warpgroup's 64 rows) and K are K-major, 8-row
+  // groups 1 KB apart, a 16-column step 32 bytes into the swizzled row and
+  // a 64-column block kRows * 128 bytes on; V is MN-major, 64-column
+  // blocks kTcBK * 128 bytes apart (leading), 8-key groups 1 KB apart
+  const uint64_t q_desc = sw128_desc(q_s + wg * 64 * 128, 16, 1024);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = (kt0 + it) * kTcBK;
+    const uint32_t ks = kv_s + (it & 1) * 2 * kKV, vs = ks + kKV;
+    if (it + 1 < n_kt) {  // the next tile into the other stage
+      const uint32_t nks = kv_s + ((it + 1) & 1) * 2 * kKV;
+      load_tile_async<D, kTcBK>(nks, kh, k0 + kTcBK, kv_len);
+      load_tile_async<D, kTcBK>(nks + kKV, vh, k0 + kTcBK, kv_len);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the group just issued have landed
+    // this thread's copies, made visible to the tensor cores' reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // does some row of this warpgroup see a key of this tile (the products
+    // are warpgroup-wide), and does the band's edge (causal diagonal,
+    // window start, kv_len) cross this warp's rows
+    bool live = true, edge = k0 + kTcBK > kv_len;
+    if (causal) {
+      live = live && k0 <= gq0 + 63;
+      edge = edge || k0 + kTcBK - 1 > wq0;
+    }
+    if (window > 0) {
+      live = live && gq0 - (k0 + kTcBK - 1) < window;
+      edge = edge || wq0 + 15 - k0 >= window;
+    }
+    // warpgroup 1 starts its score products once warpgroup 0's are done,
+    // so one warpgroup's softmax runs beside the other's products
+    if (wg == 1) turn_wait();
+    if (live) {
+      const uint64_t k_desc = sw128_desc(ks, 16, 1024);
+      const uint64_t v_desc = sw128_desc(vs, kTcBK * 128, 1024);
+      float s[kNT * 4];
+#pragma unroll
+      for (int i = 0; i < kNT * 4; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(s,
+                     q_desc + (((kk >> 2) * kTcBQ * 128 + (kk & 3) * 32) >> 4),
+                     k_desc + (((kk >> 2) * kTcBK * 128 + (kk & 3) * 32) >> 4));
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(s);
+      if (wg == 0) turn_arrive();
+
+      // element e of column group nt (s[4 nt + e]): row g + 8 (e / 2), key
+      // k0 + 8 nt + 2 t4 + e % 2
+#pragma unroll
+      for (int i = 0; i < kNT * 4; ++i) {
+        float x = s[i] * sm_scale;
+        if (softcap > 0.f) {
+          // x / softcap, correctly rounded without a division: the
+          // quotient through the rounded reciprocal, corrected once by its
+          // exact (fma) residual (Markstein)
+          const float q1 = x * inv_cap;
+          x = softcap * tanhf(fmaf(fmaf(-softcap, q1, x), inv_cap, q1));
+        }
+        s[i] = x;
+      }
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kNT * 4; ++i) {
+          const int qi = wq0 + g + 8 * ((i >> 1) & 1);
+          const int kj = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          bool ok = kj < kv_len;
+          if (causal) ok = ok && qi >= kj;
+          if (window > 0) ok = ok && (qi - kj) < window;
+          if (!ok) s[i] = -INFINITY;
+        }
+      }
+
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          mx = fmaxf(mx, fmaxf(s[4 * nt + 2 * r], s[4 * nt + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          // 0 for a masked score
+          s[4 * nt + 2 * r] = expf(s[4 * nt + 2 * r] - mx);
+          s[4 * nt + 2 * r + 1] = expf(s[4 * nt + 2 * r + 1] - mx);
+          sum += s[4 * nt + 2 * r] + s[4 * nt + 2 * r + 1];
+        }
+        alpha[r] = expf(m[r] - mx);
+        l[r] = l[r] * alpha[r] + sum;  // this lane's share of the row sum
+        m[r] = mx;
+      }
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) {
+        acc[4 * dt + 0] *= alpha[0];
+        acc[4 * dt + 1] *= alpha[0];
+        acc[4 * dt + 2] *= alpha[1];
+        acc[4 * dt + 3] *= alpha[1];
+      }
+
+      // O += P·V, 16 keys a step: S's column groups 2j and 2j + 1 are P's
+      // A fragment, as P_hi + P_lo
+      uint32_t ph[kTcBK / 16][4], pl[kTcBK / 16][4];
+#pragma unroll
+      for (int j = 0; j < kTcBK / 16; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          split_bf16(s[8 * j + 2 * f], s[8 * j + 2 * f + 1], ph[j][f],
+                     pl[j][f]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kTcBK / 16; ++j) {
+        wgmma_rs(acc, ph[j], v_desc + ((j * 16 * 128) >> 4));
+        wgmma_rs(acc, pl[j], v_desc + ((j * 16 * 128) >> 4));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+    } else if (wg == 0) {
+      turn_arrive();
+    }
+    __syncthreads();  // this stage is free for the copy two tiles on
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* oh = out + (static_cast<size_t>(b) * Hq + h) * Sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(kFull, lr, 1);
+    lr += __shfl_xor_sync(kFull, lr, 2);
+    const int qi = wq0 + g + 8 * r;
+    if (qi >= Sq) continue;
+    const float safe = lr > 0.f ? lr : 1.f;
+    __nv_bfloat16* orow = oh + static_cast<size_t>(qi) * D + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * dt) =
+          __floats2bfloat162_rn(acc[4 * dt + 2 * r] / safe,
+                                acc[4 * dt + 2 * r + 1] / safe);
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int Hq, int Hkv, int Sq, int Skv, int causal, int window,
+                int kv_len, float softcap, float sm_scale,
+                cudaStream_t stream) {
+  const size_t smem = TcTiles<D>::kBytes;
+  const int n_qt = (Sq + kTcBQ - 1) / kTcBQ;
+  if (n_qt > 65535 || static_cast<long long>(B) * Hq > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * Hq, n_qt);
+  attn_bf16_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      Hq, Hkv, Sq, Skv, causal, window, kv_len, softcap, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           int B, int Hq, int Hkv, int Sq, int Skv, int causal, int window,
+           int kv_len, float softcap, float sm_scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
+                         kv_len, softcap, sm_scale, stream);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
+                          kv_len, softcap, sm_scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -325,14 +811,19 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   if (Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_dim<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
-                               window, kv_len, softcap, sm_scale, s);
-  if (dtype == 1)
-    return dispatch_dim<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                                       causal, window, kv_len, softcap,
-                                       sm_scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64:
+      return launch<64>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+                        window, kv_len, softcap, sm_scale, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+                         window, kv_len, softcap, sm_scale, s);
+    case 256:
+      return launch<256>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+                         window, kv_len, softcap, sm_scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* flash_attention_error_string(int code) {

@@ -2,8 +2,10 @@
 binding.
 
 ``flash_attention_cuda`` launches the blocked online-softmax forward on CUDA
-tensors; its plain version is ``ref.attention_ref``, which ``ops`` runs for
-CPU tensors and the tests hold the kernel to.
+tensors: bfloat16 ones on the tensor cores (``wgmma``), float32 ones on the
+CUDA cores in exact float32; both are one library and one entry point.  Its
+plain version is ``ref.attention_ref``, which ``ops`` runs for CPU tensors
+and the tests hold the kernel to.
 """
 from __future__ import annotations
 

@@ -5,10 +5,11 @@ The port's plain version (``attention_ref``, which the op runs for CPU
 tensors) is held to the reference's Pallas kernel in interpret mode and to
 its dense oracle, on every case of ``tests/test_kernels.py``'s sweep plus a
 ``kv_len`` bound, ``Sq != Skv``, head_dim 256, an explicit ``sm_scale`` and
-rows with no visible key (the cases of the card test, ``ATTN_CASES``, which
-imports no JAX).  Tolerances are the reference test's: 2e-5 in
-float32 (the two frameworks sum the dot products in another order) and
-2e-2 in bfloat16 (one rounding of the output).
+rows with no visible key, each in float32 and bfloat16, plus the served
+shapes of qwen1.5-32b and gemma-2b and a ragged tile (the cases of the card
+test, ``ATTN_CASES``, which imports no JAX).  Tolerances are the reference
+test's: 2e-5 in float32 (the two frameworks sum the dot products in another
+order) and 2e-2 in bfloat16 (one rounding of the output).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +35,12 @@ def _inputs(case, seed):
             [torch.from_numpy(a).to(TORCH_DTYPES[dtype]) for a in arrays])
 
 
+def _block(n):
+    """The reference kernel's tile along an axis of n: 64, or the whole
+    axis when 64 does not divide it (it takes no ragged tile)."""
+    return 64 if n % 64 == 0 else n
+
+
 @pytest.mark.parametrize("case", ATTN_CASES,
                          ids=[f"attn{i}" for i in range(len(ATTN_CASES))])
 def test_attention_matches_reference(case):
@@ -44,8 +51,9 @@ def test_attention_matches_reference(case):
     assert got.dtype == tq.dtype and got.shape == tq.shape
     assert torch.equal(got, attention_ref(tq, tk, tv, **kw))
     tol = 2e-2 if dtype == BF16 else 2e-5
-    for want in (jflash(jq, jk, jv, block_q=64, block_k=64, interpret=True,
-                        **kw),
+    Sq, Skv = case[3], case[4]
+    for want in (jflash(jq, jk, jv, block_q=_block(Sq), block_k=_block(Skv),
+                        interpret=True, **kw),
                  jattention_ref(jq, jk, jv, **kw)):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32),

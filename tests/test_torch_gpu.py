@@ -329,6 +329,25 @@ ATTN_CASES = [
     (1, 4, 2, 128, 128, 256, True, 64, 50.0, "bfloat16", {}),
     (1, 2, 1, 128, 128, 128, True, 0, 0.0, "float32", {"sm_scale": 0.3}),
     (1, 2, 2, 128, 128, 64, True, 0, 0.0, "float32", {"kv_len": 0}),
+    # the bf16 twin of each float32 row above (the tensor-core kernel),
+    # in the same order
+    (1, 4, 4, 128, 128, 64, True, 0, 0.0, "bfloat16", {}),
+    (2, 4, 2, 256, 256, 64, True, 0, 0.0, "bfloat16", {}),
+    (1, 4, 1, 128, 128, 64, True, 0, 0.0, "bfloat16", {}),
+    (1, 2, 2, 256, 256, 64, True, 64, 0.0, "bfloat16", {}),
+    (1, 2, 2, 128, 128, 64, True, 0, 30.0, "bfloat16", {}),
+    (1, 2, 2, 128, 128, 64, False, 0, 0.0, "bfloat16", {}),
+    (1, 4, 2, 256, 256, 64, True, 128, 50.0, "bfloat16", {}),
+    (1, 2, 2, 128, 256, 64, False, 0, 0.0, "bfloat16", {"kv_len": 130}),
+    (1, 2, 2, 256, 128, 64, True, 0, 0.0, "bfloat16", {}),
+    (1, 2, 1, 128, 128, 128, True, 0, 0.0, "bfloat16", {"sm_scale": 0.3}),
+    (1, 2, 2, 128, 128, 64, True, 0, 0.0, "bfloat16", {"kv_len": 0}),
+    # the served shapes of qwen1.5-32b (MHA 40/40, head_dim 128) and
+    # gemma-2b (MQA 8/1, head_dim 256), and a ragged tile: Sq and the
+    # window multiples of neither 16 nor 64
+    (1, 40, 40, 128, 128, 128, True, 0, 0.0, "bfloat16", {}),
+    (1, 8, 1, 128, 128, 256, True, 0, 0.0, "bfloat16", {}),
+    (1, 4, 2, 77, 77, 128, True, 40, 50.0, "bfloat16", {}),
 ]
 # gemma2-9b's attention at a card-sized length: bf16, head_dim 256, GQA
 # 16/8, a window and softcap 50, and a ragged length (not a tile multiple)
