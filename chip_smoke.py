@@ -17,7 +17,12 @@ Six phases, each printing JSON lines:
    and the chain walk) and time both with CUDA events: each kernel on the
    device alone (the card spins while the host queues the call between two
    events; the probe and the chain walk with the L2 cache flushed), each
-   plain version per call, host syncs and launch gaps included.
+   plain version per call, host syncs and launch gaps included.  The sweep
+   reads a row only up to its first EMPTY lane, so the phase first checks
+   that no row of the pools it captured (both views, before and after the
+   compaction) holds a key after an EMPTY lane, and prints the count
+   (``unpacked_rows``); its bound counts the filled lanes, beside PR 15's
+   whole-row bound (``whole_row_bound_ms``).
 3. **serve** - the port's ``launch.serve`` on the card at RMAT scale 20
    (1,048,576 vertices, 2**24 generated edges, 65,536-edge update batches
    with 25% deletes, 15 requests cycling update, PageRank, BFS and WCC
@@ -47,7 +52,11 @@ Six phases, each printing JSON lines:
    inputs it was captured with (the static chunk with the most active
    items, the first Count(G', G') of an insert epoch, the first call whose
    G2 is the batch graph), the membership probe on the member queries;
-   both are timed as in phase 2.
+   both are timed as in phase 2, after the same packed-row check of the
+   phase's pools (both views, the captured G1 pools and the batch graph).
+   The count's bound counts the compares each probe needs and the filled
+   sectors of the rows it reads, beside PR 15's whole-row bound; the
+   static count's wall time is printed beside PR 15's (``static_s_pr15``).
 5. **lm** - first the attention kernel's build: for each instantiation,
    the registers and spill bytes ``ptxas -v`` reported and the count of
    ``HMMA``/``HGMMA`` instructions in its SASS (``cuobjdump -sass``); every
@@ -176,6 +185,12 @@ PR_L1_TOL = 2.5e-4
 #: float sum sweeps add the 128 lanes in another order than the plain
 #: version: rounding of the row total, a few float32 ulp
 SUM_RTOL = 1e-6
+#: the key of an empty lane, as the port's int32 bit pattern
+EMPTY_KEY = -2
+#: the property's static triangle count (``static_s``) in PR 15's final run
+#: of this script (run F: H100 80GB HBM3 at 700.00 W), before the redesign
+#: of the intersection count
+PR15_STATIC_S = 10.209373804999984
 
 
 class SmokeFailure(Exception):
@@ -300,6 +315,23 @@ def bound(n_bytes: float, n_ops: float, *,
             "bytes": int(n_bytes)}
 
 
+def unpacked_rows(torch, pools) -> int:
+    """Rows of the distinct ``pools`` (slab key tensors) with a non-EMPTY
+    lane after an EMPTY lane: the sweep and the intersection count read a
+    row only up to its first EMPTY lane, which is exact on packed rows."""
+    seen, bad = set(), 0
+    for keys in pools:
+        if keys.data_ptr() in seen:
+            continue
+        seen.add(keys.data_ptr())
+        empty = keys == EMPTY_KEY
+        first = torch.where(empty.any(dim=1), empty.byte().argmax(dim=1),
+                            keys.shape[1])
+        bad += int(((~empty).sum(dim=1) != first).sum())
+        del empty, first
+    return bad
+
+
 # ----------------------------------------------------------------------------
 # phase 2: capture the main path's kernel inputs, compare and time
 # ----------------------------------------------------------------------------
@@ -322,7 +354,8 @@ def capture_serve_inputs(torch, np, serve_mod):
     membership, update) with every kernel call recorded: the first probe and
     commit of each batch size (the forward view's), the first sweep of each
     (semiring, frontier) pair, and the first census and chain walk (the
-    forward view's, in the compaction the second update triggers)."""
+    forward view's, in the compaction the second update triggers); and the
+    pools, for the packed-row check."""
     from repro_torch.kernels.slab_compact import ops as compact_ops
     from repro_torch.kernels.slab_sweep import ops as sweep_ops
     from repro_torch.kernels.slab_update import ops as update_ops
@@ -388,6 +421,11 @@ def capture_serve_inputs(torch, np, serve_mod):
         torch.cuda.synchronize()
     check(store.maintenance_count >= 1,
           "the second update should compact on the policy's trigger")
+    # both views as they stand, and the pools the sweeps and the census
+    # read before the compaction replaced them
+    got["pools"] = ([store.forward.keys, store.transpose.keys]
+                    + [c["keys"] for c in got["sweep"].values()]
+                    + ([got["live"][0]] if "live" in got else []))
     return got, store
 
 
@@ -494,6 +532,10 @@ def compare_kernels(torch, got) -> list:
     dist = base["values"]
     tgt = got["sweep"][("arg_min_plus", True)]["target"]
     rows_alloc = int((owner >= 0).sum())
+    filled = int(((keys != EMPTY_KEY) & (owner >= 0)[:, None]).sum())
+    unpacked = unpacked_rows(torch, got["pools"])
+    check(unpacked == 0, f"{unpacked} rows of the serve's pools hold a key "
+                         f"after an EMPTY lane")
     for semiring in ("sum", "min", "min_plus", "arg_min_plus"):
         for use_f in (False, True):
             cap = got["sweep"].get((semiring, use_f))
@@ -515,11 +557,13 @@ def compare_kernels(torch, got) -> list:
                     if k.dtype == torch.int32 else float((k - p).abs().max())
                 check(torch.equal(k, p),
                       f"{semiring} sweep differs from its plain version")
-            # keys (and target) only of allocated rows; owner and output
-            # of every row; values and frontier once each
-            n_bytes = (rows_alloc * 512 + S * (4 + 4) + n * 4
-                       + (n if use_f else 0)
-                       + (rows_alloc * 4 if target is not None else 0))
+            # the filled lanes' keys; owner and output of every row;
+            # values and frontier once each, target per allocated row; two
+            # operations per filled lane.  PR 15's bound charged the whole
+            # 512 B of every allocated row's keys
+            rest = (S * (4 + 4) + n * 4 + (n if use_f else 0)
+                    + (rows_alloc * 4 if target is not None else 0))
+            whole_rows = bound(rows_alloc * 512 + rest, S * 128 * 2)
             library_ms = None
             if semiring == "sum" and not use_f:
                 # the same sums as one sparse product: the pool's live lanes
@@ -544,7 +588,10 @@ def compare_kernels(torch, got) -> list:
                     keys, owner, values, semiring=semiring, n_vertices=n,
                     frontier=frontier, target=target)),
                 library_ms=library_ms, rows=S, rows_allocated=rows_alloc,
-                **bound(n_bytes, S * 128 * 2)))
+                filled_lanes=filled, unpacked_rows=unpacked,
+                whole_row_bound_ms=whole_rows["bound_ms"],
+                whole_row_bound_by=whole_rows["bound_by"],
+                **bound(filled * 4 + rest, filled * 2)))
 
     # -- census: the forward view's pool at its first compaction ----------------
     keys, owner = got["live"]
@@ -868,7 +915,9 @@ def check_boot_counts(torch, np, store, src, dst) -> dict:
 def count_work(torch, g1k, g1n, g1o, g1c, g2k, g2n, start, us) -> dict:
     """What the count must read and compare for these items: the distinct
     G2 rows the items walk, the candidates, the (candidate, G1 row) visits
-    of their probes and the distinct G1 rows probed."""
+    of their probes, the compares a visit needs (up to the hit, else the
+    row's filled lanes), the distinct G1 rows probed and the 32 B sectors
+    that hold the filled lanes of the distinct rows."""
     from repro_torch.core.hashing import bucket_hash, is_valid_vertex
 
     act = start != -1
@@ -876,7 +925,7 @@ def count_work(torch, g1k, g1n, g1o, g1c, g2k, g2n, start, us) -> dict:
     n_u = int(torch.unique(u).numel())
     boff, bcnt = g1o[u], g1c[u]
     g2_rows, g1_rows = [], []
-    cands = visits = 0
+    cands = visits = compares = 0
     while cur.numel():
         g2_rows.append(cur)
         rows = g2k[cur]
@@ -890,7 +939,13 @@ def count_work(torch, g1k, g1n, g1o, g1c, g2k, g2n, start, us) -> dict:
             while pc.numel():
                 g1_rows.append(torch.unique(pc))
                 visits += pc.numel()
-                hit = (g1k[pc] == w[:, None]).any(dim=1)
+                r = g1k[pc]
+                eq = r == w[:, None]
+                hit = eq.any(dim=1)
+                compares += int(torch.where(
+                    hit, eq.byte().argmax(dim=1) + 1,
+                    (r != EMPTY_KEY).sum(dim=1)).sum())
+                del r, eq
                 nxt = g1n[pc]
                 keep = ~hit & (nxt != -1)
                 pc, w = nxt[keep].long(), w[keep]
@@ -898,22 +953,32 @@ def count_work(torch, g1k, g1n, g1o, g1c, g2k, g2n, start, us) -> dict:
         keep = nx != -1
         cur, boff, bcnt = nx[keep].long(), boff[keep], bcnt[keep]
 
-    def distinct(parts):
-        return int(torch.unique(torch.cat(parts)).numel()) if parts else 0
+    def distinct(parts, keys):
+        if not parts:
+            return 0, 0
+        rows = torch.unique(torch.cat(parts))
+        filled = (keys[rows] != EMPTY_KEY).sum(dim=1)
+        return int(rows.numel()), int(((filled + 7) // 8).sum())
 
+    g2_n, g2_sectors = distinct(g2_rows, g2k)
+    g1_n, g1_sectors = distinct(g1_rows, g1k)
     return {"items": int(start.numel()), "active_items": int(act.sum()),
-            "g2_rows": distinct(g2_rows), "candidates": cands,
-            "g1_visits": visits, "g1_rows": distinct(g1_rows),
-            "distinct_u": n_u}
+            "g2_rows": g2_n, "candidates": cands, "g1_visits": visits,
+            "compares": compares, "g1_rows": g1_n, "distinct_u": n_u,
+            "filled_sectors": g1_sectors + g2_sectors}
 
 
-def compare_triangle_kernels(torch, cap, member) -> list:
+def compare_triangle_kernels(torch, cap, member, pools) -> list:
     """The intersection count and the membership probe against their plain
-    versions on the captured inputs, timed as in phase 2."""
+    versions on the captured inputs, timed as in phase 2, after the
+    packed-row check of ``pools``."""
     from repro_torch.kernels.slab_intersect import (probe_hits,
                                                     probe_hits_torch,
                                                     slab_count,
                                                     slab_count_torch)
+    unpacked = unpacked_rows(torch, pools)
+    check(unpacked == 0, f"{unpacked} rows of the triangle phase's pools "
+                         f"hold a key after an EMPTY lane")
     flush = torch.empty(1 << 26, dtype=torch.int32, device=member[2].device)
     results = []
     for variant in ("static", "incremental", "batch graph"):
@@ -925,20 +990,24 @@ def compare_triangle_kernels(torch, cap, member) -> list:
               f"slab_count differs from its plain version ({variant})")
         work = count_work(torch, *args)
         B = work["items"]
-        # start and count of every item, u of each active item (an
-        # inactive item counts 0 whatever its u), u's bucket window once
-        # per distinct u, each walked G2 row and each probed G1 row once
-        # (keys and link); 128 lane compares per (candidate, G1 row) visit
-        n_bytes = (B * (4 + 4) + work["active_items"] * 4
-                   + work["distinct_u"] * 8
-                   + (work["g2_rows"] + work["g1_rows"]) * (512 + 4))
+        # start, u and count of every item, u's bucket window once per
+        # distinct u, the filled sectors and the link of each walked G2 row
+        # and each probed G1 row once; the compares each visit needs.
+        # PR 15's bound charged whole 512 B rows and 128 compares a visit
+        rest = B * 12 + work["distinct_u"] * 8 \
+            + (work["g2_rows"] + work["g1_rows"]) * 4
+        whole_rows = bound(
+            rest + (work["g2_rows"] + work["g1_rows"]) * 512,
+            work["g1_visits"] * 128, ops_per_s=INT32_OPS_PER_S)
         results.append(dict(
             name="slab_count", variant=variant,
             max_abs_err=int((k - p).abs().max()), total=int(p.sum()),
             ms=device_ms(torch, lambda: slab_count(*args), flush=flush),
             plain_ms=time_ms(torch, lambda: slab_count_torch(*args)),
-            library_ms=None, **work,
-            **bound(n_bytes, work["g1_visits"] * 128,
+            library_ms=None, unpacked_rows=unpacked, **work,
+            whole_row_bound_ms=whole_rows["bound_ms"],
+            whole_row_bound_by=whole_rows["bound_by"],
+            **bound(rest + work["filled_sectors"] * 32, work["compares"],
                     ops_per_s=INT32_OPS_PER_S)))
         del k, p
 
@@ -1101,6 +1170,7 @@ def triangles_phase(torch, np) -> dict:
     mark("membership checked")
     last = store.last_maintenance
     emit({"phase": "triangles", "static_s": static_s,
+          "static_s_pr15": PR15_STATIC_S,
           "recount_s": recount_s, "triangles": maintained,
           "six_t": 6 * maintained,
           "static_total_int64": recount,
@@ -1120,8 +1190,11 @@ def triangles_phase(torch, np) -> dict:
           flush=True)
 
     rows = materialize_chains(g, tq[0], tq[1], mask, max_chain=max_chain)
+    pools = [store.forward.keys, g.keys] + [
+        t for c in capture.got.values() for t in (c["args"][0],
+                                                  c["args"][4])]
     results = compare_triangle_kernels(torch, capture.got,
-                                       (tq[1], rows, g.keys))
+                                       (tq[1], rows, g.keys), pools)
     return {"launches": launches, "results": results}
 
 

@@ -243,8 +243,9 @@ def triangles_decremental(g_post: SlabGraph, g_batch: SlabGraph,
 # ---------------------------------------------------------------------------
 
 def _sym_bpv(g: SlabGraph) -> int:
-    # a power of two, as in the reference: max_bpv sizes the dense
-    # work-item layout, so both packages lay out the same items
+    # a power of two at or above the largest bucket count, as in the
+    # reference, whose dense work-item layout it sizes; the port lists only
+    # the active items, which any bound at or above that count leaves the same
     return next_pow2(int(g.bucket_count.max()), lo=1)
 
 

@@ -16,21 +16,35 @@
 //   min_plus     values[key] + weight (1 unweighted)  reduce min
 //   arg_min_plus key where values[key] + w <= target  reduce min (int32)
 //
-// Design.  One warp per row, eight rows per block.  Each thread loads one
-// uint4 of keys (four lanes) and, when weighted, one float4 of weights, so a
-// warp reads its 512 B row in one coalesced pass; the owner (and target) is
-// one broadcast load, and a row with no owner (an unallocated slab) reads
-// nothing more and writes the identity.  The lane reduction is a
-// __shfl_xor_sync butterfly.
-// The min family is exact whatever the order.  The sum adds in another
-// order than XLA's lane reduction, so float sums agree with the reference
-// to rounding only (a few ulp of the row total).
+// The rows are packed (the pool's invariant, kept by every engine path:
+// build, insert, delete, compaction and reclamation): a row's keys form a
+// prefix, live and TOMBSTONE lanes first, and every lane after the first
+// EMPTY lane is EMPTY.  So a row ends at its first EMPTY lane.
 //
-// Bound: bytes.  The allocated rows are streamed once (512 B of keys per
-// row, 512 B more when weighted), every row costs 4 B of owner and 4 B of
-// output, and values[] (and frontier[]) are gathered at random;
-// a vector of V floats fits in the 50 MB L2 up to ~12M vertices, so the
-// gathers are served mostly from L2 and the pool stream sets the time.
+// Design.  A group of kGroup = 4 threads takes one row, eight rows a warp,
+// eight warps a block.  The owner (and target) is one load per group, and a
+// row with no owner (an unallocated slab) reads nothing more and writes the
+// identity.  Otherwise the group reads the row in steps of 16 lanes: each
+// thread one uint4 of keys (and, when weighted, one float4 of weights), so a
+// step is one coalesced 64 B segment of the row.  A group stops after the
+// first step that holds an EMPTY key, found by a ballot masked to the group,
+// so a row of k keys costs floor(k / 16) + 1 steps (eight at most), not the
+// whole 512 B.  The lane reduction is a __shfl_xor_sync butterfly within the
+// group.  The min family is exact whatever the order.  The sum adds in
+// another order than XLA's lane reduction, so float sums agree with the
+// reference to rounding only (a few ulp of the row total).  Groups of 1, 2,
+// 8, 16 and 32 threads were timed beside 4 on the serve's pool
+// (tools/slab_variants.py): 4 was the fastest for the sum and as fast as 2
+// for the frontier's min_plus.
+//
+// Bound: bytes.  What the inputs need is 4 B of key (and 4 B of weight) per
+// filled lane, 4 B of owner and 4 B of output per row, values[] and
+// frontier[] once, gathered at random; a vector of V floats fits in the
+// 50 MB L2 up to ~12M vertices, so the gathers are served mostly from L2.
+// At the serve's fill (16M keys in 1.1M allocated rows of 2.1M) a row holds
+// ~15 keys, so the 64 B steps read about 1.5 times the filled lanes' bytes;
+// what holds the kernel is latency: the owner load, the key steps and the
+// value gathers are dependent round trips to memory for every row.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -42,7 +56,13 @@
 namespace {
 
 constexpr int kSlabWidth = 128;
+constexpr int kGroup = 4;                        // threads per row
+constexpr int kRowsPerWarp = 32 / kGroup;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kRowsPerBlock = kWarpsPerBlock * kRowsPerWarp;
+constexpr int kSteps = kSlabWidth / (4 * kGroup);  // steps of a full row
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kEmpty = 0xFFFFFFFEu;
 
 enum Semiring { kSum = 0, kMin = 1, kMinPlus = 2, kArgMinPlus = 3 };
 
@@ -68,66 +88,78 @@ __global__ void sweep_kernel(const uint32_t* __restrict__ keys,
                              typename Acc<T, SEMI>::type* __restrict__ out,
                              int S, uint32_t n) {
   using A = typename Acc<T, SEMI>::type;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int t = threadIdx.x & 31;
-  if (row >= S) return;  // uniform per warp
+  const int j = t % kGroup;                      // thread within the group
+  const unsigned gmask =
+      (kGroup == 32 ? kFull : (1u << (kGroup % 32)) - 1) << (t - j);
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x / kGroup);
 
   A acc = (SEMI == kSum) ? A(0) : max_value<A>();
   // an unallocated row has every lane masked: its partial is the identity,
   // and its keys (and target) are never read
-  if (owner[row] < 0) {  // uniform per warp
-    if (t == 0) out[row] = acc;
-    return;
-  }
-
-  const size_t base = static_cast<size_t>(row) * kSlabWidth;
-  const uint4 k4 = reinterpret_cast<const uint4*>(keys + base)[t];
-  const uint32_t kk[4] = {k4.x, k4.y, k4.z, k4.w};
-  float ww[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-  if constexpr (HAS_W) {
-    const float4 w4 = reinterpret_cast<const float4*>(weights + base)[t];
-    ww[0] = w4.x; ww[1] = w4.y; ww[2] = w4.z; ww[3] = w4.w;
-  }
+  bool open = row < S && owner[row] >= 0;
   T tgt{};
-  if constexpr (SEMI == kArgMinPlus) tgt = target[row];
+  if constexpr (SEMI == kArgMinPlus) {
+    if (open) tgt = target[row];
+  }
+  const size_t base = static_cast<size_t>(open ? row : 0) * kSlabWidth;
+  const uint4* k4 = reinterpret_cast<const uint4*>(keys + base) + j;
+  const float4* w4 =
+      HAS_W ? reinterpret_cast<const float4*>(weights + base) + j : nullptr;
 
+  for (int s = 0; s < kSteps; ++s) {
+    if (!__any_sync(kFull, open)) break;
+    bool empty = false;
+    if (open) {
+      const uint4 kv = k4[s * kGroup];
+      const uint32_t kk[4] = {kv.x, kv.y, kv.z, kv.w};
+      float ww[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+      if constexpr (HAS_W) {
+        const float4 wv = w4[s * kGroup];
+        ww[0] = wv.x; ww[1] = wv.y; ww[2] = wv.z; ww[3] = wv.w;
+      }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t key = kk[j];
-    bool valid = key < n;
-    if constexpr (HAS_F) valid = valid && frontier[key] != 0;
-    if (!valid) continue;
-    const T v = values[key];
-    if constexpr (SEMI == kSum) {
-      if constexpr (HAS_W)
-        acc = __fadd_rn(acc, __fmul_rn(v, ww[j]));
-      else
-        acc += v;
-    } else if constexpr (SEMI == kMin) {
-      acc = v < acc ? v : acc;
-    } else {
-      T cand;
-      if constexpr (HAS_W)
-        cand = __fadd_rn(v, ww[j]);
-      else
-        cand = v + T(1);
-      if constexpr (SEMI == kMinPlus) {
-        acc = cand < acc ? cand : acc;
-      } else {
-        const int32_t kid = static_cast<int32_t>(key);
-        if (cand <= tgt && kid < acc) acc = kid;
+      for (int l = 0; l < 4; ++l) {
+        const uint32_t key = kk[l];
+        empty |= key == kEmpty;
+        bool valid = key < n;
+        if constexpr (HAS_F) valid = valid && frontier[key] != 0;
+        if (!valid) continue;
+        const T v = values[key];
+        if constexpr (SEMI == kSum) {
+          if constexpr (HAS_W)
+            acc = __fadd_rn(acc, __fmul_rn(v, ww[l]));
+          else
+            acc += v;
+        } else if constexpr (SEMI == kMin) {
+          acc = v < acc ? v : acc;
+        } else {
+          T cand;
+          if constexpr (HAS_W)
+            cand = __fadd_rn(v, ww[l]);
+          else
+            cand = v + T(1);
+          if constexpr (SEMI == kMinPlus) {
+            acc = cand < acc ? cand : acc;
+          } else {
+            const int32_t kid = static_cast<int32_t>(key);
+            if (cand <= tgt && kid < acc) acc = kid;
+          }
+        }
       }
     }
+    // the row is packed: past a step with an EMPTY lane every lane is EMPTY
+    if (__ballot_sync(kFull, empty) & gmask) open = false;
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const A o = __shfl_xor_sync(0xffffffffu, acc, off);
+  for (int off = kGroup / 2; off > 0; off >>= 1) {
+    const A o = __shfl_xor_sync(kFull, acc, off);
     if constexpr (SEMI == kSum)
       acc += o;
     else
       acc = o < acc ? o : acc;
   }
-  if (t == 0) out[row] = acc;
+  if (j == 0 && row < S) out[row] = acc;
 }
 
 template <typename T, int SEMI>
@@ -136,7 +168,7 @@ void launch_semi(const void* keys, const void* owner, const void* values,
                  const void* target, void* out, int S, uint32_t n,
                  cudaStream_t stream) {
   using A = typename Acc<T, SEMI>::type;
-  const int blocks = (S + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int blocks = (S + kRowsPerBlock - 1) / kRowsPerBlock;
   const int threads = kWarpsPerBlock * 32;
   const auto* k = static_cast<const uint32_t*>(keys);
   const auto* o = static_cast<const int32_t*>(owner);

@@ -3,7 +3,8 @@ with their plain PyTorch versions.
 
 ``slab_count`` takes (edge, bucket) work items and, per item, walks v's
 slab chain in G2 and hash-probes every valid lane w into u's bucket chain
-in G1, counting the hits; ``probe_hits`` says whether any lane of a query's
+in G1, counting the hits (the kernel reads each row of the packed pools up
+to its first EMPTY lane); ``probe_hits`` says whether any lane of a query's
 candidate rows equals its key.  On CUDA tensors both launch the
 hand-written kernels of ``csrc/slab_intersect.cu``; on CPU tensors they run
 the plain versions below, which the CPU tests hold to the reference.
@@ -85,6 +86,11 @@ def slab_count(g1_keys: torch.Tensor, g1_next: torch.Tensor,
     ``g2_next`` (S2,).  ``start`` (B,) int32 holds each item's head slab in
     G2 (-1 = inactive item) and ``us`` (B,) int32 its u, a vertex of G1
     wherever ``start`` is not -1.
+
+    The kernel reads a row only up to its first EMPTY lane, so both pools
+    must be packed, as every engine path keeps them: in each row, every
+    lane after the first EMPTY lane is EMPTY.  An empty item list launches
+    nothing.
     """
     if not g1_keys.is_cuda:
         return slab_count_torch(g1_keys, g1_next, g1_boff, g1_bcnt, g2_keys,
@@ -103,6 +109,8 @@ def slab_count(g1_keys: torch.Tensor, g1_next: torch.Tensor,
     runtime.require(start, "start", torch.int32, dev, (B,))
     runtime.require(us, "us", torch.int32, dev, (B,))
     out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
     lib = _lib()
     rc = lib.slab_count(g1_keys.data_ptr(), g1_next.data_ptr(),
                         g1_boff.data_ptr(), g1_bcnt.data_ptr(),

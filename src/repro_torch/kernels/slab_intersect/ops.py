@@ -4,7 +4,10 @@
 ``count_edges`` computes Σ_edges |N_G1(u) ∩ N_G2(v)|: per edge (u, v), the
 candidates w come from v's adjacency in G2 (bucket enumeration bounded by
 ``max_bpv``) and are probed for (u, w) in G1 through G1's hash index.  The
-work items are (edge, bucket) pairs in the reference's dense layout.
+work items are the active (edge, bucket) pairs of the reference's dense
+layout, in its order (edge-major, buckets ascending), with its inactive
+slots left out: the dense layout is ``len(edges) * max_bpv`` slots, nearly
+all empty at a skewed graph's bucket counts.
 
 Engines (``impl``):
 
@@ -39,16 +42,22 @@ def _resolve(impl: str, t: torch.Tensor) -> str:
 
 
 def _work_items(g2: SlabGraph, us, vs, emask, *, max_bpv: int):
-    """Flatten (edge, bucket) pairs: per item the head slab of v's bucket in
-    G2 (-1 = inactive), u (0 where inactive) and the item mask."""
-    dev = us.device
+    """The active (edge, bucket) items: per item the head slab of v's
+    bucket in G2 and u, both (n,) int32, edge-major with buckets ascending.
+
+    These are the active slots, in order, of the reference's dense layout
+    (``edges * max_bpv`` slots, where an edge's slot j is active when the
+    edge is masked in and j < bucket_count[v]).  Sizing the list reads its
+    length on the host: one sync.
+    """
     v = torch.where(emask, vs, 0).long()
-    j = torch.arange(max_bpv, dtype=torch.int32, device=dev)[None, :]
-    bmask = emask[:, None] & (j < g2.bucket_count[v][:, None])
-    cur0 = torch.where(bmask, g2.bucket_offset[v][:, None] + j,
-                       INVALID_SLAB).reshape(-1).to(torch.int32)
-    u_flat = torch.where(bmask, us[:, None], 0).reshape(-1).to(torch.int32)
-    return cur0, u_flat, bmask.reshape(-1)
+    n_b = torch.where(emask, g2.bucket_count[v].clamp(max=max_bpv),
+                      0).long()
+    edge = torch.repeat_interleave(n_b)
+    j = torch.arange(edge.numel(), device=us.device) \
+        - (torch.cumsum(n_b, 0) - n_b)[edge]
+    start = (g2.bucket_offset[v[edge]] + j).to(torch.int32)
+    return start, us[edge].to(torch.int32)
 
 
 def count_edges(g1: SlabGraph, g2: SlabGraph, us: torch.Tensor,
@@ -63,10 +72,9 @@ def count_edges(g1: SlabGraph, g2: SlabGraph, us: torch.Tensor,
     impl = _resolve(impl, g1.keys)
     if impl == "oracle":
         return count_edges_ref(g1, g2, us, vs, emask, max_bpv=max_bpv)
-    cur0, u_flat, _ = _work_items(g2, us, vs, emask, max_bpv=max_bpv)
+    start, u = _work_items(g2, us, vs, emask, max_bpv=max_bpv)
     per_item = slab_count(g1.keys, g1.next_slab, g1.bucket_offset,
-                          g1.bucket_count, g2.keys, g2.next_slab, cur0,
-                          u_flat)
+                          g1.bucket_count, g2.keys, g2.next_slab, start, u)
     return per_item.sum(dtype=torch.int64)
 
 

@@ -41,6 +41,11 @@ def slab_sweep(keys: torch.Tensor, slab_vertex: torch.Tensor,
     float32 or int32 with ``V >= n_vertices``, ``weights`` (S, 128) float32
     (float values only), ``frontier`` (V,) bool, ``target`` (S,) of the
     values' dtype for ``arg_min_plus``.
+
+    The rows must be packed, as every engine path keeps them: in each row,
+    every lane after the first EMPTY lane is EMPTY.  The kernel reads a row
+    only up to its first EMPTY lane; the plain version reads every lane, so
+    the two agree on packed pools.
     """
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}")

@@ -2,8 +2,10 @@
 
 Run on a machine with a CUDA card: ``python -m pytest -q -m gpu``.  Without
 one every test here skips (the decision is made in the fixture, not at
-import).  Probe, commit, census, chain walk, the intersection count, the
-membership probe and the min family must match exactly; the float
+import).  The sweep and the intersection count read a row only up to its
+first EMPTY lane, so they are also held on packed rows filled to each side
+of every 32-lane step.  Probe, commit, census, chain walk, the intersection
+count, the membership probe and the min family must match exactly; the float
 ``sum`` sweep adds lanes in another order, so it is held to
 ``rtol=1e-6`` of the row totals.  Flash attention and EmbeddingBag are
 held to the reference tests' tolerances (attention 2e-5 in float32, 2e-2
@@ -143,6 +145,73 @@ def test_sweep_int32_values(cuda, graph, semiring):
     assert torch.equal(got, want)
 
 
+#: lanes filled in the rows of the packed-prefix pools: around each 32-lane
+#: step of the kernels' reads
+FILLS = (0, 1, 7, 8, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128)
+EMPTY, TOMBSTONE = -2, -3
+
+
+def _packed_rows(rng, V):
+    """(S, 128) packed rows at every fill of ``FILLS``: vertex keys, some
+    rows of tombstones only, some with tombstones before the first EMPTY
+    lane, some keys at or above V (not vertices), and unallocated rows
+    (owner -1, all EMPTY)."""
+    fills = np.tile(FILLS, 40)
+    S = len(fills) + 64
+    keys = np.full((S, 128), EMPTY, np.int32)
+    owner = np.full(S, -1, np.int32)
+    for r, f in enumerate(fills):
+        keys[r, :f] = rng.integers(0, V, f)
+        kind = r % 5
+        if kind == 1:
+            keys[r, :f] = TOMBSTONE
+        elif kind == 2:
+            keys[r, :f][rng.random(f) < 0.3] = TOMBSTONE
+        elif kind == 3:
+            keys[r, :f][rng.random(f) < 0.2] = V + rng.integers(0, 9, 1)
+        owner[r] = rng.integers(0, V)
+    perm = rng.permutation(S)
+    return keys[perm], owner[perm]
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("frontier", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sweep_reads_packed_prefixes(cuda, graph, semiring, frontier,
+                                     weighted):
+    """The sweep on rows filled to every step boundary, tombstone rows and
+    unallocated rows, and on a pool with multi-slab chains after deletes,
+    against its plain version."""
+    rng = np.random.default_rng(7)
+    V = 5000
+    keys, owner = _packed_rows(rng, V)
+    pools = [(torch.from_numpy(keys).to(cuda),
+              torch.from_numpy(owner).to(cuda))]
+    g = _churned(cuda, graph)
+    pools.append((g.keys, g.slab_vertex))
+    values = torch.rand(V, device=cuda) * 5
+    f = (torch.rand(V, device=cuda) < 0.5) if frontier else None
+    for k, o in pools:
+        S = k.shape[0]
+        w = torch.rand(S, 128, device=cuda) + 0.5 if weighted else None
+        tgt = torch.rand(S, device=cuda) + 2.0 \
+            if semiring == "arg_min_plus" else None
+        before = runtime.LAUNCHES["slab_sweep"]
+        got = slab_sweep(k, o, values, w, f, tgt, semiring=semiring,
+                         n_vertices=V)
+        want = slab_sweep_ref(k, o, values, semiring=semiring,
+                              n_vertices=V, weights=w, frontier=f,
+                              target=tgt)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["slab_sweep"] == before + 1
+        if semiring == "sum":
+            torch.testing.assert_close(got, want, rtol=1e-6,
+                                       atol=1e-6 * float(want.abs().max()))
+        else:
+            assert torch.equal(got, want)
+        assert bool((want != want[o < 0][0]).any())   # not all identity
+
+
 def test_engine_on_card_matches_cpu(cuda, graph):
     """One mixed epoch through the engine on the card and on the CPU."""
     rng, src, dst, _ = graph
@@ -249,7 +318,7 @@ def test_slab_count_matches_plain(cuda, undirected, g2_kind):
         b = 512
         g2 = ttri.batch_graph(V, _ids(lo[-b:], cuda), _ids(hi[-b:], cuda),
                               torch.ones(b, dtype=torch.bool, device=cuda))
-    start, us, _ = _items(g2, lo, hi, rng, cuda)
+    start, us = _items(g2, lo, hi, rng, cuda)
     assert int((start != -1).sum()) > 0
     args = (g.keys, g.next_slab, g.bucket_offset, g.bucket_count, g2.keys,
             g2.next_slab, start, us)
@@ -266,13 +335,79 @@ def test_slab_count_stops_on_a_corrupt_chain(cuda, undirected):
     """A chain that loops on itself ends after as many hops as the pool
     has rows instead of hanging the card."""
     rng, _, lo, hi, (g, _) = undirected
-    start, us, _ = _items(g, lo, hi, rng, cuda)
+    start, us = _items(g, lo, hi, rng, cuda)
     nxt = g.next_slab.clone()
     row = int(start[start != -1][0])
     nxt[row] = row
     slab_count(g.keys, nxt, g.bucket_offset, g.bucket_count, g.keys, nxt,
                start, us)
     torch.cuda.synchronize()
+
+
+def _bucket_pool(rng, fills, universe=8192):
+    """A packed G1 = G2 of ``len(fills)`` vertices: vertex v has
+    ``len(fills[v])`` buckets, bucket b a chain holding ``fills[v][b]``
+    distinct ids below ``universe`` that hash to b (its tail filled to
+    fills mod 128, or 128), a tenth of them tombstoned.  Heads first, then
+    the overflow rows, as the engine lays them out."""
+    ids = np.arange(universe, dtype=np.uint64)
+    h = ((ids * 2654435761) & 0xFFFFFFFF) >> 8
+    bcnt = np.array([len(f) for f in fills], np.int32)
+    boff = np.zeros(len(fills) + 1, np.int32)
+    np.cumsum(bcnt, out=boff[1:])
+    rows = int(boff[-1]) + sum(max(0, -(-n // 128) - 1)
+                               for f in fills for n in f)
+    keys = np.full((rows, 128), EMPTY, np.int32)
+    nxt = np.full(rows, -1, np.int32)
+    spare = int(boff[-1])
+    for v, fv in enumerate(fills):
+        for b, n in enumerate(fv):
+            ks = rng.choice(ids[h % len(fv) == b], n,
+                            replace=False).astype(np.int64)
+            ks = np.where(rng.random(n) < 0.1, TOMBSTONE, ks)
+            row = boff[v] + b
+            for c0 in range(0, n, 128):
+                part = ks[c0:c0 + 128]
+                keys[row, :len(part)] = part
+                if c0 + 128 < n:
+                    nxt[row], row = spare, spare
+                    spare += 1
+    return keys, nxt, boff, bcnt
+
+
+@pytest.mark.parametrize("layout", ["one bucket", "four buckets"])
+def test_slab_count_on_step_boundaries(cuda, layout):
+    """Chains whose tail fill lies on each side of every 32-lane step,
+    through the one-bucket (a probe a thread) and the multi-bucket (a probe
+    a group) paths, with hub-heavy items; and an empty item list."""
+    rng = np.random.default_rng(3)
+    ends = [128 * k + f for k in (0, 1, 2) for f in FILLS[1:]]
+    if layout == "one bucket":
+        fills = [[n] for n in ends]
+    else:
+        fills = [list(rng.choice(ends, 4)) for _ in range(len(ends))]
+    keys, nxt, boff, bcnt = _bucket_pool(rng, fills)
+    n_v = len(fills)
+    hub = int(np.argmax([sum(f) for f in fills]))
+    us = rng.integers(0, n_v, 3000)
+    vs = np.where(rng.random(3000) < 0.5, hub, rng.integers(0, n_v, 3000))
+    start = np.concatenate([boff[v] + np.arange(bcnt[v]) for v in vs])
+    u_it = np.repeat(us, bcnt[vs])
+    start[::97] = -1                                # inactive items too
+    t = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+         for a in (keys, nxt, boff, bcnt, start, u_it)]
+    args = (t[0], t[1], t[2], t[3], t[0], t[1], t[4], t[5])
+    before = runtime.LAUNCHES["slab_count"]
+    got = slab_count(*args)
+    want = slab_count_torch(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_count"] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert int(want.sum()) > 0
+    none = t[4][:0]
+    got = slab_count(*args[:6], none, none)
+    assert got.shape == (0,)
+    assert runtime.LAUNCHES["slab_count"] == before + 1   # nothing launched
 
 
 def test_probe_hits_matches_plain(cuda, undirected):

@@ -1,9 +1,11 @@
 """Port parity: the slab_intersect family (triangle counting's engine)
 against the JAX reference on the CPU.
 
-The reference's kernels run in interpret mode.  Everything here is integer:
-per-item counts, totals, candidate rows and membership answers must be
-bit-identical (no tolerance).
+The reference's kernels run in interpret mode.  The port lists only the
+active (edge, bucket) items of the reference's dense layout, so its items
+and per-item counts are compared with the dense layout's active slots.
+Everything here is integer: per-item counts, totals, candidate rows and
+membership answers must be bit-identical (no tolerance).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,9 @@ def _case(seed, hashing, pair):
 @pytest.mark.parametrize("pair", ["same", "cross"])
 @pytest.mark.parametrize("hashing", [True, False])
 def test_slab_count_per_item_matches_pallas(hashing, pair):
+    """The port's items are the reference's active dense slots in order,
+    and their counts, scattered back to those slots, are the reference
+    kernel's dense output."""
     g1, g2, src, dst, mask = _case(3 + 2 * hashing + (pair == "cross"),
                                    hashing, pair)
     mb = int(jnp.max(g2.bucket_count))
@@ -49,21 +54,73 @@ def test_slab_count_per_item_matches_pallas(hashing, pair):
                                 jnp.asarray(mask), max_bpv=mb)
     t1 = to_port(g1)
     t2 = t1 if pair == "same" else to_port(g2)
-    tcur, tu, tm = _work_items(t2, ids(src), ids(dst),
-                               torch.from_numpy(mask), max_bpv=mb)
-    for a, b, what in ((tcur, jcur, "start"), (tu, ju, "u"),
-                       (tm, jm, "mask")):
-        assert_vectors_equal(a, b, what)
+    tstart, tu = _work_items(t2, ids(src), ids(dst), torch.from_numpy(mask),
+                             max_bpv=mb)
+    active = np.asarray(jm)
+    assert_vectors_equal(tstart, np.asarray(jcur)[active], "start")
+    assert_vectors_equal(tu, np.asarray(ju)[active], "u")
     want = jsi.slab_count_pallas(g1.keys, g1.next_slab, g1.bucket_offset,
                                  g1.bucket_count, g2.keys, g2.next_slab,
                                  jcur, ju, interpret=True)
     args = (t1.keys, t1.next_slab, t1.bucket_offset, t1.bucket_count,
-            t2.keys, t2.next_slab, tcur, tu)
+            t2.keys, t2.next_slab, tstart, tu)
     got = tsi.slab_count_torch(*args)
-    assert_vectors_equal(got, want, "per-item counts")
+    dense = np.zeros(active.shape, np.int32)
+    dense[active] = got.numpy()
+    assert_vectors_equal(dense, want, "per-item counts")
     assert int(want.sum()) > 0
     # on CPU tensors the wrapper is its plain version
     assert torch.equal(tsi.slab_count(*args), got)
+
+
+@pytest.mark.parametrize("max_bpv", [1, 2, "max", "2max"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_work_items_are_the_active_dense_slots(seed, max_bpv):
+    """Below G2's largest bucket count ``max_bpv`` truncates the buckets an
+    edge enumerates, as the dense layout does; above it nothing changes.
+    The totals follow the reference's at the same bound."""
+    rng = np.random.default_rng(11 + seed)
+    V = 400
+    src = rng.integers(0, V, 900).astype(np.uint32)
+    dst = rng.integers(0, V, 900).astype(np.uint32)
+    src[:300], dst[:300] = 3, rng.permutation(V)[:300]   # a 4-bucket hub
+    g1 = _und_graph(V, src, dst, hashing=True)
+    g2 = _und_graph(V, np.r_[src[:300], src[300::2]],
+                    np.r_[dst[:300], dst[300::2]], hashing=True)
+    mb = int(jnp.max(g2.bucket_count))
+    assert mb > 2
+    bpv = {"max": mb, "2max": 2 * mb}.get(max_bpv, max_bpv)
+    eu = rng.integers(0, V, 256).astype(np.uint32)
+    ev = np.where(rng.random(256) < 0.3, 3, rng.integers(0, V, 256)
+                  ).astype(np.uint32)
+    mask = rng.random(256) < 0.8
+    us, vs, m = jnp.asarray(eu), jnp.asarray(ev), jnp.asarray(mask)
+    jcur, ju, jm = j_work_items(g2, us, vs, m, max_bpv=bpv)
+    t1, t2 = to_port(g1), to_port(g2)
+    targs = (ids(eu), ids(ev), torch.from_numpy(mask))
+    tstart, tu = _work_items(t2, *targs, max_bpv=bpv)
+    active = np.asarray(jm)
+    assert tstart.numel() == int(active.sum()) > 0
+    assert_vectors_equal(tstart, np.asarray(jcur)[active], "start")
+    assert_vectors_equal(tu, np.asarray(ju)[active], "u")
+    want = int(jsi.count_edges_ref(g1, g2, us, vs, m, max_bpv=bpv))
+    assert int(tsi.count_edges(t1, t2, *targs, max_bpv=bpv)) == want
+
+
+def test_no_active_item_counts_zero():
+    """Every edge masked out: no item, a zero total, and the wrapper takes
+    an empty item list."""
+    g1, g2, src, dst, mask = _case(0, True, "same")
+    t = to_port(g1)
+    none = torch.zeros(len(src), dtype=torch.bool)
+    start, u = _work_items(t, ids(src), ids(dst), none, max_bpv=4)
+    assert start.shape == u.shape == (0,)
+    assert start.dtype == u.dtype == torch.int32
+    got = tsi.slab_count(t.keys, t.next_slab, t.bucket_offset,
+                         t.bucket_count, t.keys, t.next_slab, start, u)
+    assert got.shape == (0,) and got.dtype == torch.int32
+    total = tsi.count_edges(t, t, ids(src), ids(dst), none, max_bpv=4)
+    assert total.dtype == torch.int64 and int(total) == 0
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -1,0 +1,218 @@
+"""The packed-row invariant of the slab pools, on the CPU, in both packages.
+
+The port's sweep and intersection-count kernels read a slab row only up to
+its first EMPTY lane.  That is exact because every engine path keeps each
+row packed: its keys form a prefix (live and TOMBSTONE lanes first, every
+lane after the first EMPTY lane EMPTY), only a chain's tail row holds an
+EMPTY lane, ``tail_fill`` counts the filled lanes of each bucket's tail, and
+an unallocated row is all EMPTY.  These tests check every row of the pools
+after each path of the port (build, insert with overflow into fresh and
+recycled slabs, delete, epoch close, reclamation, compaction, the triangle
+plane's batch graph and symmetric view), and of the pools the JAX reference
+builds on the same paths, carried across with ``to_port``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import ids, to_port
+
+from repro import stream as jstream
+from repro.algorithms import triangle as jtri
+from repro.core import delete_edges as j_delete
+from repro.core import ensure_capacity as j_ensure
+from repro.core import from_edges_host as j_build
+from repro.core import insert_edges as j_insert
+from repro.core import update_slab_pointers as j_close
+from repro.kernels.slab_compact import compact as j_compact
+from repro.kernels.slab_compact import reclaim_free_slabs as j_reclaim
+from repro_torch import stream as tstream
+from repro_torch.algorithms import triangle as ttri
+from repro_torch.core import batch as tbatch
+from repro_torch.core.slab_graph import (ensure_capacity, from_edges_host,
+                                         update_slab_pointers)
+from repro_torch.kernels.slab_compact import compact, reclaim_free_slabs
+
+EMPTY = -2          # EMPTY_KEY as the port's int32 bit pattern
+V = 60
+
+
+def assert_packed(g, what: str) -> None:
+    """Every row of ``g`` (a port SlabGraph) is packed; see the module
+    docstring for the four parts."""
+    keys = g.keys.cpu().numpy()
+    nxt = g.next_slab.cpu().numpy()
+    alloc = g.slab_vertex.cpu().numpy() >= 0
+    empty = keys == EMPTY
+    after = np.logical_or.accumulate(empty, axis=1) & ~empty
+    bad = np.nonzero(after.any(axis=1))[0]
+    assert not bad.size, (f"{what}: {bad.size} rows hold a key after an "
+                          f"EMPTY lane, first row {bad[:1]}")
+    open_rows = np.nonzero(alloc & empty.any(axis=1))[0]
+    assert (nxt[open_rows] == -1).all(), \
+        f"{what}: a row with an EMPTY lane is not its chain's tail"
+    filled = (~empty).sum(axis=1)
+    tail = g.tail_slab.cpu().numpy()
+    assert np.array_equal(filled[tail], g.tail_fill.cpu().numpy()), \
+        f"{what}: tail_fill is not the tail rows' fill"
+    assert empty[~alloc].all(), f"{what}: an unallocated row holds a key"
+
+
+def _edges(rng):
+    """Random edges plus three hubs whose chains overflow."""
+    src = rng.integers(0, V, 1500)
+    dst = rng.integers(0, 4 * V, 1500)
+    src[:900] = np.repeat([3, 7, 11], 300)
+    dst[:900] = rng.integers(0, 100000, 900)
+    return src.astype(np.uint32), dst.astype(np.uint32)
+
+
+def _hub_edges(rng, hubs, n):
+    s = np.repeat(np.asarray(hubs, np.uint32), n // len(hubs))
+    d = rng.integers(200000, 300000, len(s)).astype(np.uint32)
+    return s, d
+
+
+def _live_of(g, hubs):
+    """The live (src, dst) lanes of ``hubs`` in a port graph."""
+    keys = g.keys.cpu().numpy()
+    owner = g.slab_vertex.cpu().numpy()
+    live = (keys >= 0) & np.isin(owner, hubs)[:, None]
+    rows, lanes = np.nonzero(live)
+    return owner[rows].astype(np.uint32), keys[rows, lanes].astype(np.uint32)
+
+
+@pytest.mark.parametrize("hashing", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_port_paths_keep_rows_packed(seed, hashing):
+    rng = np.random.default_rng(seed)
+    src, dst = _edges(rng)
+    g = from_edges_host(V, src, dst, hashing=hashing, device="cpu")
+    assert_packed(g, "build")
+    # inserts that overflow the hubs' tails into fresh slabs
+    s, d = _hub_edges(rng, [3, 20, 41], 900)
+    g = ensure_capacity(g, len(s) // 16 + 64)
+    nf = int(g.next_free)
+    g, m = tbatch.insert_edges(g, ids(s), ids(d))
+    assert int(m.sum()) > 0 and int(g.next_free) > nf
+    assert_packed(g, "insert")
+    g, m = tbatch.delete_edges(g, ids(src[::3]), ids(dst[::3]))
+    assert int(m.sum()) > 0
+    assert_packed(g, "delete")
+    g = update_slab_pointers(g)
+    assert_packed(g, "epoch close")
+    # every edge of two hubs deleted: wholly dead overflow slabs, reclaimed
+    hs, hd = _live_of(g, [3, 20])
+    g, _ = tbatch.delete_edges(g, ids(hs), ids(hd))
+    g = update_slab_pointers(g)
+    g, n_freed = reclaim_free_slabs(g)
+    assert n_freed > 0
+    assert_packed(g, "reclaim")
+    # inserts after the reclamation open recycled slabs
+    s, d = _hub_edges(rng, [5, 41], 600)
+    top = int(g.free_top)
+    g, _ = tbatch.insert_edges(g, ids(s), ids(d))
+    assert int(g.free_top) < top
+    assert_packed(g, "insert into recycled slabs")
+    g, _ = compact(g)
+    assert_packed(g, "compact")
+    s, d = _hub_edges(rng, [7, 8], 400)
+    g = ensure_capacity(g, 64)
+    g, _ = tbatch.insert_edges(g, ids(s), ids(d))
+    assert_packed(g, "insert after compaction")
+
+
+@pytest.mark.parametrize("hashing", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reference_paths_keep_rows_packed(seed, hashing):
+    rng = np.random.default_rng(seed)
+    src, dst = _edges(rng)
+    g = j_build(V, src, dst, hashing=hashing)
+    assert_packed(to_port(g), "build")
+    s, d = _hub_edges(rng, [3, 20, 41], 900)
+    g = j_ensure(g, len(s) // 16 + 64)
+    g, _ = j_insert(g, jnp.asarray(s), jnp.asarray(d))
+    assert_packed(to_port(g), "insert")
+    g, _ = j_delete(g, jnp.asarray(src[::3]), jnp.asarray(dst[::3]))
+    assert_packed(to_port(g), "delete")
+    g = j_close(g)
+    assert_packed(to_port(g), "epoch close")
+    hs, hd = _live_of(to_port(g), [3, 20])
+    g, _ = j_delete(g, jnp.asarray(hs), jnp.asarray(hd))
+    g, n_freed = j_reclaim(j_close(g))
+    assert n_freed > 0
+    assert_packed(to_port(g), "reclaim")
+    s, d = _hub_edges(rng, [5, 41], 600)
+    top = int(g.free_top)
+    g, _ = j_insert(g, jnp.asarray(s), jnp.asarray(d))
+    assert int(g.free_top) < top
+    assert_packed(to_port(g), "insert into recycled slabs")
+    g, _ = j_compact(g)
+    assert_packed(to_port(g), "compact")
+
+
+def _loop_free(rng, n):
+    lo, hi = ttri.undirected_host(rng.integers(0, V, n).astype(np.uint32),
+                                  rng.integers(0, V, n).astype(np.uint32))
+    keep = lo != hi
+    return lo[keep], hi[keep]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_triangle_plane_keeps_rows_packed(seed):
+    """The batch graph of both packages, and the stores' symmetric views
+    through insert-only, delete-only and mixed epochs with maintenance."""
+    rng = np.random.default_rng(seed)
+    lo, hi = _loop_free(rng, 400)
+    bl, bh = _loop_free(rng, 200)
+    mask = rng.random(len(bl)) < 0.9
+    gb = ttri.batch_graph(V, ids(bl), ids(bh), torch.from_numpy(mask))
+    assert_packed(gb, "port batch graph")
+    assert_packed(to_port(jtri.batch_graph(V, jnp.asarray(bl),
+                                           jnp.asarray(bh),
+                                           jnp.asarray(mask))),
+                  "reference batch graph")
+    policy = dict(tombstone_ratio=0.05, every=3)
+    ts = tstream.GraphStore.from_edges(
+        V, lo, hi, hashing=True, device="cpu",
+        maintenance=tstream.MaintenancePolicy(**policy))
+    js = jstream.GraphStore.from_edges(
+        V, lo, hi, hashing=True,
+        maintenance=jstream.MaintenancePolicy(**policy))
+    for ep in range(6):
+        il, ih = _loop_free(rng, 80)
+        pick = rng.choice(len(lo), 40, replace=False)
+        kw = [dict(ins_src=il, ins_dst=ih),
+              dict(del_src=lo[pick], del_dst=hi[pick]),
+              dict(ins_src=il, ins_dst=ih, del_src=lo[pick],
+                   del_dst=hi[pick])][ep % 3]
+        ts.apply(**kw)
+        js.apply(**kw)
+        assert_packed(ts.symmetric, f"port symmetric view, epoch {ep}")
+        assert_packed(to_port(js.symmetric),
+                      f"reference symmetric view, epoch {ep}")
+    assert ts.maintenance_count > 0
+
+
+@pytest.mark.parametrize("fault", ["key after EMPTY", "EMPTY mid-chain",
+                                   "tail_fill", "unallocated key"])
+def test_assert_packed_catches_each_fault(fault):
+    """The check itself: each of its four parts fails on a planted fault."""
+    rng = np.random.default_rng(2)
+    src, dst = _edges(rng)
+    g = from_edges_host(V, src, dst, hashing=False, device="cpu")
+    assert_packed(g, "clean")
+    chained = int(torch.nonzero(g.next_slab >= 0)[0])
+    tail = int(g.tail_slab[3])
+    if fault == "key after EMPTY":
+        g.keys[tail, 127] = 5
+    elif fault == "EMPTY mid-chain":
+        g.keys[chained, 127] = EMPTY
+        g.tail_fill[:] = (g.keys[g.tail_slab.long()] != EMPTY).sum(1)
+    elif fault == "tail_fill":
+        g.tail_fill[3] += 1
+    else:
+        g.keys[int(torch.nonzero(g.slab_vertex < 0)[0]), 0] = 5
+    with pytest.raises(AssertionError):
+        assert_packed(g, fault)
