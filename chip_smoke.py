@@ -22,7 +22,13 @@ Six phases, each printing JSON lines:
    that no row of the pools it captured (both views, before and after the
    compaction) holds a key after an EMPTY lane, and prints the count
    (``unpacked_rows``); its bound counts the filled lanes, beside PR 15's
-   whole-row bound (``whole_row_bound_ms``).
+   whole-row bound (``whole_row_bound_ms``).  The probe and the chain walk
+   read a chain a run of consecutive rows at a time, so for each the phase
+   prints the walks' lengths (``longest_walk``, ``hops``, ``longest_chain``)
+   and the share of the pool's overflow links that are ``r -> r + 1``
+   (``contiguous_links``), and holds and times both kernels again on a copy
+   of their pool whose overflow rows are relabelled by a seeded permutation
+   (``relabelled_ms``), where almost no link is.
 3. **serve** - the port's ``launch.serve`` on the card at RMAT scale 20
    (1,048,576 vertices, 2**24 generated edges, 65,536-edge update batches
    with 25% deletes, 15 requests cycling update, PageRank, BFS and WCC
@@ -421,6 +427,7 @@ def capture_serve_inputs(torch, np, serve_mod):
         torch.cuda.synchronize()
     check(store.maintenance_count >= 1,
           "the second update should compact on the policy's trigger")
+    got["n_buckets"] = store.forward.n_buckets
     # both views as they stand, and the pools the sweeps and the census
     # read before the compaction replaced them
     got["pools"] = ([store.forward.keys, store.transpose.keys]
@@ -429,14 +436,18 @@ def capture_serve_inputs(torch, np, serve_mod):
     return got, store
 
 
-def probe_rows(torch, keys, next_slab, start, dst) -> int:
-    """Distinct slab rows the probe must read for these queries."""
+def probe_walks(torch, keys, next_slab, start, dst) -> dict:
+    """The rows the probe must read for these queries: the distinct rows
+    (``rows_read``), the longest walk in rows (``longest_walk``) and the
+    rows of all walks (``hops``)."""
     cur = start.clone()
     seen = []
+    longest = 0
     while True:
         walking = cur != -1
         if not bool(walking.any()):
             break
+        longest += 1
         c = cur[walking].long()
         seen.append(c)
         hit = (keys[c] == dst[walking][:, None]).any(dim=1)
@@ -444,7 +455,42 @@ def probe_rows(torch, keys, next_slab, start, dst) -> int:
                           next_slab[c].long())
         cur = torch.full_like(cur, -1)
         cur[walking] = nxt.to(cur.dtype)
-    return int(torch.unique(torch.cat(seen)).numel()) if seen else 0
+    rows = torch.cat(seen) if seen else start[:0].long()
+    return {"rows_read": int(torch.unique(rows).numel()),
+            "longest_walk": longest, "hops": int(rows.numel())}
+
+
+def contiguous_links(torch, next_slab, n_buckets: int) -> float:
+    """The share of the pool's overflow links (out of rows ``n_buckets``
+    up) that are ``r -> r + 1``, None without any: the runs the probe and
+    the chain walk read a window at a time."""
+    nxt = next_slab[n_buckets:]
+    rows = torch.arange(n_buckets + 1, next_slab.shape[0] + 1,
+                        device=nxt.device, dtype=nxt.dtype)
+    linked = nxt >= 0
+    n = int(linked.sum())
+    return float((nxt[linked] == rows[linked]).sum()) / n if n else None
+
+
+def relabelled(torch, next_slab, n_buckets: int, *rows, seed: int = 0):
+    """A copy of a pool with its overflow rows (``n_buckets`` up) relabelled
+    by a seeded permutation, so that almost no link is ``r -> r + 1``: the
+    same chains for the probe and the chain walk, the worst layout for
+    their run reading.  ``rows`` are per-row tensors moved with the rows."""
+    S, dev = next_slab.shape[0], next_slab.device
+    perm = torch.arange(S, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    perm[n_buckets:] = n_buckets + torch.randperm(
+        S - n_buckets, generator=gen).to(dev)
+    nxt = torch.full_like(next_slab, -1)
+    nxt[perm] = torch.where(next_slab >= 0, perm[next_slab.clamp_min(
+        0).long()].to(next_slab.dtype), next_slab)
+    out = []
+    for t in rows:
+        u = torch.empty_like(t)
+        u[perm] = t
+        out.append(u)
+    return (nxt, *out)
 
 
 def csr_of_pool(torch, keys, owner, n):
@@ -476,26 +522,47 @@ def compare_kernels(torch, got) -> list:
     # cold
     flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
 
-    # -- probe: every batch size the update used ------------------------------
+    nb = got["n_buckets"]
+
+    def equal_outputs(k, p):
+        return all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(k, p))
+
+    # -- probe: every batch size the update used, on the pool as captured and
+    # on a copy with its overflow rows relabelled ----------------------------
     for B, (keys, nxt, start, dst) in sorted(got["probe"].items()):
         k = slab_probe(keys, nxt, start, dst)
         p = slab_probe_torch(keys, nxt, start, dst)
         torch.cuda.synchronize()
         err = max(int((a.long() - b.long()).abs().max()) for a, b in
                   zip(k, p))
-        check(all(torch.equal(a, b) for a, b in zip(k, p)),
+        check(equal_outputs(k, p),
               f"slab_probe differs from its plain version at B={B}")
-        rows = probe_rows(torch, keys, nxt, start, dst)
+        walks = probe_walks(torch, keys, nxt, start, dst)
+        hits = int(k[0].sum())
+        pnxt, pkeys = relabelled(torch, nxt, nb, keys)
+        k = slab_probe(pkeys, pnxt, start, dst)
+        p = slab_probe_torch(pkeys, pnxt, start, dst)
+        torch.cuda.synchronize()
+        check(equal_outputs(k, p), f"slab_probe differs from its plain "
+                                   f"version at B={B} on the relabelled pool")
+        rows = walks["rows_read"]
         results.append(dict(
             name="slab_probe", variant=f"B={B}", max_abs_err=err,
             ms=device_ms(torch, lambda: slab_probe(keys, nxt, start, dst),
                          flush=flush),
             plain_ms=time_ms(torch,
                              lambda: slab_probe_torch(keys, nxt, start, dst)),
-            rows_read=rows, hits=int(k[0].sum()),
+            **walks, hits=hits,
+            contiguous_links=contiguous_links(torch, nxt, nb),
+            relabelled_ms=device_ms(
+                torch, lambda: slab_probe(pkeys, pnxt, start, dst),
+                flush=flush),
+            relabelled_contiguous_links=contiguous_links(torch, pnxt, nb),
             library_ms=None,
             **bound(rows * (512 + 4) + B * (4 + 4) + B * (1 + 4 + 4),
                     rows * 128, ops_per_s=INT32_OPS_PER_S)))
+        del pkeys, pnxt, k, p
 
     # -- commit: the delete and insert plans ------------------------------------
     for B, (keys, deg, w, *plan) in sorted(got["commit"].items()):
@@ -615,26 +682,39 @@ def compare_kernels(torch, got) -> list:
                 ops_per_s=INT32_OPS_PER_S)))
     del k, p
 
-    # -- chain walk: the same compaction's plan ---------------------------------
+    # -- chain walk: the same compaction's plan, and on a copy with the
+    # overflow rows relabelled -------------------------------------------------
     nxt, cnt, nb = got["chain"]
     k = chain_rank(nxt, cnt, nb)
     p = chain_rank_torch(nxt, cnt, nb)
     torch.cuda.synchronize()
-    check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(k, p)),
+    check(equal_outputs(k, p),
           "slab_chain_rank differs from its plain version")
+    err = max(int((a - b).abs().max()) for a, b in zip(k, p))
     visited = int((p[1] >= 0).sum())
+    longest = int(p[2].max()) + 1
+    pnxt, pcnt = relabelled(torch, nxt, nb, cnt)
+    k = chain_rank(pnxt, pcnt, nb)
+    p = chain_rank_torch(pnxt, pcnt, nb)
+    torch.cuda.synchronize()
+    check(equal_outputs(k, p), "slab_chain_rank differs from its plain "
+                               "version on the relabelled pool")
+    del k, p
     # next and count of each visited row, three outputs for every row, a
-    # count per bucket; the walk's time is its longest chain's dependent
-    # loads, not these bytes
+    # count per bucket
     results.append(dict(
-        name="slab_chain_rank", variant="forward view",
-        max_abs_err=max(int((a - b).abs().max()) for a, b in zip(k, p)),
+        name="slab_chain_rank", variant="forward view", max_abs_err=err,
         ms=device_ms(torch, lambda: chain_rank(nxt, cnt, nb), flush=flush),
         plain_ms=time_ms(torch, lambda: chain_rank_torch(nxt, cnt, nb)),
-        buckets=nb, slabs_visited=visited,
-        longest_chain=int(p[2].max()) + 1, library_ms=None,
+        buckets=nb, slabs_visited=visited, longest_chain=longest,
+        contiguous_links=contiguous_links(torch, nxt, nb),
+        relabelled_ms=device_ms(torch, lambda: chain_rank(pnxt, pcnt, nb),
+                                flush=flush),
+        relabelled_contiguous_links=contiguous_links(torch, pnxt, nb),
+        library_ms=None,
         **bound(visited * (4 + 4) + nxt.shape[0] * 3 * 4 + nb * 4,
                 visited, ops_per_s=INT32_OPS_PER_S)))
+    del pnxt, pcnt
     for r in results:
         emit({"phase": "kernels", **r})
     return results

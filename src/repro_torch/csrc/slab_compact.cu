@@ -19,19 +19,35 @@
 // it writes is the larger half of its traffic; loads and stores are 16 B a
 // thread, coalesced across the warp.
 //
-// Chain rank.  One thread per bucket walks the bucket's chain from its head
-// row b: per visited slab it stores the live lanes before it (base rank),
-// b and its chain position, and at the end the bucket's survivor total.
-// Chains are disjoint, so no two threads write one row.  Rows no chain
-// reaches keep 0 / -1 / -1 from three memsets issued first on the same
-// stream.  Bound: neither bytes nor operations.  Each hop is a dependent
-// load of next_slab, so a thread's time is its chain's length times the
-// DRAM latency, and the kernel lasts as long as the longest chain (a hub's,
-// with hashing off).  The two loads of a hop (next and live count) are
-// issued together.  A warp per bucket prefetching ahead, or pointer jumping
-// over the chains, would shorten that; this kernel is the simple one.  The
-// walk stops at -1, at a row outside the pool, or after S hops, so a
-// corrupt chain cannot hang the card.
+// Chain rank.  Every bucket's chain is walked from its head row b: each
+// visited slab gets the live lanes before it (base rank), b and its chain
+// position, and each bucket its survivor total.  Chains are disjoint, so no
+// two walks write one row.  Three launches on one stream:
+//   1. chain_init_kernel sets every overflow row to 0 / -1 / -1, which rows
+//      that no chain reaches keep, and zeroes the queue's count;
+//   2. chain_kernel: one thread per bucket walks its own chain for up to
+//      kThreadHops rows.  Most of a million buckets hold one or two slabs,
+//      and for them a thread is the cheapest walker (a warp per bucket would
+//      read a 128 B window per bucket).  A chain still going after that is
+//      appended to a queue (one atomic per warp);
+//   3. long_chain_kernel: a fixed grid of warps takes the queued chains in
+//      turn, each chain whole to one warp.  The warp loads next_slab and
+//      live_count at cur .. cur+31 (two coalesced 128 B lines), one ballot
+//      of next_slab[cur+i] == cur+i+1 gives the run of consecutive rows that
+//      are proven to be on the chain (bulk builds and compaction lay a
+//      bucket's overflow slabs out so), an exclusive warp scan of the live
+//      counts over the run gives their base ranks, and the three outputs are
+//      stored coalesced; the next row is the pointer the window holds after
+//      the run.  Up to 32 rows a round trip instead of one; the next
+//      window's loads go out before this one's scan and stores.
+// Integer sums in any order give the same ranks, so the outputs are the
+// serial walk's on any pool.  The walk stops at -1, at a row outside the
+// pool, or after S rows, so a corrupt chain cannot hang the card.
+// Bound: bytes (the outputs' S rows and the visited rows' two inputs); the
+// time is the init pass, one wave of short walks and the longest queued
+// chain's round trips (ceil(length / 32) on a consecutive run, one a row
+// where the links are scattered).  Weakness: on a pool whose links are
+// scattered the long walks are serial again, one round trip a row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +57,10 @@ namespace {
 constexpr int kSlabWidth = 128;
 constexpr int kWarpsPerBlock = 8;
 constexpr uint32_t kTombstone = 0xFFFFFFFDu;
+// rows a thread walks of its own bucket's chain before the chain is queued
+constexpr int kThreadHops = 2;
+// blocks of long_chain_kernel per SM
+constexpr int kLongBlocksPerSM = 4;
 
 __global__ void live_kernel(const uint32_t* __restrict__ keys,
                             const int32_t* __restrict__ slab_vertex,
@@ -75,17 +95,99 @@ __global__ void live_kernel(const uint32_t* __restrict__ keys,
   if (t == 31) cnt[row] = incl;
 }
 
+// Rows from `from` up (rows below it are bucket heads, which every walk
+// writes) to 0 / -1 / -1, and the queue's count to 0.
+__global__ void chain_init_kernel(int32_t* __restrict__ base_rank,
+                                  int32_t* __restrict__ bucket_of,
+                                  int32_t* __restrict__ chain_pos,
+                                  int* __restrict__ queued, int from, int S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lead = min((4 - from % 4) % 4, S - from);  // rows before a quad
+  const int quads = (S - from - lead) / 4;
+  const int q0 = (from + lead) / 4;
+  if (i < quads) {
+    reinterpret_cast<int4*>(base_rank)[q0 + i] = make_int4(0, 0, 0, 0);
+    reinterpret_cast<int4*>(bucket_of)[q0 + i] = make_int4(-1, -1, -1, -1);
+    reinterpret_cast<int4*>(chain_pos)[q0 + i] = make_int4(-1, -1, -1, -1);
+  }
+  const int tail = (S - from - lead) % 4;
+  if (i < lead + tail) {
+    const int r = i < lead ? from + i : 4 * (q0 + quads) + i - lead;
+    base_rank[r] = 0;
+    bucket_of[r] = -1;
+    chain_pos[r] = -1;
+  }
+  if (i == 0) *queued = 0;
+}
+
+// The rest of bucket b's chain from row cur, by the whole warp: run live
+// lanes and pos rows lie before cur.  The next window's loads are issued
+// before this window's scan and stores, so a step costs one load latency.
+__device__ void walk_chain(const int32_t* __restrict__ next_slab,
+                           const int32_t* __restrict__ live_count,
+                           int32_t* __restrict__ base_rank,
+                           int32_t* __restrict__ bucket_of,
+                           int32_t* __restrict__ chain_pos,
+                           int32_t* __restrict__ counts, int b, int cur,
+                           int run, int pos, int S) {
+  const int t = threadIdx.x & 31;
+  int nw = -1, lc = 0;
+  if (static_cast<unsigned>(cur) < static_cast<unsigned>(S) &&
+      cur + t < S) {
+    nw = next_slab[cur + t];
+    lc = live_count[cur + t];
+  }
+  while (static_cast<unsigned>(cur) < static_cast<unsigned>(S) && pos < S) {
+    const int w = cur + t;
+    // rows cur .. cur+n-1 are on the chain: every link up to them is
+    // w -> w + 1 inside the pool
+    const unsigned linked =
+        __ballot_sync(0xffffffffu, nw == w + 1 && w + 1 < S);
+    const int n = min(linked == 0xffffffffu ? 32 : __ffs(~linked), S - pos);
+    const int nxt = __shfl_sync(0xffffffffu, nw, n - 1);
+    const int x = t < n ? lc : 0;
+    nw = -1;
+    lc = 0;
+    if (static_cast<unsigned>(nxt) < static_cast<unsigned>(S) &&
+        nxt + t < S && pos + n < S) {
+      nw = next_slab[nxt + t];
+      lc = live_count[nxt + t];
+    }
+    int incl = x;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (t >= d) incl += y;
+    }
+    if (t < n) {
+      base_rank[w] = run + incl - x;
+      bucket_of[w] = b;
+      chain_pos[w] = pos + t;
+    }
+    run += __shfl_sync(0xffffffffu, incl, 31);
+    pos += n;
+    cur = nxt;
+  }
+  if (t == 0) counts[b] = run;
+}
+
 __global__ void chain_kernel(const int32_t* __restrict__ next_slab,
                              const int32_t* __restrict__ live_count,
                              int32_t* __restrict__ base_rank,
                              int32_t* __restrict__ bucket_of,
                              int32_t* __restrict__ chain_pos,
-                             int32_t* __restrict__ counts, int S,
+                             int32_t* __restrict__ counts,
+                             int4* __restrict__ queue,
+                             int* __restrict__ queued, int S,
                              int n_buckets) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_buckets) return;
-  int cur = b, run = 0, pos = 0;
-  while (static_cast<unsigned>(cur) < static_cast<unsigned>(S) && pos < S) {
+  const int t = threadIdx.x & 31;
+  // no early return: the whole warp takes part in the ballot below
+  int cur = b < n_buckets ? b : -1, run = 0, pos = 0;
+  for (int h = 0; h < kThreadHops &&
+                  static_cast<unsigned>(cur) < static_cast<unsigned>(S) &&
+                  pos < S;
+       ++h) {
     const int nxt = next_slab[cur];
     const int lc = live_count[cur];
     base_rank[cur] = run;
@@ -95,7 +197,36 @@ __global__ void chain_kernel(const int32_t* __restrict__ next_slab,
     ++pos;
     cur = nxt;
   }
-  counts[b] = run;
+  const bool going =
+      static_cast<unsigned>(cur) < static_cast<unsigned>(S) && pos < S;
+  if (b < n_buckets && !going) counts[b] = run;
+  const unsigned want = __ballot_sync(0xffffffffu, going);
+  if (want) {
+    const int leader = __ffs(want) - 1;
+    int at = 0;
+    if (t == leader) at = atomicAdd(queued, __popc(want));
+    at = __shfl_sync(0xffffffffu, at, leader) +
+         __popc(want & ((1u << t) - 1u));
+    if (going) queue[at] = make_int4(b, cur, run, pos);
+  }
+}
+
+__global__ void long_chain_kernel(const int32_t* __restrict__ next_slab,
+                                  const int32_t* __restrict__ live_count,
+                                  int32_t* __restrict__ base_rank,
+                                  int32_t* __restrict__ bucket_of,
+                                  int32_t* __restrict__ chain_pos,
+                                  int32_t* __restrict__ counts,
+                                  const int4* __restrict__ queue,
+                                  const int* __restrict__ queued, int S) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int warps = (gridDim.x * blockDim.x) >> 5;
+  const int n = *queued;
+  for (int i = warp; i < n; i += warps) {
+    const int4 e = queue[i];
+    walk_chain(next_slab, live_count, base_rank, bucket_of, chain_pos,
+               counts, e.x, e.y, e.z, e.w, S);
+  }
 }
 
 }  // namespace
@@ -117,21 +248,36 @@ int slab_live(const void* keys, const void* slab_vertex, void* cnt,
 
 int slab_chain_rank(const void* next_slab, const void* live_count,
                     void* base_rank, void* bucket_of, void* chain_pos,
-                    void* counts, int S, int n_buckets, void* stream) {
+                    void* counts, void* queue, int S, int n_buckets,
+                    void* stream) {
+  // queue: n_buckets int4 entries, then the count of entries
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = static_cast<size_t>(S) * sizeof(int32_t);
-  cudaError_t err = cudaMemsetAsync(base_rank, 0, bytes, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(bucket_of, 0xFF, bytes, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(chain_pos, 0xFF, bytes, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (S == 0) return static_cast<int>(cudaGetLastError());
+  const int threads = 256;
+  int* queued = static_cast<int*>(queue) + 4 * static_cast<size_t>(n_buckets);
+  const int init_items = (S - n_buckets) / 4 + 6;
+  chain_init_kernel<<<(init_items + threads - 1) / threads, threads, 0, s>>>(
+      static_cast<int32_t*>(base_rank), static_cast<int32_t*>(bucket_of),
+      static_cast<int32_t*>(chain_pos), queued, n_buckets, S);
   if (n_buckets > 0) {
-    const int threads = 256;
     chain_kernel<<<(n_buckets + threads - 1) / threads, threads, 0, s>>>(
         static_cast<const int32_t*>(next_slab),
         static_cast<const int32_t*>(live_count),
         static_cast<int32_t*>(base_rank), static_cast<int32_t*>(bucket_of),
-        static_cast<int32_t*>(chain_pos), static_cast<int32_t*>(counts), S,
-        n_buckets);
+        static_cast<int32_t*>(chain_pos), static_cast<int32_t*>(counts),
+        static_cast<int4*>(queue), queued, S, n_buckets);
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    long_chain_kernel<<<sms * kLongBlocksPerSM, threads, 0, s>>>(
+        static_cast<const int32_t*>(next_slab),
+        static_cast<const int32_t*>(live_count),
+        static_cast<int32_t*>(base_rank), static_cast<int32_t*>(bucket_of),
+        static_cast<int32_t*>(chain_pos), static_cast<int32_t*>(counts),
+        static_cast<const int4*>(queue), queued, S);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,17 +8,36 @@
 // Keys are 32-bit words: the port stores them as int32 bit patterns of the
 // reference's uint32 keys, and both kernels read them as uint32_t.
 //
-// Probe.  One warp per query.  A slab row is 128 keys = 512 bytes, so each
-// of the 32 threads loads one uint4 (four lanes) and one __ballot_sync says
-// which threads hold the key.  The first hit lane is the lowest thread with
-// a hit, then the first of its four lanes, which is jnp.argmax's choice in
-// the reference.  Lane 0 reads next_slab and broadcasts it; the walk ends
-// on a hit or at -1.  Bound: bytes.  Every hop reads one 512 B row that is
-// scattered across the pool, so the probe is bound by dependent memory
-// latency per warp and by DRAM sectors overall; many warps in flight (8 per
-// block, one block per 8 queries) hide the latency.  Weakness: with hashing
-// off a hub's chain is long and its warp walks it serially while the
-// others finish early (splitting long chains across warps would fix that).
+// Probe.  One warp per query walks the query's chain from its head row and
+// stops at the first row holding the key.  A slab row is 128 keys = 512
+// bytes, so each of the 32 threads loads one uint4 (four lanes) of a row and
+// one __ballot_sync says which threads hold the key; the first hit lane is
+// the lowest thread with a hit, then the first of its four lanes
+// (jnp.argmax's choice in the reference).
+//
+// A chain is a linked list, so walking it row by row costs one dependent
+// round trip to memory per row.  Two things shorten that.  The row and the
+// chain pointers are loaded together: at row cur the warp loads the row and,
+// coalesced in one 128 B line, next_slab[cur .. cur+31].  And a chain that
+// runs through consecutive rows is read kRunRows rows a step: one ballot of
+// next_slab[cur+i] == cur+i+1 over that window gives the run of rows that
+// are proven to be on the chain, in chain order (bulk builds and compaction
+// lay every bucket's overflow slabs out consecutively, so a hub's chain is a
+// few such runs), and the warp then loads those rows with all their uint4
+// loads in flight and takes the first row in chain order that holds a hit.
+// The next row after the window is a pointer the window already holds.  A
+// row is read only where next_slab proves that the chain reaches it, so the
+// result is the first hit along the chain on any pool, laid out
+// consecutively or not.
+//
+// The walk ends on a hit, at -1, at a row outside the pool, or after S rows,
+// so a corrupt (cyclic) chain cannot hang the card.  Bound: bytes (the rows
+// the walks must read), but the kernel lasts as long as its longest walk:
+// ~1 + ceil(31 / kRunRows) round trips per 32 consecutive rows, and one per
+// row where the links are not consecutive (the head's link to its first
+// overflow slab, slabs the update engine appended).  Weakness: on a pool
+// whose chains are scattered (after long churn with no compaction) the walk
+// is one round trip per row again, half of what it was, but serial.
 //
 // Commit.  One thread per batch lane: store the planned key (and weight) at
 // (slab, lane) when slab < S, and atomicAdd the degree delta when idx < V.
@@ -34,6 +53,25 @@ namespace {
 
 constexpr int kSlabWidth = 128;
 constexpr int kWarpsPerBlock = 8;
+// rows of a proven run a warp loads per step, all in flight at once
+constexpr int kRunRows = 8;
+
+// The four lanes a thread holds that equal d, as bits 0..3.
+__device__ __forceinline__ int lanes_equal(const uint4 v, uint32_t d) {
+  return (v.x == d) | ((v.y == d) << 1) | ((v.z == d) << 2) |
+         ((v.w == d) << 3);
+}
+
+// Whether the row whose uint4 this thread holds has the key; if so, its
+// first hit lane.  Called by the whole warp.
+__device__ __forceinline__ bool row_hit(const uint4 v, uint32_t d, int& lane) {
+  const int m = lanes_equal(v, d);
+  const unsigned hits = __ballot_sync(0xffffffffu, m != 0);
+  if (!hits) return false;
+  const int th = __ffs(hits) - 1;
+  lane = th * 4 + __ffs(__shfl_sync(0xffffffffu, m, th)) - 1;
+  return true;
+}
 
 __global__ void probe_kernel(const uint32_t* __restrict__ keys,
                              const int32_t* __restrict__ next_slab,
@@ -41,33 +79,46 @@ __global__ void probe_kernel(const uint32_t* __restrict__ keys,
                              const uint32_t* __restrict__ dst,
                              uint8_t* __restrict__ found,
                              int32_t* __restrict__ slab_out,
-                             int32_t* __restrict__ lane_out, int B) {
+                             int32_t* __restrict__ lane_out, int S, int B) {
   const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int t = threadIdx.x & 31;
   if (q >= B) return;  // uniform per warp: q is the same for all 32 threads
-  int cur = start[q];
+  const uint4* rows = reinterpret_cast<const uint4*>(keys);
   const uint32_t d = dst[q];
-  int f = 0, s = -1, l = -1;
-  while (cur != -1) {
-    const uint4 v = reinterpret_cast<const uint4*>(
-        keys + static_cast<size_t>(cur) * kSlabWidth)[t];
-    const int m = (v.x == d) | ((v.y == d) << 1) | ((v.z == d) << 2) |
-                  ((v.w == d) << 3);
-    const unsigned hits = __ballot_sync(0xffffffffu, m != 0);
-    if (hits) {
-      const int th = __ffs(hits) - 1;
-      const int mm = __shfl_sync(0xffffffffu, m, th);
-      f = 1;
+  int cur = start[q];
+  int left = S;  // rows the walk may still read
+  int s = -1, l = -1;
+  while (static_cast<unsigned>(cur) < static_cast<unsigned>(S) && left > 0) {
+    // the row and the window of its successors' pointers, in one round trip
+    const uint4 v = rows[static_cast<size_t>(cur) * 32 + t];
+    const int w = cur + t;
+    const int nw = w < S ? next_slab[w] : -1;
+    if (row_hit(v, d, l)) {
       s = cur;
-      l = th * 4 + (__ffs(mm) - 1);
       break;
     }
-    int nxt = 0;
-    if (t == 0) nxt = next_slab[cur];
-    cur = __shfl_sync(0xffffffffu, nxt, 0);
+    // rows cur+1 .. cur+run are on the chain: every link up to them is
+    // w -> w + 1 inside the pool
+    const unsigned linked =
+        __ballot_sync(0xffffffffu, nw == w + 1 && w + 1 < S);
+    const int run = min(linked == 0xffffffffu ? 31 : __ffs(~linked) - 1,
+                        left - 1);
+    for (int j = 1; j <= run && s < 0; j += kRunRows) {
+      uint4 r[kRunRows];
+#pragma unroll
+      for (int k = 0; k < kRunRows; ++k)
+        if (j + k <= run)
+          r[k] = rows[static_cast<size_t>(cur + j + k) * 32 + t];
+#pragma unroll
+      for (int k = 0; k < kRunRows; ++k)
+        if (s < 0 && j + k <= run && row_hit(r[k], d, l)) s = cur + j + k;
+    }
+    if (s >= 0) break;
+    left -= run + 1;
+    cur = __shfl_sync(0xffffffffu, nw, run);
   }
   if (t == 0) {
-    found[q] = static_cast<uint8_t>(f);
+    found[q] = static_cast<uint8_t>(s >= 0);
     slab_out[q] = s;
     lane_out[q] = l;
   }
@@ -101,8 +152,8 @@ __global__ void commit_kernel(uint32_t* __restrict__ keys,
 extern "C" {
 
 int slab_probe(const void* keys, const void* next_slab, const void* start,
-               const void* dst, void* found, void* slab, void* lane, int B,
-               void* stream) {
+               const void* dst, void* found, void* slab, void* lane, int S,
+               int B, void* stream) {
   if (B > 0) {
     const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
     probe_kernel<<<blocks, kWarpsPerBlock * 32, 0,
@@ -111,7 +162,7 @@ int slab_probe(const void* keys, const void* next_slab, const void* start,
         static_cast<const int32_t*>(next_slab),
         static_cast<const int32_t*>(start), static_cast<const uint32_t*>(dst),
         static_cast<uint8_t*>(found), static_cast<int32_t*>(slab),
-        static_cast<int32_t*>(lane), B);
+        static_cast<int32_t*>(lane), S, B);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,7 +29,7 @@ def _lib() -> ctypes.CDLL:
     if lib.slab_live.argtypes is None:
         lib.slab_live.argtypes = [_P] * 4 + [_I, _P]
         lib.slab_live.restype = _I
-        lib.slab_chain_rank.argtypes = [_P] * 6 + [_I, _I, _P]
+        lib.slab_chain_rank.argtypes = [_P] * 7 + [_I, _I, _P]
         lib.slab_chain_rank.restype = _I
         lib.slab_compact_error_string.argtypes = [_I]
         lib.slab_compact_error_string.restype = ctypes.c_char_p
@@ -90,7 +90,8 @@ def chain_rank(next_slab: torch.Tensor, live_count: torch.Tensor,
     ``next_slab`` and ``live_count`` (S,) int32.  Returns ``(base_rank,
     bucket_of, chain_pos)``, (S,) int32 (0, -1, -1 for rows no chain
     reaches), and ``counts``, (n_buckets,) int32.  Chains must be disjoint
-    and end in -1.
+    and end in -1 (the kernel ends a walk at a row outside the pool or
+    after S rows, the plain version only at -1).
     """
     if not next_slab.is_cuda:
         return chain_rank_torch(next_slab, live_count, n_buckets)
@@ -104,11 +105,15 @@ def chain_rank(next_slab: torch.Tensor, live_count: torch.Tensor,
     bucket_of = torch.empty(S, dtype=torch.int32, device=dev)
     chain_pos = torch.empty(S, dtype=torch.int32, device=dev)
     counts = torch.empty(n_buckets, dtype=torch.int32, device=dev)
+    # the kernel's queue of long chains: (bucket, row, rank, position) per
+    # entry, then the count of entries
+    queue = torch.empty(4 * n_buckets + 1, dtype=torch.int32, device=dev)
     lib = _lib()
     rc = lib.slab_chain_rank(next_slab.data_ptr(), live_count.data_ptr(),
                              base_rank.data_ptr(), bucket_of.data_ptr(),
-                             chain_pos.data_ptr(), counts.data_ptr(), S,
-                             n_buckets, runtime.stream_handle(dev))
+                             chain_pos.data_ptr(), counts.data_ptr(),
+                             queue.data_ptr(), S, n_buckets,
+                             runtime.stream_handle(dev))
     runtime.check_launch(rc, lib, "slab_compact_error_string",
                          "slab_chain_rank")
     runtime.LAUNCHES["slab_chain_rank"] += 1

@@ -25,7 +25,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = runtime.library("slab_update")
     if lib.slab_probe.argtypes is None:
-        lib.slab_probe.argtypes = [_P] * 7 + [_I, _P]
+        lib.slab_probe.argtypes = [_P] * 7 + [_I, _I, _P]
         lib.slab_probe.restype = _I
         lib.slab_commit.argtypes = [_P] * 9 + [_I, _I, _I, _P]
         lib.slab_commit.restype = _I
@@ -72,7 +72,10 @@ def slab_probe(keys: torch.Tensor, next_slab: torch.Tensor,
     -> (found bool, slab int32, lane int32), -1 where absent.
 
     ``keys`` (S, 128) int32, ``next_slab`` (S,) int32, ``start`` and ``dst``
-    (B,) int32; every ``start`` is -1 or a row of the pool.
+    (B,) int32; every ``start`` is -1 or a row of the pool.  The kernel
+    reads a chain's consecutive rows a run at a time and ends a walk at a
+    row outside the pool or after S rows (a corrupt chain); the plain
+    version needs every chain to end in -1.
     """
     if not keys.is_cuda:
         return slab_probe_torch(keys, next_slab, start, dst)
@@ -88,7 +91,7 @@ def slab_probe(keys: torch.Tensor, next_slab: torch.Tensor,
     lib = _lib()
     rc = lib.slab_probe(keys.data_ptr(), next_slab.data_ptr(),
                         start.data_ptr(), dst.data_ptr(), found.data_ptr(),
-                        slab.data_ptr(), lane.data_ptr(), B,
+                        slab.data_ptr(), lane.data_ptr(), S, B,
                         runtime.stream_handle(dev))
     runtime.check_launch(rc, lib, "slab_update_error_string", "slab_probe")
     runtime.LAUNCHES["slab_probe"] += 1

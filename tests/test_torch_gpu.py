@@ -271,6 +271,169 @@ def test_chain_walk_matches_plain(cuda, graph):
     assert int(got[2].max()) >= 7            # the hub's chain was walked
 
 
+def relabelled(keys, next_slab, owner, n_buckets: int, seed: int = 0):
+    """The same chains with the overflow rows (``n_buckets`` up) relabelled
+    by a seeded permutation, so that almost no link is ``r -> r + 1``."""
+    S, dev = next_slab.shape[0], next_slab.device
+    perm = torch.arange(S, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    perm[n_buckets:] = n_buckets + torch.randperm(
+        S - n_buckets, generator=gen).to(dev)
+    k, o = torch.empty_like(keys), torch.empty_like(owner)
+    k[perm], o[perm] = keys, owner
+    n = torch.full_like(next_slab, -1)
+    n[perm] = torch.where(next_slab >= 0,
+                          perm[next_slab.clamp_min(0).long()].to(torch.int32),
+                          next_slab)
+    return k, n, o
+
+
+def _probe_and_walk(keys, nxt, owner, n_buckets, start, d):
+    """Both kernels against their plain versions on one pool: the probe's
+    three outputs and the chain walk's four, each launched once."""
+    before = (runtime.LAUNCHES["slab_probe"],
+              runtime.LAUNCHES["slab_chain_rank"])
+    got = slab_probe(keys, nxt, start, d)
+    want = slab_probe_torch(keys, nxt, start, d)
+    cnt, _ = slab_live_torch(keys, owner)
+    walk = chain_rank(nxt, cnt, n_buckets)
+    walk_want = chain_rank_torch(nxt, cnt, n_buckets)
+    torch.cuda.synchronize()
+    assert (runtime.LAUNCHES["slab_probe"],
+            runtime.LAUNCHES["slab_chain_rank"]) == (before[0] + 1,
+                                                     before[1] + 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(walk, walk_want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return got, walk
+
+
+@pytest.mark.parametrize("layout", ["as built", "permuted"])
+def test_probe_and_chain_walk_on_a_hub(cuda, layout):
+    """A hub of 40,000 out-edges (a 313-slab chain): a probe for every key
+    it holds (a hit at every chain position), for absent keys and inactive
+    queries, and the chain walk, on the pool as built (consecutive overflow
+    runs) and with its overflow rows relabelled."""
+    rng = np.random.default_rng(3)
+    V, hub = 5000, 40000
+    src = np.concatenate([np.full(hub, 9), rng.integers(0, V, 20000)])
+    dst = np.concatenate([rng.choice(10 ** 6, hub, replace=False),
+                          rng.integers(0, V, 20000)])
+    g = from_edges_host(V, src, dst, hashing=False, device=cuda)
+    keys, nxt, owner = g.keys, g.next_slab, g.slab_vertex
+    if layout == "permuted":
+        keys, nxt, owner = relabelled(keys, nxt, owner, g.n_buckets)
+    consecutive = int((nxt[g.n_buckets:] == torch.arange(
+        g.n_buckets + 1, g.capacity_slabs + 1, device=cuda)).sum())
+    assert consecutive >= 311 if layout == "as built" else consecutive < 10
+    start = _ids(np.concatenate([np.full(hub + 512, 9),
+                                 rng.integers(0, V, 512)]), cuda)
+    start[-64:] = -1
+    d = _ids(np.concatenate([dst[:hub], 10 ** 6 + np.arange(512),
+                             rng.integers(0, V, 512)]), cuda)
+    got, walk = _probe_and_walk(keys, nxt, owner, g.n_buckets, start, d)
+    assert bool(got[0][:hub].all()) and not bool(got[0][hub:hub + 512].any())
+    assert int(walk[2].max()) == 312
+
+
+def _run_pool(rng, chains, S=1024, n_buckets=8):
+    """A packed pool of ``S`` rows whose bucket ``b`` chains through the
+    rows ``chains[b]`` after its head row ``b``: every row full of distinct
+    keys (``1000 * row + lane``), each tail half full."""
+    keys = np.full((S, 128), -2, np.int32)
+    nxt = np.full(S, -1, np.int32)
+    owner = np.full(S, -1, np.int32)
+    for b, rows in enumerate(chains):
+        rows = [b] + list(rows)
+        for i, r in enumerate(rows):
+            fill = 128 if i + 1 < len(rows) else 64
+            keys[r, :fill] = 1000 * r + np.arange(fill)
+            owner[r] = b
+            nxt[r] = rows[i + 1] if i + 1 < len(rows) else -1
+    return keys, nxt, owner
+
+
+@pytest.mark.parametrize("run", [31, 32, 33, "to the pool's last row"])
+def test_probe_and_chain_walk_on_runs(cuda, run):
+    """Chains of consecutive runs exactly one window long, one row either
+    side of it, and a run that ends at the pool's last row (its window
+    reaches past the pool), against links that are not consecutive: a
+    probe for every key of every chain, absent keys and inactive queries,
+    and the chain walk."""
+    rng = np.random.default_rng(4)
+    S = 1024
+    if run == "to the pool's last row":
+        # bucket 0 ends at row S - 1; bucket 3's run stops just before it
+        first = [list(range(600, 640)), list(range(S - 40, S))]
+        last = list(range(S - 100, S - 40))
+    else:
+        first = [list(range(100, 100 + run)), list(range(300, 300 + run))]
+        last = list(range(500, 500 + 2 * run))
+    chains = [first[0] + first[1],                     # run, jump, run
+              [700, 702, 701, 703],                    # no link consecutive
+              [],                                      # the head alone
+              last]
+    keys, nxt, owner = _run_pool(rng, chains, S=S)
+    rows = np.nonzero(owner >= 0)[0]
+    held = keys[rows][keys[rows] >= 0]
+    qrow = held // 1000
+    start = np.concatenate([owner[qrow], np.arange(8), [-1] * 8])
+    d = np.concatenate([held, 10 ** 7 + np.arange(8), held[:8]])
+    t = [torch.from_numpy(a).to(cuda) for a in (keys, nxt, owner)]
+    got, walk = _probe_and_walk(*t, 8, torch.from_numpy(start.astype(
+        np.int32)).to(cuda), _ids(d, cuda))
+    n = len(held)
+    assert bool(got[0][:n].all()) and not bool(got[0][n:].any())
+    assert torch.equal(got[1][:n].cpu(), torch.from_numpy(qrow.astype(
+        np.int32)))
+
+
+def test_probe_takes_the_first_hit(cuda):
+    """A key in two lanes of one row, and in two rows of one chain (both
+    inside a run, and one past a window's end): the earliest row, then the
+    lowest lane, as the plain version."""
+    rng = np.random.default_rng(5)
+    keys, nxt, owner = _run_pool(rng, [list(range(100, 180))], S=512,
+                                 n_buckets=1)
+    k = 2 * 10 ** 6 + np.arange(4)             # keys no row holds yet
+    keys[102, [70, 5]] = k[0]                  # chain position 3
+    keys[140, 9] = k[0]                        # position 41
+    keys[133, [90, 3]] = k[1]                  # position 34
+    keys[179, 1] = k[1]                        # the tail
+    keys[101, 127] = k[2]                      # position 2, last lane
+    keys[150, 0] = k[2]
+    keys[105, 50] = k[3]                       # two rows of one step
+    keys[104, 60] = k[3]
+    t = [torch.from_numpy(a).to(cuda) for a in (keys, nxt, owner)]
+    start = torch.zeros(4, dtype=torch.int32, device=cuda)
+    got, _ = _probe_and_walk(*t, 1, start, _ids(k, cuda))
+    assert got[1].tolist() == [102, 133, 101, 104]
+    assert got[2].tolist() == [5, 3, 127, 60]
+
+
+def test_probe_stops_on_a_corrupt_chain(cuda):
+    """A chain that cycles (a run that links back to its start, and a row
+    that links to itself) ends after as many rows as the pool has instead
+    of hanging the card; a key on the cycle is still found."""
+    rng = np.random.default_rng(6)
+    keys, nxt, owner = _run_pool(rng, [list(range(100, 140)), [300]], S=512,
+                                 n_buckets=2)
+    nxt[139] = 100
+    nxt[300] = 300
+    t = [torch.from_numpy(a).to(cuda) for a in (keys, nxt, owner)]
+    start = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=cuda)
+    d = _ids([1000 * 120 + 3, 10 ** 7, 1000 * 300 + 1, 10 ** 7], cuda)
+    found, slab, lane = slab_probe(t[0], t[1], start, d)
+    torch.cuda.synchronize()
+    assert found.tolist() == [True, False, True, False]
+    assert slab.tolist() == [120, -1, 300, -1]
+    assert lane.tolist() == [3, -1, 1, -1]
+    cnt, _ = slab_live_torch(t[0], t[2])
+    chain_rank(t[1], cnt, 2)
+    torch.cuda.synchronize()
+
+
 def test_compaction_on_card_matches_cpu(cuda, graph):
     g = _churned(cuda, graph)
     host = slab_graph_from_numpy(slab_graph_to_numpy(g), "cpu")

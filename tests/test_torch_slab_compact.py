@@ -16,6 +16,7 @@ import torch
 
 from _torch_port import (assert_pools_equal, assert_reports_equal,
                          assert_vectors_equal, ids, np_of, to_port)
+from test_torch_slab_layout import permuted_rows
 
 from repro.core import (delete_edges, ensure_capacity, from_edges_host,
                         insert_edges, update_slab_pointers)
@@ -67,21 +68,53 @@ def dead_slab_graph(rng):
     return update_slab_pointers(g)
 
 
-@pytest.mark.parametrize("hashing", [False, True])
-def test_census_and_chain_walk_match_pallas(hashing):
-    g, _, _ = churned_graph(np.random.default_rng(5), hashing=hashing)
-    cnt_j, rank_j = slab_live_pallas(g.keys, g.slab_vertex, interpret=True)
-    walk_j = chain_rank_pallas(g.next_slab, cnt_j, n_buckets=g.n_buckets,
-                               interpret=True)
-    gt = to_port(g)
-    cnt, rank = slab_live(gt.keys, gt.slab_vertex)
+def hub_graph(rng, hub_edges=40000):
+    """A graph with a hub of ``hub_edges`` distinct out-edges (about 313
+    slabs for 40,000), after a delete and an insert epoch: tombstones along
+    the hub's chain and slabs the engine appended."""
+    V = 200
+    src = np.concatenate([np.full(hub_edges, 3), rng.integers(0, V, 2000)])
+    dst = np.concatenate([rng.choice(10 ** 6, hub_edges, replace=False),
+                          rng.integers(0, V, 2000)]).astype(np.uint32)
+    src = src.astype(np.uint32)
+    g = from_edges_host(V, src, dst, hashing=False)
+    di = rng.choice(len(src), 3000, replace=False)
+    g = ensure_capacity(g, 512)
+    g, _ = delete_edges(g, jnp.asarray(src[di]), jnp.asarray(dst[di]))
+    ins = np.stack([np.full(600, 3), rng.integers(10 ** 6, 2 * 10 ** 6, 600)],
+                   1).astype(np.uint32)
+    g, _ = insert_edges(g, jnp.asarray(ins[:, 0]), jnp.asarray(ins[:, 1]))
+    return update_slab_pointers(g), src, dst
+
+
+@pytest.mark.parametrize("layout", ["as built", "permuted"])
+@pytest.mark.parametrize("pool", ["churned", "churned, hashed", "hub"])
+def test_census_and_chain_walk_match_pallas(pool, layout):
+    """The plain census and chain walk against the reference's kernels, on
+    the pool as built and with its overflow rows relabelled."""
+    rng = np.random.default_rng(5)
+    g = (hub_graph(rng) if pool == "hub" else
+         churned_graph(rng, hashing=pool == "churned, hashed"))[0]
+    keys, nxt, owner = (np.array(g.keys), np.array(g.next_slab),
+                        np.array(g.slab_vertex))
+    if layout == "permuted":
+        keys, nxt, owner = permuted_rows(keys, nxt, owner, g.n_buckets,
+                                         seed=6)
+    cnt_j, rank_j = slab_live_pallas(jnp.asarray(keys), jnp.asarray(owner),
+                                     interpret=True)
+    walk_j = chain_rank_pallas(jnp.asarray(nxt), cnt_j,
+                               n_buckets=g.n_buckets, interpret=True)
+    cnt, rank = slab_live(torch.from_numpy(keys.view(np.int32)),
+                          torch.from_numpy(owner))
     assert_vectors_equal(cnt, cnt_j, "live count")
     assert_vectors_equal(rank, rank_j, "lane rank")
-    walk = chain_rank(gt.next_slab, cnt, gt.n_buckets)
+    walk = chain_rank(torch.from_numpy(nxt), cnt, g.n_buckets)
     for name, a, b in zip(("base_rank", "bucket_of", "chain_pos", "counts"),
                           walk, walk_j):
         assert_vectors_equal(a, b, name)
     assert int(walk[3].sum()) == int(g.n_edges)
+    if pool == "hub":
+        assert int(walk[2].max()) >= 312
 
 
 @pytest.mark.parametrize("impl", ["torch", "oracle"])

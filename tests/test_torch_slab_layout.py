@@ -10,7 +10,19 @@ after each path of the port (build, insert with overflow into fresh and
 recycled slabs, delete, epoch close, reclamation, compaction, the triangle
 plane's batch graph and symmetric view), and of the pools the JAX reference
 builds on the same paths, carried across with ``to_port``.
+
+The chain-walk probe and the chain-rank walk read a hub's chain a run of
+consecutive rows at a time, which is fast because bulk builds and
+compaction lay every bucket's overflow slabs out consecutively.  The link
+tests below check that layout: after a build or a compaction every link out
+of an overflow slab is ``r -> r + 1``; the update engine's appended slabs
+and a reclamation's splices over freed rows are the only other links that
+are not.  The kernels' results do not rest on it (they follow only links
+they have read), so ``permuted_rows`` relabels a pool's overflow rows to
+test them where almost no link is consecutive.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,6 +69,43 @@ def assert_packed(g, what: str) -> None:
     assert np.array_equal(filled[tail], g.tail_fill.cpu().numpy()), \
         f"{what}: tail_fill is not the tail rows' fill"
     assert empty[~alloc].all(), f"{what}: an unallocated row holds a key"
+
+
+def permuted_rows(keys, next_slab, slab_vertex, n_buckets: int, seed: int):
+    """The same chains with the overflow rows (``n_buckets`` up) relabelled
+    by a seeded permutation: ``(keys, next_slab, slab_vertex)`` as numpy."""
+    S = len(next_slab)
+    perm = np.arange(S)
+    perm[n_buckets:] = n_buckets + np.random.default_rng(seed).permutation(
+        S - n_buckets)
+    k, sv = np.empty_like(keys), np.empty_like(slab_vertex)
+    k[perm], sv[perm] = keys, slab_vertex
+    nx = np.full_like(next_slab, -1)
+    nx[perm] = np.where(next_slab >= 0, perm[np.maximum(next_slab, 0)], -1)
+    return k, nx, sv
+
+
+def link_faults(g, *, appended=None, freed=None) -> list:
+    """The links ``r -> n`` of a port graph that are none of: ``r + 1``, a
+    head's link to its first overflow slab, a link into a row in
+    ``appended`` (rows the update engine allocated), or a splice over rows
+    that are all in ``freed`` (rows a reclamation unlinked)."""
+    nxt = g.next_slab.cpu().numpy().astype(np.int64)
+    S, nb = len(nxt), g.n_buckets
+    appended = np.zeros(S, bool) if appended is None else appended
+    freed = np.zeros(S, bool) if freed is None else freed
+    r = np.nonzero(nxt >= 0)[0]
+    n = nxt[r]
+    ok = (n == r + 1) | ((r < nb) & (n >= nb)) | appended[n]
+    bad = []
+    for a, b in zip(r[~ok], n[~ok]):
+        if not (b > a + 1 and freed[a + 1:b].all()):
+            bad.append((int(a), int(b)))
+    return bad
+
+
+def _allocated(g) -> np.ndarray:
+    return g.slab_vertex.cpu().numpy() >= 0
 
 
 def _edges(rng):
@@ -150,6 +199,115 @@ def test_reference_paths_keep_rows_packed(seed, hashing):
     assert_packed(to_port(g), "insert into recycled slabs")
     g, _ = j_compact(g)
     assert_packed(to_port(g), "compact")
+
+
+@pytest.mark.parametrize("hashing", [False, True])
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_overflow_links_are_consecutive(package, hashing):
+    """After a build and after a compaction every overflow link is
+    ``r -> r + 1``; in between, inserts that overflow into fresh and
+    recycled slabs and a reclamation add only the links ``link_faults``
+    allows.  Unhashed, the hubs' chains hold consecutive runs."""
+    rng = np.random.default_rng(3)
+    src, dst = _edges(rng)
+    hub = np.full(300, 3, np.uint32)       # hub 3's chain: five rows
+    src = np.concatenate([src, hub])
+    dst = np.concatenate([dst, rng.integers(100000, 200000, 300)
+                          .astype(np.uint32)])
+    port = package == "port"
+    as_port = (lambda g: g) if port else to_port
+
+    def insert(g, s, d):
+        if port:
+            return tbatch.insert_edges(g, ids(s), ids(d))[0]
+        return j_insert(g, jnp.asarray(s), jnp.asarray(d))[0]
+
+    def delete(g, s, d):
+        if port:
+            return update_slab_pointers(
+                tbatch.delete_edges(g, ids(s), ids(d))[0])
+        return j_close(j_delete(g, jnp.asarray(s), jnp.asarray(d))[0])
+
+    g = (from_edges_host(V, src, dst, hashing=hashing, device="cpu")
+         if port else j_build(V, src, dst, hashing=hashing))
+    gp = as_port(g)
+    assert link_faults(gp) == [], "build"
+    if not hashing:          # hashed buckets are sized to fit at build
+        assert (gp.next_slab.numpy()[gp.n_buckets:] >= 0).any()
+
+    s, d = _hub_edges(rng, [3, 20, 41], 900)
+    g = ensure_capacity(g, len(s) // 16 + 64) if port else \
+        j_ensure(g, len(s) // 16 + 64)
+    before = _allocated(as_port(g))
+    g = insert(g, s, d)
+    gp = as_port(g)
+    fresh = _allocated(gp) & ~before
+    assert fresh.any()
+    assert link_faults(gp, appended=fresh) == [], "insert"
+
+    # hub 20's edges all deleted, and those of the second overflow slab of
+    # each of hub 3's chains, then the dead slabs reclaimed: hub 3's chains
+    # are spliced over the freed rows
+    keys = gp.keys.numpy()
+    nxt = gp.next_slab.numpy()
+    off, cnt = gp.bucket_offset.numpy(), gp.bucket_count.numpy()
+    dead_rows = []
+    for b in range(off[3], off[3] + cnt[3]):
+        rows = [b]
+        while nxt[rows[-1]] >= 0:
+            rows.append(int(nxt[rows[-1]]))
+        dead_rows += rows[2:3] if len(rows) > 3 else []
+    hd = keys[dead_rows][keys[dead_rows] >= 0].astype(np.uint32)
+    s20, d20 = _live_of(gp, [20])
+    g = delete(g, np.concatenate([np.full(len(hd), 3, np.uint32), s20]),
+               np.concatenate([hd, d20]))
+    before = _allocated(as_port(g))
+    g, n_freed = reclaim_free_slabs(g) if port else j_reclaim(g)
+    assert n_freed > 0
+    gp = as_port(g)
+    freed = before & ~_allocated(gp)
+    assert link_faults(gp, appended=fresh, freed=freed) == [], "reclaim"
+    if not hashing:
+        assert len(link_faults(gp, appended=fresh)) > 0   # a splice
+
+    s, d = _hub_edges(rng, [5, 41], 600)
+    before = _allocated(gp)
+    g = insert(g, s, d)
+    gp = as_port(g)
+    fresh |= _allocated(gp) & ~before
+    assert link_faults(gp, appended=fresh, freed=freed) == [], \
+        "insert into recycled slabs"
+
+    g = compact(g)[0] if port else j_compact(g)[0]
+    gp = as_port(g)
+    assert link_faults(gp) == [], "compact"
+    if not hashing:
+        assert (gp.next_slab.numpy()[gp.n_buckets:] >= 0).any()
+
+
+def test_link_faults_and_permuted_rows():
+    """The link check fails a relabelled pool, which keeps every chain."""
+    rng = np.random.default_rng(4)
+    src, dst = _edges(rng)
+    g = from_edges_host(V, src, dst, hashing=False, device="cpu")
+    fields = (g.keys.numpy(), g.next_slab.numpy(), g.slab_vertex.numpy())
+    k, nx, sv = permuted_rows(*fields, g.n_buckets, seed=0)
+    faults = link_faults(dataclasses.replace(
+        g, next_slab=torch.from_numpy(nx)))
+    assert len(faults) > 0.9 * int((fields[1][g.n_buckets:] >= 0).sum())
+
+    def chains(keys, nxt):
+        out = []
+        for b in range(g.n_buckets):
+            rows, r = [], b
+            while r >= 0:
+                rows.append(keys[r].tolist())
+                r = nxt[r]
+            out.append(rows)
+        return out
+
+    assert chains(k, nx) == chains(fields[0], fields[1])
+    assert (sv[nx[nx >= 0]] == sv[nx >= 0]).all()
 
 
 def _loop_free(rng, n):

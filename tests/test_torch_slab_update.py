@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from _torch_port import assert_pools_equal, ids, jids, np_of, to_port
+from test_torch_slab_layout import permuted_rows
 
 from repro.core import batch as jbatch
 from repro.core import slab_graph as jsg
@@ -165,24 +166,57 @@ def test_apply_update_and_sentinel_queries():
         tbatch.query_edges(g, q_src, q_dst, impl="cuda")
 
 
-def test_plain_probe_and_commit_match_pallas_kernels():
-    rng = np.random.default_rng(11)
-    V = 200
+#: a hub's out-edges for the long-chain cases: about 313 slabs
+HUB_EDGES = 40000
+
+
+def _probe_pool(rng, V, pool):
+    """(src, dst) of the probe cases: a 300-edge hub and random edges, or a
+    hub of ``HUB_EDGES`` distinct out-edges beside them."""
     src = np.concatenate([np.zeros(300, np.int64), rng.integers(0, V, 500)])
     dst = np.concatenate([np.arange(300) % V + 0, rng.integers(0, V, 500)])
+    if pool == "hub":
+        src = np.concatenate([src, np.full(HUB_EDGES, 1)])
+        dst = np.concatenate([dst, rng.choice(10 ** 6, HUB_EDGES,
+                                              replace=False)])
+    return src, dst
+
+
+@pytest.mark.parametrize("layout", ["as built", "permuted"])
+@pytest.mark.parametrize("pool", ["mixed", "hub"])
+def test_plain_probe_and_commit_match_pallas_kernels(pool, layout):
+    """The plain probe against the reference's kernel, bit for bit, on the
+    pool as built (overflow runs of consecutive rows) and with its overflow
+    rows relabelled (almost no link consecutive); then the commit."""
+    rng = np.random.default_rng(11)
+    V = 200
+    src, dst = _probe_pool(rng, V, pool)
     gj = jsg.from_edges_host(V, src, dst, hashing=False, slack_slabs=64)
-    gt = to_port(gj)
+    keys, nxt = np.array(gj.keys), np.array(gj.next_slab)
+    if layout == "permuted":
+        keys, nxt, _ = permuted_rows(keys, nxt, np.asarray(gj.slab_vertex),
+                                     gj.n_buckets, seed=5)
     B = 48
     start = rng.integers(-1, V, B).astype(np.int32)
     qd = np.where(rng.random(B) < 0.5, dst[rng.integers(0, len(dst), B)],
                   rng.integers(0, V, B)).astype(np.int64)
-    got = slab_probe(gt.keys, gt.next_slab, torch.from_numpy(start),
-                     ids(qd))
-    want = slab_probe_pallas(gj.keys, gj.next_slab, jnp.asarray(start),
-                             jids(qd), queries_per_tile=8, interpret=True)
+    if pool == "hub":
+        # keys at spread positions of the hub's chain (its first and last
+        # slab among them), and keys it does not hold
+        at = np.linspace(800, len(dst) - 1, 24).astype(np.int64)
+        start = np.concatenate([start, np.ones(32, np.int32)])
+        qd = np.concatenate([qd, dst[at], 10 ** 6 + np.arange(8)])
+    got = slab_probe(torch.from_numpy(keys.view(np.int32)),
+                     torch.from_numpy(nxt), torch.from_numpy(start), ids(qd))
+    want = slab_probe_pallas(jnp.asarray(keys), jnp.asarray(nxt),
+                             jnp.asarray(start), jids(qd),
+                             queries_per_tile=8, interpret=True)
     for a, b in zip(got, want):
         assert np.array_equal(np_of(a), np_of(b))
+    if pool == "hub":
+        assert bool(got[0][-32:-8].all()) and not bool(got[0][-8:].any())
 
+    gt = to_port(gj)
     S = gt.capacity_slabs
     slots = rng.choice(S * 128, B, replace=False)
     e_slab = (slots // 128).astype(np.int32)
