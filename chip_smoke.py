@@ -28,7 +28,12 @@ Six phases, each printing JSON lines:
    and the share of the pool's overflow links that are ``r -> r + 1``
    (``contiguous_links``), and holds and times both kernels again on a copy
    of their pool whose overflow rows are relabelled by a seeded permutation
-   (``relabelled_ms``), where almost no link is.
+   (``relabelled_ms``), where almost no link is.  The commit adds each
+   run of one ``deg_idx`` in its sorted plan with one atomic, so for each
+   captured plan the phase prints the runs, the live vertices and the
+   longest run (``deg_runs``, ``deg_vertices``, ``longest_run``), and times
+   the same kernel on a plan of the same size with every entry parked
+   (``parked_ms``: no store and no atomic, the kernel's own fixed cost).
 3. **serve** - the port's ``launch.serve`` on the card at RMAT scale 20
    (1,048,576 vertices, 2**24 generated edges, 65,536-edge update batches
    with 25% deletes, 15 requests cycling update, PageRank, BFS and WCC
@@ -90,7 +95,10 @@ Six phases, each printing JSON lines:
 6. **embedding_bag** - kernel 9 through its op on MIND's table (2**21 x 64
    float32, and a bfloat16 copy) for 50-slot history bags from
    ``recsys_batches`` (B = 512 and 65,536), against its plain version and
-   ``F.embedding_bag``, timed on the device alone.
+   ``F.embedding_bag``, timed on the device alone with the L2 warm (``ms``)
+   and flushed (``flushed_ms``), beside the bytes its rows gather
+   (``gathered_bytes``: valid slots times row bytes, where the bound counts
+   each distinct row once).
 
 Any failed check exits nonzero.  The last lines are the card's name and
 power limit, the per-kernel JSON line and ``{"ok": true, "device": ...}``.
@@ -506,6 +514,19 @@ def csr_of_pool(torch, keys, owner, n):
         size=(keys.shape[0], n), check_invariants=False)
 
 
+def degree_runs(torch, deg_idx, n_vertices: int) -> dict:
+    """The runs of one live ``deg_idx`` in a commit plan (parked entries
+    dropped; the kernel adds each run's deltas with one atomic), the live
+    vertices and the longest run."""
+    live = deg_idx[(deg_idx >= 0) & (deg_idx < n_vertices)]
+    if not live.numel():
+        return {"deg_runs": 0, "deg_vertices": 0, "longest_run": 0}
+    _, counts = torch.unique_consecutive(live, return_counts=True)
+    return {"deg_runs": int(counts.numel()),
+            "deg_vertices": int(torch.unique(live).numel()),
+            "longest_run": int(counts.max())}
+
+
 def compare_kernels(torch, got) -> list:
     """Each kernel against its plain version on the captured inputs."""
     from repro_torch.kernels.slab_compact import (chain_rank,
@@ -580,15 +601,20 @@ def compare_kernels(torch, got) -> list:
         kk, dd = keys.clone(), deg.clone()
         S, V = keys.shape[0], deg.shape[0]
         live = int(((plan[0] >= 0) & (plan[0] < S)).sum())
-        n_deg = int(torch.unique(plan[3][(plan[3] >= 0)
-                                         & (plan[3] < V)]).numel())
+        runs = degree_runs(torch, plan[3], V)
+        # the same kernel on a plan of the same B with every entry parked:
+        # no store and no atomic: the launch, loads and scan alone
+        parked = [torch.full_like(plan[0], S), plan[1], plan[2],
+                  torch.full_like(plan[3], V), *plan[4:]]
         results.append(dict(
             name="slab_commit", variant=f"B={B}", max_abs_err=err,
             ms=device_ms(torch, lambda: slab_commit(kk, dd, None, *plan)),
+            parked_ms=device_ms(torch, lambda: slab_commit(kk, dd, None,
+                                                           *parked)),
             plain_ms=time_ms(torch, lambda: slab_commit_torch(
                 kk, dd, None, *plan)),
-            live_lanes=live, library_ms=None,
-            **bound(B * 5 * 4 + live * 4 + n_deg * 8, B,
+            live_lanes=live, **runs, library_ms=None,
+            **bound(B * 5 * 4 + live * 4 + runs["deg_vertices"] * 8, B,
                     ops_per_s=INT32_OPS_PER_S)))
 
     # -- sweep: the four semirings, with and without frontier -------------------
@@ -1822,17 +1848,12 @@ def lm_phase(torch, np, attn_build: dict) -> dict:
 # phase 6: EmbeddingBag at MIND's full table
 # ----------------------------------------------------------------------------
 
-def embedding_bag_phase(torch, np) -> dict:
-    """The EmbeddingBag op on MIND's table (2**21 items x 64, float32, and a
-    bfloat16 copy) for bags of 50-slot histories: the op's three calls with
-    the launch counts zeroed just before, then each against its plain
-    version, timed on the device alone, beside ``F.embedding_bag``."""
-    import torch.nn.functional as F
-
+def bag_inputs(torch, np):
+    """Phase 6's inputs on the card: MIND's table in float32 and a bfloat16
+    copy (``{"f32", "bf16"}``), ``{B: (indices, weights)}`` of 50-slot
+    history bags for each of ``BAG_BATCHES``, and the op's calls as
+    ``(name, B, dtype)``."""
     from repro_torch.data import synth
-    from repro_torch.kernels import runtime
-    from repro_torch.kernels.embedding_bag import (embedding_bag,
-                                                   embedding_bag_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     table = torch.randn((BAG_ROWS, BAG_DIM), generator=gen, device="cuda")
@@ -1846,8 +1867,27 @@ def embedding_bag_phase(torch, np) -> dict:
             .astype(np.float32)
         bags[B] = (torch.from_numpy(idx).to("cuda"),
                    torch.from_numpy(w).to("cuda"))
-    variants = [(f"B={B} f32", B, "f32") for B in BAG_BATCHES] + \
+    calls = [(f"B={B} f32", B, "f32") for B in BAG_BATCHES] + \
         [(f"B={BAG_BATCHES[-1]} bf16", BAG_BATCHES[-1], "bf16")]
+    return tables, bags, calls
+
+
+def embedding_bag_phase(torch, np) -> dict:
+    """The EmbeddingBag op on MIND's table (2**21 items x 64, float32, and a
+    bfloat16 copy) for bags of 50-slot histories: the op's three calls with
+    the launch counts zeroed just before, then each against its plain
+    version, timed on the device alone, beside ``F.embedding_bag``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+
+    tables, bags, variants = bag_inputs(torch, np)
+    # 256 MiB, five times the L2, overwritten before each ``flushed_ms``
+    # call: the table's rows are read from device memory, as by a caller
+    # whose other work evicted them
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     runtime.reset_launches()
     outs = {name: embedding_bag(*bags[B], tables[dt])
@@ -1892,6 +1932,9 @@ def embedding_bag_phase(torch, np) -> dict:
         results.append(dict(
             name="embedding_bag", variant=name, max_abs_err=err,
             ms=device_ms(torch, lambda: embedding_bag(idx, w, tab)),
+            flushed_ms=device_ms(torch, lambda: embedding_bag(idx, w, tab),
+                                 flush=flush),
+            gathered_bytes=int(flat.numel()) * BAG_DIM * item,
             plain_ms=device_ms(torch, lambda: embedding_bag_ref(idx, w,
                                                                 tab)),
             library_ms=device_ms(torch, library),

@@ -39,12 +39,26 @@
 // whose chains are scattered (after long churn with no compaction) the walk
 // is one round trip per row again, half of what it was, but serial.
 //
-// Commit.  One thread per batch lane: store the planned key (and weight) at
-// (slab, lane) when slab < S, and atomicAdd the degree delta when idx < V.
-// The engine plans distinct (slab, lane) targets (placement is unique and
-// deletes are dup-collapsed), so the stores never race, and integer atomics
-// give the same degrees in any order: the result is bit-identical to the
-// serial TPU loop.  Bound: bytes (a scatter of B words plus B atomics).
+// Commit.  Store the planned key (and weight) at (slab, lane) when slab < S,
+// and add the degree delta when idx < V.  The engine plans distinct
+// (slab, lane) targets (placement is unique and deletes are dup-collapsed),
+// so the stores never race, and integer adds give the same degrees in any
+// order: the result is bit-identical to the serial TPU loop.  Bound: bytes
+// (a scatter of B words plus an add a vertex), but a plan of 16,384-65,536
+// entries is far below what the card needs to reach it: the time is the
+// launch, one round trip and the drain of the stores and atomics, and an
+// all-parked plan, which stores and adds nothing, takes nearly as long.
+// So a thread takes one entry: more entries a thread, or a grid the card
+// holds at once striding over B, were no faster on the serve's plans and
+// slower on an all-parked one (tools/slab_variants.py --kernels commit).
+// The engine sorts a plan by bucket, so a vertex's deltas come in runs
+// broken only by parked entries; a segmented scan of shuffles sums each run
+// over the warp's threads, and the run's last thread issues a single
+// atomicAdd.  A run split by a parked entry or a warp's edge issues one add
+// for each part, which is exact; what the design saves rests on the runs
+// (tests/test_torch_slab_layout.py checks the engine's plans), not what it
+// computes, and on the serve's short runs it measured no gain over an
+// atomic a live entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,6 +69,7 @@ constexpr int kSlabWidth = 128;
 constexpr int kWarpsPerBlock = 8;
 // rows of a proven run a warp loads per step, all in flight at once
 constexpr int kRunRows = 8;
+constexpr int kCommitThreads = 128;
 
 // The four lanes a thread holds that equal d, as bits 0..3.
 __device__ __forceinline__ int lanes_equal(const uint4 v, uint32_t d) {
@@ -124,27 +139,58 @@ __global__ void probe_kernel(const uint32_t* __restrict__ keys,
   }
 }
 
-__global__ void commit_kernel(uint32_t* __restrict__ keys,
-                              int32_t* __restrict__ degree,
-                              float* __restrict__ weights,
-                              const int32_t* __restrict__ e_slab,
-                              const int32_t* __restrict__ e_lane,
-                              const uint32_t* __restrict__ vals,
-                              const int32_t* __restrict__ deg_idx,
-                              const int32_t* __restrict__ deg_delta,
-                              const float* __restrict__ wvals, int S, int V,
-                              int B) {
+__device__ __forceinline__ void add_degree(int32_t* degree, int key, int sum) {
+  if (key >= 0 && sum != 0) atomicAdd(degree + key, sum);
+}
+
+__global__ void __launch_bounds__(kCommitThreads)
+    commit_kernel(uint32_t* __restrict__ keys, int32_t* __restrict__ degree,
+                  float* __restrict__ weights,
+                  const int32_t* __restrict__ e_slab,
+                  const int32_t* __restrict__ e_lane,
+                  const uint32_t* __restrict__ vals,
+                  const int32_t* __restrict__ deg_idx,
+                  const int32_t* __restrict__ deg_delta,
+                  const float* __restrict__ wvals, int S, int V, int B) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const int s = e_slab[i];
-  if (static_cast<unsigned>(s) < static_cast<unsigned>(S)) {
-    const size_t at = static_cast<size_t>(s) * kSlabWidth + e_lane[i];
-    keys[at] = vals[i];
-    if (weights != nullptr) weights[at] = wvals != nullptr ? wvals[i] : 0.0f;
+  const int lane = threadIdx.x & 31;
+  // whole warps stay, so every lane takes the shuffles
+  if (i - lane >= B) return;
+  // every load of the entry at once, before its stores: one round trip
+  int s = -1, ln = 0, key = -1, sum = 0;
+  uint32_t val = 0;
+  float wv = 0.0f;
+  if (i < B) {
+    s = __ldg(e_slab + i);
+    ln = __ldg(e_lane + i);
+    val = __ldg(vals + i);
+    key = __ldg(deg_idx + i);
+    sum = __ldg(deg_delta + i);
+    if (wvals != nullptr) wv = __ldg(wvals + i);
   }
-  const int di = deg_idx[i];
-  if (static_cast<unsigned>(di) < static_cast<unsigned>(V))
-    atomicAdd(degree + di, deg_delta[i]);
+  if (static_cast<unsigned>(s) < static_cast<unsigned>(S)) {
+    const size_t at = static_cast<size_t>(s) * kSlabWidth + ln;
+    keys[at] = val;
+    if (weights != nullptr) weights[at] = wv;
+  }
+  // parked (outside [0, V)) is -1, which adds nothing
+  if (static_cast<unsigned>(key) >= static_cast<unsigned>(V)) key = -1;
+  // segmented inclusive scan of the deltas over the warp's runs of one key
+  const int prev = __shfl_up_sync(0xffffffffu, key, 1);  // all lanes
+  bool starts = lane == 0 || prev != key;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, sum, off);
+    const int up_starts =
+        __shfl_up_sync(0xffffffffu, static_cast<int>(starts), off);
+    if (lane >= off) {
+      if (!starts) sum += up;
+      starts = starts || up_starts != 0;
+    }
+  }
+  // the run's last lane in the warp adds it
+  const int next = __shfl_down_sync(0xffffffffu, key, 1);
+  if (lane == 31 || next != key) add_degree(degree, key, sum);
 }
 
 }  // namespace
@@ -172,9 +218,8 @@ int slab_commit(void* keys, void* degree, void* weights, const void* e_slab,
                 const void* deg_delta, const void* wvals, int S, int V, int B,
                 void* stream) {
   if (B > 0) {
-    const int threads = 256;
-    commit_kernel<<<(B + threads - 1) / threads, threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+    commit_kernel<<<(B + kCommitThreads - 1) / kCommitThreads, kCommitThreads,
+                    0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint32_t*>(keys), static_cast<int32_t*>(degree),
         static_cast<float*>(weights), static_cast<const int32_t*>(e_slab),
         static_cast<const int32_t*>(e_lane),

@@ -2,7 +2,8 @@
 
 The port's op (its plain version on CPU tensors) against the reference's
 Pallas kernel in interpret mode, on the reference test's four cases and on
-batches with all-pad bags, at the reference test's tolerances: 1e-5 in
+batches with all-pad bags, and at the widths and bag lengths that take
+the card kernel's other paths, at the reference test's tolerances: 1e-5 in
 float32 (another summation order) and 3e-2 with a bfloat16 table (one
 rounding of the output).  The op returns the table's dtype, as the
 reference's kernel does; the plain version promotes as the reference's
@@ -27,6 +28,17 @@ CASES = [
     (32, 8, 256, 64, "bfloat16", 0.0),
     (64, 16, 1000, 64, "float32", 0.25),    # a quarter of the bags all pad
     (32, 8, 256, 64, "bfloat16", 0.25),
+    # the card kernel's paths: widths it loads 16 bytes a lane (8, 64,
+    # 128, 256), one lane (1) or element by element (33, 100), and bag
+    # lengths of one slot, one and two 32-slot ballots and four 64-slot
+    # stages
+    (16, 1, 100, 1, "float32", 0.0),
+    (16, 33, 300, 8, "bfloat16", 0.0),
+    (8, 200, 500, 33, "float32", 0.25),
+    (16, 50, 1000, 100, "bfloat16", 0.0),
+    (8, 32, 200, 256, "float32", 0.0),
+    (8, 50, 300, 256, "bfloat16", 0.25),
+    (4, 200, 400, 128, "bfloat16", 0.0),
 ]
 
 

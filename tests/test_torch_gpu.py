@@ -85,28 +85,81 @@ def test_probe_matches_plain(cuda, graph):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-def test_commit_matches_plain(cuda, graph, weighted):
-    rng, _, _, g = graph
-    S, V, B = g.capacity_slabs, g.n_vertices, 4096
-    slots = torch.randperm(S * 128, device=cuda)[:B]
-    e_slab = (slots // 128).to(torch.int32)
+#: run lengths of one deg_idx in a sorted commit plan: one entry, a warp's
+#: 32 threads less, at and past one, and one that crosses many warps and
+#: blocks; 5,303 entries, not a multiple of 4.  The wide plan adds a run of
+#: 300,000, past the threads the card holds at once, so its blocks do not
+#: all run together
+COMMIT_RUNS = (1, 31, 32, 33, 5000, 2, 7, 64, 1, 129, 3)
+COMMIT_PLANS = ["random", "sorted runs", "sorted runs, unaligned",
+                "wide sorted runs", "wide sorted runs, unaligned"]
+
+
+def _commit_plan(S, V, B, dev):
+    """Distinct (slab, lane) targets, a quarter of them and any past the
+    pool's S * 128 slots parked at S, and their values."""
+    slots = torch.randperm(S * 128, device=dev)[:B]
+    e_slab = torch.full((B,), S, dtype=torch.int32, device=dev)
+    e_lane = torch.zeros(B, dtype=torch.int32, device=dev)
+    e_slab[:slots.numel()] = (slots // 128).to(torch.int32)
+    e_lane[:slots.numel()] = (slots % 128).to(torch.int32)
     e_slab[::4] = S
-    e_lane = (slots % 128).to(torch.int32)
-    vals = torch.randint(0, V, (B,), dtype=torch.int32, device=cuda)
-    idx = torch.randint(0, V + 16, (B,), dtype=torch.int32, device=cuda)
-    delta = torch.randint(-1, 2, (B,), dtype=torch.int32, device=cuda)
-    w = torch.rand(S, 128, device=cuda) if weighted else None
+    vals = torch.randint(0, V, (B,), dtype=torch.int32, device=dev)
+    return e_slab, e_lane, vals
+
+
+def _sorted_runs(rng, V, runs):
+    """``(deg_idx, delta)`` in ``runs`` over sorted distinct vertices, with
+    parked entries (V and above, or -1) inside runs and mixed +1 / -1
+    deltas."""
+    verts = np.sort(rng.choice(V, len(runs), replace=False))
+    idx = np.repeat(verts, runs).astype(np.int32)
+    parked = rng.random(idx.size) < 0.05
+    idx[parked] = rng.choice([V, V + 3, -1], int(parked.sum()))
+    delta = rng.choice([-1, 1], idx.size).astype(np.int32)
+    return idx, delta
+
+
+@pytest.mark.parametrize("plan", COMMIT_PLANS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_commit_matches_plain(cuda, graph, weighted, plan):
+    """The commit equals its plain version bit for bit: on a random plan,
+    and on plans sorted into runs of one ``deg_idx`` whose deltas the
+    kernel sums over a warp before one atomic (runs across warp and block
+    edges, parked entries inside them), one past the threads the card
+    holds at once, with the plan arrays 16-byte aligned or not."""
+    rng, _, _, g = graph
+    S, V = g.capacity_slabs, g.n_vertices
+    if plan == "random":
+        B = 4096
+        idx = torch.randint(0, V + 16, (B,), dtype=torch.int32, device=cuda)
+        delta = torch.randint(-1, 2, (B,), dtype=torch.int32, device=cuda)
+    else:
+        runs = COMMIT_RUNS + ((300000,) if plan.startswith("wide") else ())
+        idx, delta = (torch.from_numpy(a).to(cuda)
+                      for a in _sorted_runs(rng, V, runs))
+        B = idx.numel()
+        assert B % 4 != 0
+    e_slab, e_lane, vals = _commit_plan(S, V, B, cuda)
     wv = torch.rand(B, device=cuda) if weighted else None
+    arrays = [e_slab, e_lane, vals, idx, delta, wv]
+    if plan.endswith("unaligned"):            # 4 bytes past a 16-byte edge
+        arrays = [None if a is None else
+                  torch.cat([a[:1], a])[1:] for a in arrays]
+        assert all(a.data_ptr() % 16 == 4 for a in arrays if a is not None)
+    w = torch.rand(S, 128, device=cuda) if weighted else None
     outs = []
+    before = runtime.LAUNCHES["slab_commit"]
     for fn in (slab_commit, slab_commit_torch):
         keys, deg = g.keys.clone(), g.degree.clone()
         ww = None if w is None else w.clone()
-        fn(keys, deg, ww, e_slab, e_lane, vals, idx, delta, wv)
+        fn(keys, deg, ww, *arrays)
         outs.append((keys, deg, ww))
     torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_commit"] == before + 1
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+    assert not torch.equal(outs[0][1], g.degree)
     if weighted:
         assert torch.equal(outs[0][2], outs[1][2])
 
@@ -680,27 +733,53 @@ def test_flash_attention_matches_plain(cuda, case):
         assert not got.any()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [64, 100])
-def test_embedding_bag_matches_plain(cuda, dtype, D):
+#: (B, L, D, dtype, table): D of every path (16-byte loads with a row of
+#: 1, 2, 16 or 32+ lanes; scalar loads where the vector does not divide D);
+#: L of one slot, one and two 32-slot ballots, a 64-slot stage and four;
+#: B = 1 and 512 (bags split over a block's warps) and 2,000 (a warp a
+#: bag); a bf16 table 4 bytes past a 16-byte edge (the scalar path)
+BAG_CASES = (
+    [(2000, 50, D, dt, "aligned") for D in (1, 8, 33, 64, 100, 128, 256)
+     for dt in ("float32", "bfloat16")]
+    + [(512, L, 64, dt, "aligned") for L in (1, 32, 33, 50, 200)
+       for dt in ("float32", "bfloat16")]
+    + [(1, 200, 64, "float32", "aligned"), (1, 50, 256, "bfloat16", "aligned"),
+       (2000, 50, 64, "bfloat16", "offset"), (512, 50, 8, "bfloat16", "offset")])
+
+
+@pytest.mark.parametrize("B,L,D,dtype,table", BAG_CASES)
+def test_embedding_bag_matches_plain(cuda, B, L, D, dtype, table):
+    """Kernel 9 against its plain version, with all-pad bags, one row
+    repeated through a bag, and indices at or past N (read as pads)."""
     rng = np.random.default_rng(4)
-    B, L, N = 2000, 50, 100000
+    N = 100000
     idx = (rng.zipf(1.2, (B, L)) % N).astype(np.int32)
     idx[rng.random((B, L)) < 0.3] = -1
-    idx[:17] = -1                                   # all-pad bags
+    idx[rng.random((B, L)) < 0.03] = N + 5
+    n_pad = min(17, B // 4)
+    idx[:n_pad] = -1                                # all-pad bags
+    if B > n_pad:
+        idx[n_pad] = 4321                           # one row, every slot
     w = rng.standard_normal((B, L)).astype(np.float32)
-    table = torch.randn((N, D), generator=torch.Generator(
-        device=cuda).manual_seed(1), device=cuda).to(DTYPES[dtype])
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    if table == "offset":
+        flat = torch.randn(N * D + 2, generator=gen, device=cuda) \
+            .to(DTYPES[dtype])
+        tab = flat[2:].view(N, D)
+        assert tab.data_ptr() % 16 == 4
+    else:
+        tab = torch.randn((N, D), generator=gen, device=cuda) \
+            .to(DTYPES[dtype])
     ti, tw = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
     before = runtime.LAUNCHES["embedding_bag"]
-    got = embedding_bag(ti, tw, table)
-    want = embedding_bag_ref(ti, tw, table)
+    got = embedding_bag(ti, tw, tab)
+    want = embedding_bag_ref(torch.where(ti < N, ti, -1), tw, tab)
     torch.cuda.synchronize()
     assert runtime.LAUNCHES["embedding_bag"] == before + 1
-    assert got.dtype == table.dtype and got.shape == (B, D)
+    assert got.dtype == tab.dtype and got.shape == (B, D)
     tol = 3e-2 if dtype == "bfloat16" else 1e-5
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
-    assert not got[:17].any()
+    assert not got[:n_pad].any()
 
 
 def test_unbuildable_kernel_raises(cuda, tmp_path, monkeypatch):

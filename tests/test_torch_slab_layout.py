@@ -20,6 +20,13 @@ and a reclamation's splices over freed rows are the only other links that
 are not.  The kernels' results do not rest on it (they follow only links
 they have read), so ``permuted_rows`` relabels a pool's overflow rows to
 test them where almost no link is consecutive.
+
+The commit kernel sums the degree deltas of each run of one ``deg_idx``
+before a single atomic add, which is fast because the engine hands it plans
+sorted by bucket: ``test_commit_plans_hold_degree_runs`` checks that every
+live ``deg_idx`` of every plan the engine commits is one run, parked
+entries aside.  Its result does not rest on it (a run split anywhere adds
+each part), only its speed.
 """
 import dataclasses
 
@@ -45,6 +52,7 @@ from repro_torch.core import batch as tbatch
 from repro_torch.core.slab_graph import (ensure_capacity, from_edges_host,
                                          update_slab_pointers)
 from repro_torch.kernels.slab_compact import compact, reclaim_free_slabs
+from repro_torch.kernels.slab_update import ops as update_ops
 
 EMPTY = -2          # EMPTY_KEY as the port's int32 bit pattern
 V = 60
@@ -283,6 +291,73 @@ def test_overflow_links_are_consecutive(package, hashing):
     assert link_faults(gp) == [], "compact"
     if not hashing:
         assert (gp.next_slab.numpy()[gp.n_buckets:] >= 0).any()
+
+
+def degree_runs(deg_idx, n_vertices: int):
+    """``(runs, distinct)`` of a commit plan's live ``deg_idx`` (inside
+    ``[0, n_vertices)``), parked entries dropped: equal when each live
+    vertex is one run."""
+    d = deg_idx.cpu().numpy()
+    live = d[(d >= 0) & (d < n_vertices)]
+    runs = int(live.size > 0) + int((live[1:] != live[:-1]).sum())
+    return runs, int(np.unique(live).size)
+
+
+@pytest.mark.parametrize("hashing", [False, True])
+def test_commit_plans_hold_degree_runs(hashing, monkeypatch):
+    """Every plan the update engine commits, on a forward, a transpose and
+    a symmetric view of a graph with an out-hub and an in-hub, holds each
+    live ``deg_idx`` in one run, parked entries aside: the delete and the
+    insert plans of each view, hashed and not."""
+    plans = []
+    real = update_ops.slab_commit
+
+    def commit(keys, degree, weights, e_slab, e_lane, vals, deg_idx, *rest):
+        plans.append((deg_idx.clone(), degree.shape[0]))
+        return real(keys, degree, weights, e_slab, e_lane, vals, deg_idx,
+                    *rest)
+
+    monkeypatch.setattr(update_ops, "slab_commit", commit)
+    rng = np.random.default_rng(6)
+    n = 2000
+    src = rng.integers(0, n, 6000).astype(np.uint32)
+    dst = rng.integers(0, n, 6000).astype(np.uint32)
+    src[:1500], dst[1500:3000] = 3, 7          # out-hub 3, in-hub 7
+    src, dst = np.unique(np.stack([src, dst], 1), axis=0).T
+    views = tuple(from_edges_host(n, s, d, hashing=hashing, device="cpu")
+                  for s, d in ((src, dst), (dst, src),
+                               (np.concatenate([src, dst]),
+                                np.concatenate([dst, src]))))
+    views = tuple(ensure_capacity(g, 256) for g in views)
+    roles = (update_ops.FORWARD, update_ops.TRANSPOSE, update_ops.SYMMETRIC)
+    gone = rng.permutation(len(src))[:1200]    # deletes, hub edges among them
+    s_new = rng.integers(0, n, 3000).astype(np.uint32)
+    d_new = rng.integers(0, n, 3000).astype(np.uint32)
+    s_new[:800], d_new[800:1600] = 3, 7
+    update_ops.update_views(views, roles,
+                            ins=(ids(s_new), ids(d_new), None),
+                            dels=(ids(src[gone]), ids(dst[gone])))
+    # the forward view's delete, the transpose's, the symmetric's; then
+    # the three inserts
+    assert len(plans) == 6
+    longest = 0
+    for i, (deg_idx, V) in enumerate(plans):
+        runs, distinct = degree_runs(deg_idx, V)
+        assert distinct > 0 and runs == distinct, \
+            f"plan {i}: {distinct} live vertices in {runs} runs"
+        d = deg_idx.numpy()
+        live = (d >= 0) & (d < V)
+        longest = max(longest, int(np.bincount(d[live]).max()))
+    assert longest >= 300                       # a hub's run, not only 1s
+
+
+def test_degree_runs_counts_split_runs():
+    """The run count sees a vertex that comes back after another one, and
+    lets a parked entry sit inside a run."""
+    V = 10
+    assert degree_runs(torch.tensor([2, 2, V, 2, 5, -1, 5]), V) == (2, 2)
+    assert degree_runs(torch.tensor([2, 5, 2]), V) == (3, 2)
+    assert degree_runs(torch.tensor([V, -1]), V) == (0, 0)
 
 
 def test_link_faults_and_permuted_rows():

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build variants of the slab kernels' sources and hold each beside the
+"""Build variants of the port's kernel sources and hold each beside the
 committed kernel on one CUDA card.
 
     python3 tools/slab_variants.py [--parent DIR] [--kernels LIST]
@@ -9,11 +9,12 @@ lines edited (``VARIANTS``); ``--parent`` adds the sources of another
 checkout (an unpacked earlier commit) under the name ``parent``.  All are
 compiled in parallel into ``build/slab_variants/`` and loaded with ctypes.
 ``--kernels`` picks among ``sweep``, ``count`` (``slab_sweep.cu``,
-``slab_intersect.cu``), ``probe`` and ``chain`` (``slab_update.cu``,
-``slab_compact.cu``); the default is all four.  ``serve`` (with
-``--parent``) also runs the serve of ``chip_smoke.SERVE_ARGS`` end to end
-from this checkout and from the parent's, each in its own process, in turns
-(parent, committed, committed, parent), and prints each request's latency.
+``slab_intersect.cu``), ``probe``, ``commit`` (``slab_update.cu``),
+``chain`` (``slab_compact.cu``) and ``bag`` (``embedding_bag.cu``); the
+default is all six.  ``serve`` (with ``--parent``) also runs the serve of
+``chip_smoke.SERVE_ARGS`` end to end from this checkout and from the
+parent's, each in its own process, in turns (parent, committed, committed,
+parent), and prints each request's latency.
 
 Sweep and count run on the serve's graph (RMAT scale 20, 2**24 generated
 edges, seed 0, deduplicated): its forward view unhashed, as the serve sweeps
@@ -30,18 +31,28 @@ each variant the script prints:
 * the static count (``triangles_static``) end to end, host clock, with the
   variant's library in the engine (the parent with its dense layout).
 
-Probe and chain walk run on the inputs the serve hands them
-(``chip_smoke.capture_serve_inputs``: the first probe of each batch size and
-the first compaction's chain walk, forward view), and on a copy of each
-pool whose overflow rows are relabelled by a seeded permutation
-(``chip_smoke.relabelled``), where almost no link is ``r -> r + 1``: the
-device time of each variant, L2 flushed before each call.  These variants
-are called through their C entry points directly, since the parent's take
-other arguments than the committed wrappers pass.
+Probe, commit and chain walk run on the inputs the serve hands them
+(``chip_smoke.capture_serve_inputs``: the first probe and commit of each
+batch size and the first compaction's chain walk, forward view).  The probe
+and chain walk also run on a copy of each pool whose overflow rows are
+relabelled by a seeded permutation (``chip_smoke.relabelled``), where almost
+no link is ``r -> r + 1``: the device time of each variant, L2 flushed
+before each call.  The commit is timed on each plan and on the same plan
+with every entry parked (``parked_ms``: no store, no atomic), beside the
+plan's degree runs (``chip_smoke.degree_runs``).  These variants are called
+through their C entry points directly, since the parent's may take other
+arguments than the committed wrappers pass.
+
+The bag runs on ``chip_smoke.bag_inputs`` (MIND's 2**21 x 64 table, float32
+and bfloat16; B = 512 and 65,536): each variant with the L2 warm and
+flushed.  Beside them, a plain gather (``GATHER_SRC``) reads the rows of the
+B = 65,536 bags' valid slots and nothing else, warm and flushed: the rate
+the card gathers those rows at.
 
 Every variant is checked against the plain version first (the sum within
-``chip_smoke.SUM_RTOL``, all else exactly).  Variants are timed in turns,
-forward then backward.  Exits nonzero without a CUDA card.
+``chip_smoke.SUM_RTOL``, the bag within ``chip_smoke.BAG_TOL``, all else
+exactly).  Variants are timed in turns, forward then backward.  Exits
+nonzero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -162,10 +173,11 @@ _OWN_WARP = """  for (unsigned own = __ballot_sync(0xffffffffu, going); own;
   const unsigned want = 0u;
 """
 
-#: (source, name) -> (what it changes, [(committed text, replacement)])
+#: (kernel, name) -> (what it changes, [(committed text, replacement)]),
+#: applied to the kernel's source (``SOURCES``)
 VARIANTS = {
-    ("slab_sweep", "committed"): ("the source as committed", []),
-    ("slab_sweep", "eager"): (
+    ("sweep", "committed"): ("the source as committed", []),
+    ("sweep", "eager"): (
         "the first step's keys read beside the owner, not after it",
         [("  bool open = row < S && owner[row] >= 0;\n",
           "  const uint4 kv0 = row < S ? reinterpret_cast<const uint4*>(\n"
@@ -174,59 +186,59 @@ VARIANTS = {
           "  bool open = row < S && owner[row] >= 0;\n"),
          ("      const uint4 kv = k4[s * kGroup];\n",
           "      const uint4 kv = s == 0 ? kv0 : k4[s * kGroup];\n")]),
-    ("slab_sweep", "group1"): (
+    ("sweep", "group1"): (
         "a thread a row: 16 B steps, 32 rows a warp",
         [("constexpr int kGroup = 4;", "constexpr int kGroup = 1;")]),
-    ("slab_sweep", "group2"): (
+    ("sweep", "group2"): (
         "2 threads a row: 32 B steps (one sector), 16 rows a warp",
         [("constexpr int kGroup = 4;", "constexpr int kGroup = 2;")]),
-    ("slab_sweep", "group8"): (
+    ("sweep", "group8"): (
         "8 threads a row: 128 B steps, four rows a warp",
         [("constexpr int kGroup = 4;", "constexpr int kGroup = 8;")]),
-    ("slab_sweep", "group16"): (
+    ("sweep", "group16"): (
         "16 threads a row: 256 B steps, two rows a warp",
         [("constexpr int kGroup = 4;", "constexpr int kGroup = 16;")]),
-    ("slab_sweep", "group32"): (
+    ("sweep", "group32"): (
         "a warp a row, reading its 512 B up to the first EMPTY lane",
         [("constexpr int kGroup = 4;", "constexpr int kGroup = 32;")]),
-    ("slab_intersect", "committed"): ("the source as committed", []),
-    ("slab_intersect", "quads1"): (
+    ("count", "committed"): ("the source as committed", []),
+    ("count", "quads1"): (
         "a probe thread loads one uint4 (16 B) a step",
         [("constexpr int kProbeQuads = 4;", "constexpr int kProbeQuads = 1;")]),
-    ("slab_intersect", "quads2"): (
+    ("count", "quads2"): (
         "a probe thread loads two uint4 (32 B, one sector) a step",
         [("constexpr int kProbeQuads = 4;", "constexpr int kProbeQuads = 2;")]),
-    ("slab_intersect", "quads8"): (
+    ("count", "quads8"): (
         "a probe thread loads eight uint4 (128 B) a step",
         [("constexpr int kProbeQuads = 4;", "constexpr int kProbeQuads = 8;")]),
-    ("slab_intersect", "group4"): (
+    ("count", "group4"): (
         "4-thread probes (64 B steps, eight probes a warp)",
         [("constexpr int kProbeGroup = 1;", "constexpr int kProbeGroup = 4;")]),
-    ("slab_intersect", "group8"): (
+    ("count", "group8"): (
         "8-thread probes (128 B steps, four probes a warp)",
         [("constexpr int kProbeGroup = 1;", "constexpr int kProbeGroup = 8;")]),
-    ("slab_update", "committed"): ("the source as committed", []),
-    ("slab_update", "pointer"): (
+    ("probe", "committed"): ("the source as committed", []),
+    ("probe", "pointer"): (
         "the chain pointer issued with the row, no run followed",
         [("    const int nw = w < S ? next_slab[w] : -1;\n",
           "    const int nw = t == 0 ? next_slab[cur] : -1;\n"),
          ("    const unsigned linked =\n"
           "        __ballot_sync(0xffffffffu, nw == w + 1 && w + 1 < S);\n",
           "    const unsigned linked = 0u;\n")]),
-    ("slab_update", "rows1"): (
+    ("probe", "rows1"): (
         "a run followed one row a step",
         [("constexpr int kRunRows = 8;", "constexpr int kRunRows = 1;")]),
-    ("slab_update", "rows4"): (
+    ("probe", "rows4"): (
         "a run followed four rows a step",
         [("constexpr int kRunRows = 8;", "constexpr int kRunRows = 4;")]),
-    ("slab_update", "rows8occ"): (
+    ("probe", "rows8occ"): (
         "eight rows a step, registers held to six blocks an SM",
         [("__global__ void probe_kernel(",
           "__global__ void __launch_bounds__(256, 6) probe_kernel(")]),
-    ("slab_update", "rows16"): (
+    ("probe", "rows16"): (
         "a run followed sixteen rows a step",
         [("constexpr int kRunRows = 8;", "constexpr int kRunRows = 16;")]),
-    ("slab_update", "coop"): (
+    ("probe", "coop"): (
         "a walk past 64 rows handed to a block of 8 warps (second launch), "
         "its warps taking alternate rows of each run",
         [("constexpr int kRunRows = 8;\n", "constexpr int kRunRows = 8;\n"
@@ -236,52 +248,333 @@ VARIANTS = {
           "    left -= run + 1;\n"
           "    cur = __shfl_sync(0xffffffffu, nw, run);\n" + _COOP_HANDOFF
           + "  }\n"),
-         ("__global__ void commit_kernel(",
-          _COOP_KERNEL + "__global__ void commit_kernel("),
+         ("__device__ __forceinline__ void add_degree(",
+          _COOP_KERNEL + "__device__ __forceinline__ void add_degree("),
          ("    probe_kernel<<<blocks,", _COOP_RESET + "    probe_kernel<<<blocks,"),
          ("        static_cast<int32_t*>(lane), S, B);\n",
           "        static_cast<int32_t*>(lane), S, B);\n" + _COOP_LAUNCH)]),
-    ("slab_compact", "committed"): ("the source as committed", []),
-    ("slab_compact", "hops1"): (
+    ("chain", "committed"): ("the source as committed", []),
+    ("chain", "hops1"): (
         "a thread walks one row (its head) before its chain is queued",
         [("constexpr int kThreadHops = 2;", "constexpr int kThreadHops = 1;")]),
-    ("slab_compact", "hops4"): (
+    ("chain", "hops4"): (
         "a thread walks four rows before its chain is queued",
         [("constexpr int kThreadHops = 2;", "constexpr int kThreadHops = 4;")]),
-    ("slab_compact", "ownwarp"): (
+    ("chain", "ownwarp"): (
         "no queue: each warp walks its own threads' long chains in turn",
         [("  const unsigned want = __ballot_sync(0xffffffffu, going);\n",
           _OWN_WARP),
          ("    long_chain_kernel<<<", "    if (false) long_chain_kernel<<<")]),
 }
 
-#: kernel -> source, and the source's entry point
+#: the ``stride`` commit variants: E entries a thread, each plan array read
+#: with one load of E words where every array is aligned to it, the runs a
+#: thread holds summed before the warp's scan, on a grid no larger than the
+#: card holds at once that strides over B
+_STRIDE_KERNEL = r"""constexpr int kStrideThreads = 128;
+
+template <int E>
+__device__ __forceinline__ void load_entries(const int32_t* __restrict__ p,
+                                             int i0, int B, bool vec,
+                                             int fill, int (&o)[E]) {
+  if (vec && i0 + E <= B) {
+    if constexpr (E == 4) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(p + i0));
+      o[0] = v.x;
+      o[1] = v.y;
+      o[2] = v.z;
+      o[3] = v.w;
+      return;
+    } else if constexpr (E == 2) {
+      const int2 v = __ldg(reinterpret_cast<const int2*>(p + i0));
+      o[0] = v.x;
+      o[1] = v.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) o[e] = i0 + e < B ? __ldg(p + i0 + e) : fill;
+}
+
+template <int E>
+__global__ void __launch_bounds__(kStrideThreads)
+    commit_stride_kernel(uint32_t* __restrict__ keys,
+                         int32_t* __restrict__ degree,
+                         float* __restrict__ weights,
+                         const int32_t* __restrict__ e_slab,
+                         const int32_t* __restrict__ e_lane,
+                         const uint32_t* __restrict__ vals,
+                         const int32_t* __restrict__ deg_idx,
+                         const int32_t* __restrict__ deg_delta,
+                         const float* __restrict__ wvals, int S, int V,
+                         int B) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(e_slab) |
+                        reinterpret_cast<uintptr_t>(e_lane) |
+                        reinterpret_cast<uintptr_t>(vals) |
+                        reinterpret_cast<uintptr_t>(deg_idx) |
+                        reinterpret_cast<uintptr_t>(deg_delta) |
+                        reinterpret_cast<uintptr_t>(wvals);
+  const bool vec = any % (E * sizeof(int32_t)) == 0;
+  const int lane = threadIdx.x & 31;
+  const int groups = (B + E - 1) / E;
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < groups; base += gridDim.x * blockDim.x) {
+    const int i0 = (base + lane) * E;
+    int slab[E], ln[E], val[E], key[E], dd[E], wv[E];
+    load_entries<E>(e_slab, i0, B, vec, -1, slab);
+    load_entries<E>(e_lane, i0, B, vec, 0, ln);
+    load_entries<E>(reinterpret_cast<const int32_t*>(vals), i0, B, vec, 0,
+                    val);
+    load_entries<E>(deg_idx, i0, B, vec, -1, key);
+    load_entries<E>(deg_delta, i0, B, vec, 0, dd);
+    if (weights != nullptr && wvals != nullptr)
+      load_entries<E>(reinterpret_cast<const int32_t*>(wvals), i0, B, vec, 0,
+                      wv);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (static_cast<unsigned>(slab[e]) < static_cast<unsigned>(S)) {
+        const size_t at = static_cast<size_t>(slab[e]) * kSlabWidth + ln[e];
+        keys[at] = static_cast<uint32_t>(val[e]);
+        if (weights != nullptr)
+          weights[at] = wvals != nullptr ? __int_as_float(wv[e]) : 0.0f;
+      }
+      if (static_cast<unsigned>(key[e]) >= static_cast<unsigned>(V))
+        key[e] = -1;
+    }
+    int tail = key[0], sum = dd[0], head_sum = 0;
+    bool whole = true;
+#pragma unroll
+    for (int e = 1; e < E; ++e) {
+      if (key[e] == tail) {
+        sum += dd[e];
+        continue;
+      }
+      if (whole)
+        head_sum = sum;
+      else
+        add_degree(degree, tail, sum);
+      whole = false;
+      tail = key[e];
+      sum = dd[e];
+    }
+    const int head = key[0];
+    const int prev_tail = __shfl_up_sync(0xffffffffu, tail, 1);
+    const bool cont = lane > 0 && prev_tail == head;
+    bool starts = !(whole && cont);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, sum, off);
+      const int up_starts =
+          __shfl_up_sync(0xffffffffu, static_cast<int>(starts), off);
+      if (lane >= off) {
+        if (!starts) sum += up;
+        starts = starts || up_starts != 0;
+      }
+    }
+    const int before = __shfl_up_sync(0xffffffffu, sum, 1);
+    if (!whole) add_degree(degree, head, head_sum + (cont ? before : 0));
+    const int next_head = __shfl_down_sync(0xffffffffu, head, 1);
+    if (lane == 31 || next_head != tail) add_degree(degree, tail, sum);
+  }
+}
+
+"""
+_STRIDE_LAUNCH = """    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, commit_stride_kernel<{E}>, kStrideThreads, 0);
+    const int want =
+        ((B + {E} - 1) / {E} + kStrideThreads - 1) / kStrideThreads;
+    const int held = sms * (per_sm > 0 ? per_sm : 1);
+    commit_stride_kernel<{E}><<<want < held ? want : held, kStrideThreads,
+                    0, static_cast<cudaStream_t>(stream)>>>(
+"""
+_COMMIT_DEF = ("__global__ void __launch_bounds__(kCommitThreads)\n"
+               "    commit_kernel(")
+_COMMIT_LAUNCH = ("    commit_kernel<<<(B + kCommitThreads - 1) / "
+                  "kCommitThreads, kCommitThreads,\n"
+                  "                    0, static_cast<cudaStream_t>(stream)>>>(\n")
+_SCAN = "  // segmented inclusive scan of the deltas over the warp's runs of one key\n"
+_PER_LANE = (_SCAN, "  add_degree(degree, key, sum);\n  return;\n" + _SCAN)
+
+_NO_PREFETCH = ("""#pragma unroll
+        for (int t = 0; t < kStage / 32; ++t) {
+          my[t] = next_idx[t];
+          mw[t] = next_w[t];
+        }
+        // the next step: this bag's next stage, its next chunk's first
+        // stage, or the team's next bag's first stage
+        const bool last = st + 1 == stages && c + 1 == chunks;
+        load_stage(indices, weights, last ? bag + step : bag,
+                   st + 1 < stages ? lo + (st + 1) * kStage : lo, hi, B, L,
+                   lane, next_idx, next_w);
+""", """        load_stage(indices, weights, bag, lo + st * kStage, hi, B, L, lane,
+                   my, mw);
+""")
+
+VARIANTS.update({
+    ("commit", "committed"): ("the source as committed", []),
+    ("commit", "perlane"): (
+        "an atomic a live entry, no run sums",
+        [_PER_LANE]),
+    **{("commit", f"threads{n}"): (
+        f"{n} threads a block",
+        [("constexpr int kCommitThreads = 128;",
+          f"constexpr int kCommitThreads = {n};")]) for n in (64, 256)},
+    ("commit", "dependent"): (
+        "an entry's deg_idx and delta loaded after its stores",
+        [("    key = __ldg(deg_idx + i);\n    sum = __ldg(deg_delta + i);\n", ""),
+         ("  // parked (outside [0, V)) is -1, which adds nothing\n",
+          "  if (i < B) {\n    key = deg_idx[i];\n    sum = deg_delta[i];\n  }\n"
+          "  // parked (outside [0, V)) is -1, which adds nothing\n")]),
+    ("commit", "threads256perlane"): (
+        "256 threads a block and an atomic a live entry (PR 17's form)",
+        [("constexpr int kCommitThreads = 128;",
+          "constexpr int kCommitThreads = 256;"), _PER_LANE]),
+    **{("commit", f"stride{n}"): (
+        f"{n} entr{'y' if n == 1 else 'ies'} a thread "
+        f"(one {4 * n}-byte load an array), run sums, on a grid the card "
+        "holds at once striding over B",
+        [(_COMMIT_DEF, _STRIDE_KERNEL + _COMMIT_DEF),
+         (_COMMIT_LAUNCH, _STRIDE_LAUNCH.replace("{E}", str(n)))])
+       for n in (1, 2, 4)},
+    ("bag", "committed"): ("the source as committed", []),
+    **{("bag", f"rows{n}"): (
+        f"{n} rows in flight a warp",
+        [("constexpr int kRowsInFlight = 4;",
+          f"constexpr int kRowsInFlight = {n};")]) for n in (2, 8, 16)},
+    ("bag", "f32occ4"): (
+        "float32 registers held to 4 blocks an SM (64, as bfloat16)",
+        [("constexpr int kMinBlocksF32 = 5;",
+          "constexpr int kMinBlocksF32 = 4;")]),
+    ("bag", "bf16occ5"): (
+        "bfloat16 registers held to 5 blocks an SM (48, as float32)",
+        [("constexpr int kMinBlocksBf16 = 4;",
+          "constexpr int kMinBlocksBf16 = 5;")]),
+    **{("bag", f"occ{b}"): (
+        f"registers held to {b} blocks an SM in both dtypes" if b > 1
+        else "registers as ptxas chooses",
+        [("constexpr int kMinBlocksF32 = 5;",
+          f"constexpr int kMinBlocksF32 = {b};"),
+         ("constexpr int kMinBlocksBf16 = 4;",
+          f"constexpr int kMinBlocksBf16 = {b};")]) for b in (1, 6)},
+    ("bag", "stage32"): (
+        "32 slots a stage (one index a lane)",
+        [("constexpr int kStage = 64;", "constexpr int kStage = 32;")]),
+    ("bag", "nosplit"): (
+        "a warp a bag at every B (no block split)",
+        [("  const int split = bag_split(B, L, sms);",
+          "  const int split = 1;")]),
+    ("bag", "noprefetch"): (
+        "a step loads its own indices and weights (none loaded ahead)",
+        [_NO_PREFETCH]),
+    ("bag", "waves"): (
+        "a block for every kWarps / split bags (no walk over bags)",
+        [("  const int blocks = want < held ? want : held;",
+          "  const int blocks = want;")]),
+    ("bag", "waves_noprefetch"): (
+        "a block for every kWarps / split bags, nothing loaded ahead",
+        [("  const int blocks = want < held ? want : held;",
+          "  const int blocks = want;"),
+         _NO_PREFETCH]),
+})
+
+#: the ``gather`` reading: the rows of the bags' valid slots, in order, each
+#: read with 16-byte loads by a group of lanes, 8 loads a lane in flight,
+#: folded into one word a thread so that no load is dropped; nothing else
+GATHER_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr int kUnroll = 8;
+
+__global__ void gather_kernel(const int32_t* __restrict__ flat, int n,
+                              const uint4* __restrict__ table, int Q, int G,
+                              uint32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31, grp = lane / G, sub = lane % G;
+  const int rows = 32 / G;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int warps = (gridDim.x * blockDim.x) >> 5;
+  uint32_t acc = 0;
+  for (int i0 = warp * rows * kUnroll; i0 < n; i0 += warps * rows * kUnroll) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * rows + grp;
+      v[u] = i < n && sub < Q
+                 ? __ldg(table + static_cast<size_t>(flat[i]) * Q + sub)
+                 : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
+extern "C" int row_gather(const void* flat, int n, const void* table,
+                          int row_bytes, void* out, int blocks,
+                          void* stream) {
+  const int Q = row_bytes / 16;
+  int G = 1;
+  while (G < Q && G < 32) G *= 2;
+  gather_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(flat), n, static_cast<const uint4*>(table),
+      Q, G, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+#: kernel -> source
 SOURCES = {"sweep": "slab_sweep", "count": "slab_intersect",
-           "probe": "slab_update", "chain": "slab_compact"}
+           "probe": "slab_update", "chain": "slab_compact",
+           "commit": "slab_update", "bag": "embedding_bag"}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of each kernel entry in a ``ptxas -v``
+    log, keyed by the entry's name and template arguments."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = re.search(r"'([^']+)'", ln).group(1)
+            short = re.search(r"\d+([a-z_]+_kernel)(I\w+?EE)?", name)
+            entry = (short.group(1) + (short.group(2) or "")) if short \
+                else name[-40:]
+        elif "spill stores" in ln and entry is not None:
+            spill = re.findall(r"(\d+) bytes spill", ln)
+            out.setdefault(entry, {})["spill"] = [int(s) for s in spill]
+        elif "registers" in ln and entry is not None:
+            out.setdefault(entry, {})["regs"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 def build(parent, kernels):
     from repro_torch.kernels import runtime
 
-    sources = {SOURCES[k] for k in kernels if k in SOURCES}
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for (src, name), (_, edits) in VARIANTS.items():
-        if src not in sources:
+    for (kernel, name), (_, edits) in VARIANTS.items():
+        if kernel not in kernels:
             continue
-        text = (CSRC / f"{src}.cu").read_text()
+        text = (CSRC / f"{SOURCES[kernel]}.cu").read_text()
         for old, new in edits:
             if old not in text:
-                raise SystemExit(f"{src}/{name}: edit no longer applies: "
+                raise SystemExit(f"{kernel}/{name}: edit no longer applies: "
                                  f"{old!r}")
             text = text.replace(old, new)
-        path = OUT / f"{src}-{name}.cu"
+        path = OUT / f"{kernel}-{name}.cu"
         path.write_text(text)
-        jobs[(src, name)] = path
+        jobs[(kernel, name)] = path
     if parent is not None:
-        for src in sorted(sources):
-            jobs[(src, "parent")] = Path(parent) / "src" / "repro_torch" \
-                / "csrc" / f"{src}.cu"
+        for kernel in sorted(kernels & set(SOURCES)):
+            jobs[(kernel, "parent")] = Path(parent) / "src" / "repro_torch" \
+                / "csrc" / f"{SOURCES[kernel]}.cu"
+    if "bag" in kernels:
+        path = OUT / "row_gather.cu"
+        path.write_text(GATHER_SRC)
+        jobs[("gather", "rows")] = path
     procs = {}
     for key, path in jobs.items():
         so = OUT / f"lib{key[0]}-{key[1]}.so"
@@ -294,10 +587,8 @@ def build(parent, kernels):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"{key} failed to build:\n{log}")
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(json.dumps({"build": f"{key[0]}/{key[1]}", "ptxas": regs[:8]}),
-              flush=True)
+        print(json.dumps({"build": f"{key[0]}/{key[1]}",
+                          "ptxas": ptxas_summary(log)}), flush=True)
         libs[key] = ctypes.CDLL(str(so))
     return libs
 
@@ -353,6 +644,46 @@ def chain_entry(lib, parent: bool):
     return run
 
 
+def commit_entry(lib):
+    """``(keys, degree, weights, *plan)``, in place, through a library's C
+    entry point (an earlier checkout's takes the same arguments)."""
+    import torch
+    fn = lib.slab_commit
+    fn.argtypes = [_P] * 9 + [_I, _I, _I, _P]
+    fn.restype = _I
+
+    def run(keys, deg, w, e_slab, e_lane, vals, idx, delta, wv=None):
+        ptr = [None if a is None else a.data_ptr() for a in (w, wv)]
+        rc = fn(keys.data_ptr(), deg.data_ptr(), ptr[0], e_slab.data_ptr(),
+                e_lane.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                delta.data_ptr(), ptr[1], keys.shape[0], deg.shape[0],
+                e_slab.shape[0],
+                torch.cuda.current_stream(keys.device).cuda_stream)
+        if rc:
+            raise SystemExit(f"slab_commit launch failed: code {rc}")
+    return run
+
+
+def bag_entry(lib):
+    """``(indices, weights, table) -> (B, D)`` through a library's C entry
+    point (an earlier checkout's takes the same arguments)."""
+    import torch
+    fn = lib.embedding_bag
+    fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    fn.restype = _I
+
+    def run(idx, w, tab):
+        (B, L), (N, D) = idx.shape, tab.shape
+        out = torch.empty((B, D), dtype=tab.dtype, device=tab.device)
+        rc = fn(idx.data_ptr(), w.data_ptr(), tab.data_ptr(), out.data_ptr(),
+                B, L, N, D, 0 if tab.dtype == torch.float32 else 1,
+                torch.cuda.current_stream(tab.device).cuda_stream)
+        if rc:
+            raise SystemExit(f"embedding_bag launch failed: code {rc}")
+        return out
+    return run
+
+
 def in_turns(torch, cs, runs, flush):
     """Device ms of each ``name -> fn`` in ``runs``, timed forward then
     backward."""
@@ -363,16 +694,12 @@ def in_turns(torch, cs, runs, flush):
     return ms
 
 
-def probe_and_chain(torch, np, cs, libs, kernels):
+def probe_and_chain(torch, cs, libs, kernels, got):
     """The probe and chain-walk variants on the serve's captured inputs and
     on their relabelled copies."""
     from repro_torch.kernels.slab_compact import chain_rank_torch
     from repro_torch.kernels.slab_update import slab_probe_torch
-    from repro_torch.launch import serve as serve_mod
 
-    t0 = time.perf_counter()
-    got, _ = cs.capture_serve_inputs(torch, np, serve_mod)
-    print(json.dumps({"capture_s": time.perf_counter() - t0}), flush=True)
     flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
     nb = got["n_buckets"]
 
@@ -386,7 +713,7 @@ def probe_and_chain(torch, np, cs, libs, kernels):
 
     if "probe" in kernels:
         entries = {k[1]: probe_entry(lib, k[1] == "parent")
-                   for k, lib in libs.items() if k[0] == "slab_update"}
+                   for k, lib in libs.items() if k[0] == "probe"}
         for B, (keys, nxt, start, dst) in sorted(got["probe"].items()):
             pnxt, pkeys = cs.relabelled(torch, nxt, nb, keys)
             row = {"kernel": "slab_probe", "case": f"B={B}",
@@ -415,7 +742,7 @@ def probe_and_chain(torch, np, cs, libs, kernels):
 
     if "chain" in kernels:
         entries = {k[1]: chain_entry(lib, k[1] == "parent")
-                   for k, lib in libs.items() if k[0] == "slab_compact"}
+                   for k, lib in libs.items() if k[0] == "chain"}
         nxt, cnt, nbc = got["chain"]
         pnxt, pcnt = cs.relabelled(torch, nxt, nbc, cnt)
         want = chain_rank_torch(nxt, cnt, nbc)
@@ -434,6 +761,125 @@ def probe_and_chain(torch, np, cs, libs, kernels):
         row["committed_unflushed_ms"] = cs.device_ms(
             torch, lambda: entries["committed"](nxt, cnt, nbc))
         print(json.dumps(row), flush=True)
+
+
+#: a commit plan past the threads the card holds at once (132 SMs x 2,048),
+#: where the ``stride`` variants walk the plan more than once
+WIDE_PLAN = 1 << 20
+
+
+def wide_plan(torch, S, V, B, device, seed=0):
+    """A synthetic insert plan of B entries on the serve's pool: distinct
+    (slab, lane) targets drawn at random, ``deg_idx`` sorted over random
+    vertices in runs of 1-8, +1 deltas, the key a vertex id."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    slots = torch.randperm(S * 128, generator=gen, device=device)[:B]
+    e_slab = (slots // 128).to(torch.int32)
+    e_lane = (slots % 128).to(torch.int32)
+    lengths = torch.randint(1, 9, (B,), generator=gen, device=device)
+    run_of = torch.repeat_interleave(torch.arange(B, device=device),
+                                     lengths)[:B]
+    verts = torch.randint(0, V, (B,), generator=gen, device=device)
+    deg_idx = verts.sort().values[run_of].to(torch.int32)
+    vals = torch.randint(0, V, (B,), generator=gen, device=device,
+                         dtype=torch.int32)
+    return (e_slab, e_lane, vals, deg_idx,
+            torch.ones(B, dtype=torch.int32, device=device))
+
+
+def commit_variants(torch, cs, libs, got):
+    """The commit variants on the serve's captured plans (the delete and the
+    insert batch of the forward view) and on a synthetic plan of
+    ``WIDE_PLAN`` entries on the insert plan's pool: each equal to the
+    plain version, then timed in turns on the plan and on the same plan
+    with every entry parked (no store, no atomic)."""
+    from repro_torch.kernels.slab_update import slab_commit_torch
+
+    entries = {k[1]: commit_entry(lib) for k, lib in libs.items()
+               if k[0] == "commit"}
+    plans = sorted(got["commit"].items())
+    keys, deg = plans[-1][1][:2]
+    plans.append((WIDE_PLAN, (keys, deg, None, *wide_plan(
+        torch, keys.shape[0], deg.shape[0], WIDE_PLAN, keys.device))))
+    for B, (keys, deg, w, *plan) in plans:
+        S, V = keys.shape[0], deg.shape[0]
+        want = (keys.clone(), deg.clone())
+        slab_commit_torch(*want, None if w is None else w.clone(), *plan)
+        for name, fn in entries.items():
+            kk, dd = keys.clone(), deg.clone()
+            fn(kk, dd, None if w is None else w.clone(), *plan)
+            torch.cuda.synchronize()
+            if not (torch.equal(kk, want[0]) and torch.equal(dd, want[1])):
+                raise SystemExit(f"slab_commit {name} differs from the plain "
+                                 f"version at B={B}")
+        parked = [torch.full_like(plan[0], S), plan[1], plan[2],
+                  torch.full_like(plan[3], V), *plan[4:]]
+        kk, dd = keys.clone(), deg.clone()
+        row = {"kernel": "slab_commit", "case": f"B={B}",
+               **cs.degree_runs(torch, plan[3], V)}
+        for form, p in (("ms", plan), ("parked_ms", parked)):
+            row[form] = in_turns(torch, cs, {
+                name: (lambda fn=fn, p=p: fn(kk, dd, None, *p))
+                for name, fn in entries.items()}, None)
+        print(json.dumps(row), flush=True)
+
+
+def bag_variants(torch, np, cs, libs):
+    """The EmbeddingBag variants on phase 6's three calls: each within
+    ``chip_smoke.BAG_TOL`` of the plain version, then timed in turns with
+    the L2 warm and flushed; and a plain gather of the B=65,536 bags' rows
+    (the card's L2 gather rate on them)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+
+    tables, bags, calls = cs.bag_inputs(torch, np)
+    entries = {k[1]: bag_entry(lib) for k, lib in libs.items()
+               if k[0] == "bag"}
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    for call, B, dt in calls:
+        idx, w = bags[B]
+        tab = tables[dt]
+        want = embedding_bag_ref(idx, w, tab)
+        tol = cs.BAG_TOL[dt]
+        for name, fn in entries.items():
+            got = fn(idx, w, tab).float()
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, atol=tol, rtol=tol):
+                raise SystemExit(f"embedding_bag {name} differs from the "
+                                 f"plain version ({call})")
+        row = {"kernel": "embedding_bag", "case": call,
+               "valid_slots": int((idx >= 0).sum())}
+        for form, fl in (("ms", None), ("flushed_ms", flush)):
+            row[form] = in_turns(torch, cs, {
+                name: (lambda fn=fn: fn(idx, w, tab))
+                for name, fn in entries.items()}, fl)
+        print(json.dumps(row), flush=True)
+
+    fn = libs[("gather", "rows")].row_gather
+    fn.argtypes = [_P, _I, _P, _I, _P, _I, _P]
+    fn.restype = _I
+    blocks = 132 * 8
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    idx, _ = bags[cs.BAG_BATCHES[-1]]
+    flat = idx[idx >= 0].contiguous()
+    for dt, tab in tables.items():
+        row_bytes = tab.shape[1] * tab.element_size()
+
+        def gather():
+            rc = fn(flat.data_ptr(), flat.numel(), tab.data_ptr(), row_bytes,
+                    out.data_ptr(), blocks,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"row_gather launch failed: code {rc}")
+        n_bytes = flat.numel() * row_bytes
+        ms = cs.device_ms(torch, gather)
+        flushed = cs.device_ms(torch, gather, flush=flush)
+        print(json.dumps({
+            "kernel": "row_gather", "case": f"B={cs.BAG_BATCHES[-1]} {dt}",
+            "rows": int(flat.numel()),
+            "distinct_rows": int(torch.unique(flat).numel()),
+            "bytes": n_bytes, "ms": ms, "flushed_ms": flushed,
+            "gather_GBps": n_bytes / ms / 1e6,
+            "flushed_gather_GBps": n_bytes / flushed / 1e6}), flush=True)
 
 
 def dense_items(g2, us, vs, emask, *, max_bpv):
@@ -481,7 +927,7 @@ def sweep_and_count(torch, np, cs, libs, args, kernels):
                  "min_plus+frontier": dict(semiring="min_plus",
                                            frontier=frontier)}
         keys, owner = fwd.keys, fwd.slab_vertex
-        sweep_names = [k for k in libs if k[0] == "slab_sweep"]
+        sweep_names = [k for k in libs if k[0] == "sweep"]
         for case, kw in cases.items():
             want = slab_sweep_ref(keys, owner, values, n_vertices=V, **kw)
             for key in sweep_names:
@@ -532,9 +978,9 @@ def sweep_and_count(torch, np, cs, libs, args, kernels):
             sym.keys, sym.next_slab)
     want = slab_count_torch(*pool, *items["active"])
     flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
-    runs = [(k, "active") for k in libs if k[0] == "slab_intersect"]
+    runs = [(k, "active") for k in libs if k[0] == "count"]
     if args.parent is not None:
-        runs.append((("slab_intersect", "parent"), "dense"))
+        runs.append((("count", "parent"), "dense"))
     for key, layout in runs:
         runtime._libs["slab_intersect"] = libs[key]
         got = ik.slab_count(*pool, *items[layout])
@@ -569,7 +1015,7 @@ def sweep_and_count(torch, np, cs, libs, args, kernels):
         info.append(torch.stack([cand.sum(), (cand * multi).sum(),
                                  bc[cu.long()].max()]))
     info = torch.stack(info).cpu().tolist()
-    runtime._libs["slab_intersect"] = libs[("slab_intersect", "committed")]
+    runtime._libs["slab_intersect"] = libs[("count", "committed")]
     for cu, cv, cm in chunks:                  # one pass to warm up
         ik.slab_count(*pool, *iops._work_items(sym, cu, cv, cm, max_bpv=mb))
     per_chunk = {}
@@ -611,8 +1057,8 @@ def sweep_and_count(torch, np, cs, libs, args, kernels):
     # -- the static count end to end -----------------------------------------
     real_items = iops._work_items
     static = {}
-    whole = [("slab_intersect", "committed")] + (
-        [("slab_intersect", "parent")] if args.parent is not None else [])
+    whole = [("count", "committed")] + (
+        [("count", "parent")] if args.parent is not None else [])
     for key in whole + whole[::-1]:
         runtime._libs["slab_intersect"] = libs[key]
         iops._work_items = (
@@ -672,12 +1118,24 @@ def main() -> int:
     import chip_smoke as cs
 
     print(cs.gpu_line(), flush=True)
-    if kernels & {"probe", "chain"}:
+    captured = kernels & {"probe", "chain", "commit"}
+    if captured:
         from repro_torch.kernels import runtime
         runtime.build()              # the committed kernels the serve runs
     libs = build(args.parent, kernels)
-    if kernels & {"probe", "chain"}:
-        probe_and_chain(torch, np, cs, libs, kernels)
+    if captured:
+        from repro_torch.launch import serve as serve_mod
+        t0 = time.perf_counter()
+        got, _ = cs.capture_serve_inputs(torch, np, serve_mod)
+        print(json.dumps({"capture_s": time.perf_counter() - t0}),
+              flush=True)
+        if "commit" in kernels:
+            commit_variants(torch, cs, libs, got)
+        probe_and_chain(torch, cs, libs, kernels, got)
+        del got
+        torch.cuda.empty_cache()
+    if "bag" in kernels:
+        bag_variants(torch, np, cs, libs)
         torch.cuda.empty_cache()
     if kernels & {"sweep", "count"}:
         sweep_and_count(torch, np, cs, libs, args, kernels)
