@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Six phases, each printing JSON lines:
+Six phases, each printing JSON lines (the third with the iterators
+phase after it):
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -46,6 +47,19 @@ Six phases, each printing JSON lines:
    membership answers must match the ledger.  The check runs again after a
    forced slab reclamation and after a forced compaction, whose forward view
    must equal a compaction planned by the plain census and chain walk.
+   Then, on the same store, **iterators**: an epoch opens on a copy of the
+   forward view with one insert-only batch of 65,536 pairs through the
+   engine, bit-equal to ``insert_edges_ref`` on a second copy; on the open
+   epoch ``updated_edges``, ``updated_lane_mask``'s lanes and the batch's
+   inserted edges must be one set, the four incremental WCC schemes
+   (``naive``, ``batch``, ``slab_iterator``, ``update_iterator``) from the
+   served labels must equal ``wcc_static``, ``csr_snapshot``'s rows the
+   view's live counts, and ``slab_iterator`` on the hub (vertex 0) its CSR
+   row; on the served views ``bfs_vanilla`` from vertex 0 through the
+   transpose's int32 ``sum`` sweeps and through the frontier expansion must
+   give the self-check's BFS distances.  Kernel 3 is held to its plain
+   version on the int32 ``sum`` call with the largest frontier and timed as
+   in phase 2; the phase prints each call's host-clock time.
 4. **triangles** - a second store on the same RMAT scale-20 graph, hashed,
    with the forward and symmetric views and a maintenance policy that
    compacts at a tombstone ratio of 0.0015, serves a live triangle count
@@ -135,6 +149,10 @@ PROPS = ["pagerank", "bfs_0", "wcc"]
 TRI_VERTICES, TRI_EDGES = 1 << 20, 1 << 24
 TRI_INSERTS, TRI_DELETES, TRI_MEMBER = 49152, 16384, 1024
 TRI_TOMBSTONE_RATIO = 0.0015
+#: the iterators phase: one insert-only batch of the serve's size on a copy
+#: of the served forward view, with ITER_HUB edges out of the hub (vertex
+#: 0), ITER_PRESENT edges the graph holds and ITER_DUP in-batch repeats
+ITER_BATCH, ITER_HUB, ITER_PRESENT, ITER_DUP = 65536, 4096, 1024, 1024
 #: the serve phase's kernels; the triangles phase adds the other two
 SERVE_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
                  "slab_chain_rank")
@@ -892,6 +910,265 @@ def check_maintenance(torch, np, out, want) -> list:
 
 
 # ----------------------------------------------------------------------------
+# the iterators phase: the iterator API and its consumers on the served store
+# ----------------------------------------------------------------------------
+
+def clone_graph(g):
+    """A copy of a SlabGraph whose tensors the engine may mutate."""
+    from repro_torch.core.slab_graph import FIELDS
+    return dataclasses.replace(g, **{
+        name: None if getattr(g, name) is None else getattr(g, name).clone()
+        for name in FIELDS})
+
+
+def edge_keys(torch, src, dst):
+    """Edges as sorted int64 keys ``src << 32 | dst`` (dst as uint32)."""
+    return torch.sort((src.long() << 32) | (dst.long() & 0xFFFFFFFF)).values
+
+
+def iterator_batch(np, V: int, ledger):
+    """The phase's insert-only batch of ITER_BATCH pairs: ITER_HUB edges
+    out of vertex 0, uniform pairs, ITER_PRESENT edges the graph already
+    holds and ITER_DUP repeats of the batch's own pairs; and the keys the
+    insert must add (``pair_keys``)."""
+    from repro_torch.launch.serve import EdgeLedger, pair_keys
+
+    rng = np.random.default_rng(3)
+    n_rand = ITER_BATCH - ITER_HUB - ITER_PRESENT - ITER_DUP
+    src = np.concatenate([np.zeros(ITER_HUB, np.int64),
+                          rng.integers(0, V, n_rand)])
+    dst = rng.integers(0, V, ITER_HUB + n_rand)
+    present = EdgeLedger.pairs(ledger.keys[rng.choice(
+        len(ledger), ITER_PRESENT, replace=False)]).astype(np.int64)
+    dup = rng.choice(len(src), ITER_DUP, replace=False)
+    src = np.concatenate([src, present[:, 0], src[dup]])
+    dst = np.concatenate([dst, present[:, 1], dst[dup]])
+    keys = pair_keys(src, dst)
+    new = np.unique(keys[~in_sorted(np, keys, ledger.keys)])
+    return src.astype(np.int32), dst.astype(np.int32), new
+
+
+def iterators_phase(torch, np, out, want) -> dict:
+    """The iterator API and the whole-pool oracle on the served store (RMAT
+    scale 20, hashing off), against the static reference ``want``.
+
+    An epoch opens on a copy of the forward view: one insert-only batch
+    through the engine (kernels 1 and 2), the same batch through
+    ``insert_edges_ref`` on a second copy, pools and masks bit-equal.  On
+    the open epoch: ``updated_edges`` against ``updated_lane_mask``'s lanes
+    and the batch's inserted edges; the four incremental WCC schemes from
+    the served labels against ``wcc_static``; ``csr_snapshot`` against the
+    per-vertex live counts; ``slab_iterator`` on the hub against its CSR
+    row.  On the served views: ``bfs_vanilla`` from vertex 0 through the
+    transpose's int32 ``sum`` sweeps and through the frontier expansion,
+    against the static BFS tree.  Then kernel 3 on the sweep call with the
+    largest frontier, against its plain version, timed as in phase 2."""
+    from repro_torch.algorithms import (UNREACHED, bfs_vanilla,
+                                        wcc_incremental_batch,
+                                        wcc_incremental_naive,
+                                        wcc_incremental_slab_iterator,
+                                        wcc_incremental_update_iterator,
+                                        wcc_static)
+    from repro_torch.core import (csr_snapshot, ensure_capacity, next_pow2,
+                                  pool_edges, slab_iterator,
+                                  updated_lane_mask, updated_vertices)
+    from repro_torch.core.worklist import updated_edges
+    from repro_torch.core.batch import insert_edges
+    from repro_torch.core.slab_graph import FIELDS
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.slab_sweep import ops as sweep_ops
+    from repro_torch.kernels.slab_sweep import slab_sweep, slab_sweep_ref
+    from repro_torch.kernels.slab_update import insert_edges_ref
+
+    t_phase = time.perf_counter()
+    store, ledger = out["store"], out["ledger"]
+    V, dev = store.n_vertices, store.device
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return r
+
+    # -- an open epoch: the engine and the oracle on the same batch ----------
+    src, dst, new = iterator_batch(np, V, ledger)
+    bsrc = torch.from_numpy(src).to(dev)
+    bdst = torch.from_numpy(dst).to(dev)
+    base = ensure_capacity(clone_graph(store.forward), ITER_BATCH + 64)
+    g = clone_graph(base)
+    runtime.reset_launches()
+    g, inserted = timed("engine_insert", lambda: insert_edges(g, bsrc, bdst))
+    engine_launches = {k: runtime.LAUNCHES[k]
+                       for k in ("slab_probe", "slab_commit")}
+    check(all(engine_launches.values()),
+          f"the engine's insert launched {engine_launches}")
+    oracle, inserted_o = timed("oracle_insert",
+                               lambda: insert_edges_ref(base, bsrc, bdst))
+    for name in FIELDS:
+        a, b = getattr(g, name), getattr(oracle, name)
+        check((a is None and b is None) or torch.equal(a, b),
+              f"the engine's insert differs from insert_edges_ref in {name}")
+    check(torch.equal(inserted, inserted_o),
+          "the engine's inserted mask differs from insert_edges_ref's")
+    del oracle, inserted_o, base
+    want_new = torch.from_numpy(new.astype(np.int64)).to(dev)
+    check(torch.equal(edge_keys(torch, bsrc[inserted], bdst[inserted]),
+                      want_new),
+          "the inserted edges are not the batch's new pairs")
+
+    # -- the UpdateIterator: the walk, the lane mask, the batch --------------
+    flagged = int(g.upd_flag.sum())
+    ef = timed("updated_edges", lambda: updated_edges(
+        g, max_buckets=2 * ITER_BATCH, out_capacity=2 * ITER_BATCH))
+    check(flagged <= 2 * ITER_BATCH and not bool(ef.overflow),
+          f"updated_edges overflowed ({flagged} flagged buckets)")
+    n = int(ef.size)
+    mask = timed("updated_lane_mask", lambda: updated_lane_mask(g))
+    rows, lanes = torch.nonzero(mask, as_tuple=True)
+    del mask
+    check(torch.equal(edge_keys(torch, ef.src[:n], ef.dst[:n]), want_new)
+          and torch.equal(edge_keys(torch, g.slab_vertex[rows],
+                                    g.keys[rows, lanes]), want_new),
+          "updated_edges, the lane mask and the inserted edges disagree")
+    del ef, rows, lanes
+
+    # -- the four incremental WCC schemes from the served labels --------------
+    labels = want["wcc"]
+    static = timed("wcc_static", lambda: wcc_static(g))
+    touched = updated_vertices(g)
+    cap_slab = next_pow2(int(g.degree[touched].sum()) + 1)
+    schemes = {
+        "naive": lambda: wcc_incremental_naive(labels, g),
+        "batch": lambda: wcc_incremental_batch(labels, bsrc, bdst, inserted),
+        "slab_iterator": lambda: wcc_incremental_slab_iterator(
+            labels, g, cap=cap_slab),
+        "update_iterator": lambda: wcc_incremental_update_iterator(
+            labels, g, cap=2 * ITER_BATCH)}
+    for name, fn in schemes.items():
+        got = timed(f"wcc_{name}", fn)
+        check(torch.equal(got, static),
+              f"WCC's {name} scheme differs from wcc_static after the batch")
+    components = int((static == torch.arange(V, device=dev)).sum())
+    del static, got
+
+    # -- CSR and the hub's SlabIterator ---------------------------------------
+    csr = timed("csr_snapshot", lambda: csr_snapshot(
+        g, max_edges=next_pow2(int(g.n_edges))))
+    view = pool_edges(g)
+    live = torch.zeros(V, dtype=torch.int64, device=dev).index_add_(
+        0, g.slab_vertex.clamp_min(0).long(), view.valid.sum(dim=1))
+    del view
+    check(torch.equal(csr.indptr.diff().long(), live)
+          and torch.equal(live, g.degree.long())
+          and int(csr.n_edges) == int(g.n_edges),
+          "csr_snapshot's rows disagree with the view's live counts")
+    hub = int(live[0])
+    nbrs, cnt = timed("slab_iterator_hub", lambda: slab_iterator(
+        g, 0, max_neighbors=hub))
+    check(int(cnt) == hub and torch.equal(
+        torch.sort(nbrs).values, torch.sort(csr.indices[:hub]).values),
+          "slab_iterator on vertex 0 differs from its CSR row")
+    hub_slabs = int((g.slab_vertex == 0).sum())
+    del csr, nbrs, g, touched
+
+    # -- vanilla BFS on the served views, both bodies -------------------------
+    fwd, tr = store.forward, store.transpose
+    cap_bfs = next_pow2(int(fwd.n_edges))
+    runtime.reset_launches()
+    lv_sweep, it_sweep = timed("bfs_vanilla_sweep", lambda: bfs_vanilla(
+        fwd, src=0, edge_capacity=cap_bfs, g_in=tr))
+    sweep_launches = runtime.LAUNCHES["slab_sweep"]
+    lv_expand, it_expand = timed("bfs_vanilla_expand", lambda: bfs_vanilla(
+        fwd, src=0, edge_capacity=cap_bfs))
+    dist = want["tree"].dist
+    reached = dist < 1e29
+    check(torch.equal(lv_sweep, lv_expand) and it_sweep == it_expand,
+          "bfs_vanilla's sweep and expansion bodies disagree")
+    check(torch.equal(lv_sweep < UNREACHED, reached)
+          and torch.equal(lv_sweep[reached].float(), dist[reached]),
+          "bfs_vanilla's levels differ from the static BFS tree")
+    check(sweep_launches == it_sweep,
+          f"bfs_vanilla launched the sweep {sweep_launches} times in "
+          f"{it_sweep} levels")
+    reached_n = int(reached.sum())
+    del lv_expand, dist, reached
+
+    # -- kernel 3's int32 sum on the level with the largest frontier ----------
+    calls = []
+    real_sweep = sweep_ops.slab_sweep
+
+    def capture(keys, slab_vertex, values, weights=None, frontier=None,
+                target=None, *, semiring, n_vertices):
+        calls.append((keys, slab_vertex, values.clone()))
+        return real_sweep(keys, slab_vertex, values, weights, frontier,
+                          target, semiring=semiring, n_vertices=n_vertices)
+
+    with swapped(sweep_ops, slab_sweep=capture):
+        lv, _ = bfs_vanilla(fwd, src=0, edge_capacity=cap_bfs, g_in=tr)
+    check(torch.equal(lv, lv_sweep), "a second bfs_vanilla run differs")
+    keys, owner, vals = max(calls, key=lambda c: int(c[2].count_nonzero()))
+    del calls, lv, lv_sweep
+    check(vals.dtype == torch.int32, "bfs_vanilla should sweep int32 values")
+    unpacked = unpacked_rows(torch, [keys])
+    check(unpacked == 0, f"{unpacked} rows of the transpose view hold a key "
+                         f"after an EMPTY lane")
+    k = slab_sweep(keys, owner, vals, semiring="sum", n_vertices=V)
+    p = slab_sweep_ref(keys, owner, vals, semiring="sum", n_vertices=V)
+    torch.cuda.synchronize()
+    check(k.dtype == p.dtype == torch.int32 and torch.equal(k, p),
+          "the int32 sum sweep differs from its plain version")
+    S = keys.shape[0]
+    filled = int(((keys != EMPTY_KEY) & (owner >= 0)[:, None]).sum())
+    # the same sums as one sparse product, where PyTorch's CSR product
+    # takes int32 values (the pool's live lanes as a matrix of ones)
+    ones = csr_of_pool(torch, keys, owner, V)
+    ones = torch.sparse_csr_tensor(
+        ones.crow_indices(), ones.col_indices(),
+        ones.values().to(torch.int32), size=ones.shape,
+        check_invariants=False)
+    try:
+        lib = torch.mv(ones, vals)
+    except RuntimeError as e:
+        library, library_ms = f"torch.mv raises: {str(e)[:160]}", None
+    else:
+        check(torch.equal(lib, p), "the int32 CSR product disagrees with "
+                                   "the int32 sum sweep")
+        library = "torch.mv, int32 CSR"
+        library_ms = device_ms(torch, lambda: torch.mv(ones, vals))
+    del ones
+    # the filled lanes' keys, owner and output of every row, the values
+    # once; two integer operations per filled lane
+    row = dict(
+        name="slab_sweep", variant="sum int32 (bfs_vanilla)",
+        max_abs_err=int((k.long() - p.long()).abs().max()),
+        ms=device_ms(torch, lambda: slab_sweep(keys, owner, vals,
+                                               semiring="sum",
+                                               n_vertices=V)),
+        plain_ms=time_ms(torch, lambda: slab_sweep_ref(
+            keys, owner, vals, semiring="sum", n_vertices=V)),
+        library_ms=library_ms, library=library, rows=S,
+        rows_allocated=int((owner >= 0).sum()),
+        filled_lanes=filled, frontier_vertices=int(vals.count_nonzero()),
+        unpacked_rows=unpacked, launches=sweep_launches,
+        **bound(filled * 4 + S * (4 + 4) + V * 4, filled * 2,
+                ops_per_s=INT32_OPS_PER_S))
+    del k, p, keys, owner, vals
+    emit({"phase": "kernels", **row})
+    emit({"phase": "iterators", "batch": ITER_BATCH,
+          "inserted": int(inserted.sum()), "flagged_buckets": flagged,
+          "updated_edges": n, "engine_launches": engine_launches,
+          "components": components, "slab_iterator_cap": cap_slab,
+          "hub_degree": hub, "hub_slabs": hub_slabs,
+          "bfs_levels": it_sweep, "bfs_reached": reached_n,
+          "bfs_sweep_launches": sweep_launches, "ms": ms,
+          "seconds": time.perf_counter() - t_phase})
+    return {"results": [row]}
+
+
+# ----------------------------------------------------------------------------
 # phase 4: live triangle counting on the symmetric view
 # ----------------------------------------------------------------------------
 
@@ -1625,14 +1902,15 @@ def decode_readings(torch, model, cache, generated, want) -> dict:
     return out
 
 
-def lm_phase(torch, np, attn_build: dict) -> dict:
+def lm_phase(torch, np, attn_build: dict, *, seed: int = 0) -> dict:
     """Serve gemma2-9b at full width: a prefill of 2 prompts of 8,192 tokens
     and 128 greedy decode steps, with the launch counts zeroed just before
     the prefill and read after the last step; then the self-checks and the
     kernel against its plain version.  First, the attention kernel's build
     (``attn_build``: ``runtime.build(verbose=True)``'s entry for it, with
     the ``ptxas -v`` log) is checked: no spill and tensor-core instructions
-    in every bf16 instantiation."""
+    in every bf16 instantiation.  ``seed`` draws the weights and the
+    prompts."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synth
     from repro_torch.kernels import runtime
@@ -1647,13 +1925,13 @@ def lm_phase(torch, np, attn_build: dict) -> dict:
     cfg = get_arch("gemma2-9b").full_config()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     params = tfm.init_params(cfg, gen, dtype=torch.bfloat16)
     model = tfm.TransformerLM(cfg, params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     toks, _ = next(synth.lm_batches(cfg.vocab_size, LM_BATCH, LM_PROMPT,
-                                    seed=0))
+                                    seed=seed))
     tokens = torch.from_numpy(toks).to("cuda")
     prefill = build_lm_prefill_step(cfg)
     decode = build_lm_decode_step(cfg)
@@ -1708,7 +1986,8 @@ def lm_phase(torch, np, attn_build: dict) -> dict:
     torch.cuda.synchronize()
     prefill_warm_s = time.perf_counter() - t0
     prefill_busy = busy_time(torch, lambda: prefill(model, tokens), top=8)
-    emit({"phase": "lm", "model": cfg.name, "n_params": cfg.n_params(),
+    emit({"phase": "lm", "model": cfg.name, "seed": seed,
+          "n_params": cfg.n_params(),
           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
           "init_s": init_s, "prefill_ms": 1e3 * prefill_s,
           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
@@ -2038,6 +2317,11 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     for line in check_maintenance(torch, np, out, want):
         emit({"phase": "self_check", **line})
+
+    # ------------------------------------------------------------ iterators
+    t0 = time.perf_counter()
+    results += iterators_phase(torch, np, out, want)["results"]
+    emit({"phase": "iterators", "seconds": time.perf_counter() - t0})
     del out, want, store, last
     gc.collect()
     torch.cuda.empty_cache()

@@ -2,7 +2,8 @@
 triangle counting.
 Each ``stream_property`` hook (re-exported as ``<algo>_stream_property``)
 packages an incremental maintainer for the stream registry."""
-from .bfs import bfs_decremental, bfs_incremental, bfs_tree_static
+from .bfs import (UNREACHED, bfs_decremental, bfs_incremental,
+                  bfs_tree_static, bfs_vanilla)
 from .bfs import stream_property as bfs_stream_property
 from .pagerank import pagerank, pagerank_dynamic
 from .pagerank import stream_property as pagerank_stream_property
@@ -14,12 +15,14 @@ from .triangle import (batch_graph, count_kernel, search_edges,
                        triangles_static, undirected_host)
 from .triangle import stream_property as triangle_stream_property
 from .wcc import (count_components, wcc_incremental_batch,
-                  wcc_incremental_naive, wcc_labelprop_ref,
+                  wcc_incremental_naive, wcc_incremental_slab_iterator,
+                  wcc_incremental_update_iterator, wcc_labelprop_ref,
                   wcc_labelprop_sweep, wcc_static)
 from .wcc import stream_property as wcc_stream_property
 
-__all__ = ["bfs_decremental", "bfs_incremental", "bfs_tree_static",
-           "bfs_stream_property", "pagerank", "pagerank_dynamic",
+__all__ = ["UNREACHED", "bfs_decremental", "bfs_incremental",
+           "bfs_tree_static", "bfs_vanilla", "bfs_stream_property",
+           "pagerank", "pagerank_dynamic",
            "pagerank_stream_property", "INF", "NO_PARENT", "TreeState",
            "init_state", "relax_edges", "relax_sweep", "run_to_convergence",
            "sssp_decremental", "sssp_incremental", "sssp_static",
@@ -27,5 +30,6 @@ __all__ = ["bfs_decremental", "bfs_incremental", "bfs_tree_static",
            "triangles_decremental", "triangles_incremental",
            "triangles_static", "undirected_host", "triangle_stream_property",
            "count_components", "wcc_incremental_batch",
-           "wcc_incremental_naive", "wcc_labelprop_ref",
+           "wcc_incremental_naive", "wcc_incremental_slab_iterator",
+           "wcc_incremental_update_iterator", "wcc_labelprop_ref",
            "wcc_labelprop_sweep", "wcc_static", "wcc_stream_property"]

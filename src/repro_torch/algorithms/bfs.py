@@ -1,7 +1,12 @@
-"""Dynamic BFS: the ⟨distance, parent⟩ tree of the SSSP engine with unit
-weights, which supports incremental and decremental updates (paper: "the
-incremental/decremental BFS algorithm uses the same kernels as that of
-incremental/decremental SSSP")."""
+"""Dynamic BFS (paper §4.2, §6.1), in the paper's two variants.
+
+* VANILLA: level-synchronous static BFS with 32-bit levels and no
+  dependence tree (the fast static path).
+* TREE: the ⟨distance, parent⟩ tree of the SSSP engine with unit weights,
+  which supports incremental and decremental updates (paper: "the
+  incremental/decremental BFS algorithm uses the same kernels as that of
+  incremental/decremental SSSP").
+"""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -9,8 +14,50 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.slab_graph import SlabGraph
-from .sssp import (TreeState, init_state, run_to_convergence,
-                   sssp_decremental, sssp_incremental)
+from ..kernels.slab_sweep.ops import sweep_vertices
+from .sssp import (TreeState, _expand_frontier, init_state,
+                   run_to_convergence, sssp_decremental, sssp_incremental)
+
+#: the level of a vertex the search has not reached
+UNREACHED = 2 ** 30
+
+
+def bfs_vanilla(g: SlabGraph, *, src: int, edge_capacity: int,
+                max_bpv: int = 1, max_iters: int = 100000,
+                g_in: Optional[SlabGraph] = None
+                ) -> Tuple[torch.Tensor, int]:
+    """Level-synchronous static BFS from ``src``: (levels int32, iterations).
+
+    With ``g_in`` (the transpose, ``core.transpose_host(g)``) each level is
+    one ``sum`` sweep of the frontier indicator over in-neighbours: no
+    vertex compaction, no edge buffer, no ``edge_capacity`` pressure.
+    Without it, the frontier's out-edges are expanded (``expand_vertices``)
+    into a buffer of ``edge_capacity`` edges; edges past it are dropped, as
+    the reference drops them.
+    """
+    n, dev = g.n_vertices, g.device
+    dist = torch.full((n,), UNREACHED, dtype=torch.int32, device=dev)
+    dist[src] = 0
+    newly = torch.zeros(n, dtype=torch.bool, device=dev)
+    newly[src] = True
+    it = 0
+    while it < max_iters and bool(newly.any()):
+        if g_in is not None:
+            hits = sweep_vertices(g_in, newly.to(torch.int32),
+                                  semiring="sum")
+            touched = hits > 0
+        else:
+            ef = _expand_frontier(g, newly, edge_capacity=edge_capacity,
+                                  max_bpv=max_bpv)
+            emask = torch.arange(edge_capacity, device=dev) < ef.size
+            d = torch.where(emask & (ef.dst >= 0) & (ef.dst < n), ef.dst, n)
+            touched = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+            touched[d.long()] = True
+            touched = touched[:n]
+        newly = touched & (dist == UNREACHED)
+        dist = torch.where(newly, it + 1, dist)
+        it += 1
+    return dist, it
 
 
 def bfs_tree_static(g: SlabGraph, src: int, *, edge_capacity: int,

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.slab_graph import SlabGraph
-from ..core.worklist import expand_vertices, pool_edges
+from ..core.worklist import EdgeFrontier, expand_vertices, pool_edges
 from ..kernels.slab_sweep.ops import sweep_vertices
 
 INF = 1e30
@@ -82,6 +82,18 @@ def relax_sweep(g_in: SlabGraph, state: TreeState, frontier: torch.Tensor
     return _apply_relax(state, dmin, pmin)
 
 
+def _expand_frontier(g: SlabGraph, mask: torch.Tensor, *,
+                     edge_capacity: int, max_bpv: int = 1) -> EdgeFrontier:
+    """The current out-edges of the vertices set in ``mask``: the
+    reference's ``_compact_vertices`` (the warpenqueuefrontier analogue),
+    then ``expand_vertices``.  The reference pads the compacted vertices to
+    (V,) and masks the tail, which emits nothing, so only the set vertices
+    are passed."""
+    verts = torch.nonzero(mask).reshape(-1).to(torch.int32)
+    return expand_vertices(g, verts, torch.ones_like(verts, dtype=torch.bool),
+                           out_capacity=edge_capacity, max_bpv=max_bpv)
+
+
 def run_to_convergence(g: SlabGraph, state: TreeState,
                        improved: torch.Tensor, *, edge_capacity: int,
                        max_bpv: int = 1, max_iters: int = 100000,
@@ -98,10 +110,8 @@ def run_to_convergence(g: SlabGraph, state: TreeState,
         if g_in is not None:
             state, improved = relax_sweep(g_in, state, improved)
         else:
-            verts = torch.nonzero(improved).reshape(-1).to(torch.int32)
-            ef = expand_vertices(
-                g, verts, torch.ones_like(verts, dtype=torch.bool),
-                out_capacity=edge_capacity, max_bpv=max_bpv)
+            ef = _expand_frontier(g, improved, edge_capacity=edge_capacity,
+                                  max_bpv=max_bpv)
             emask = torch.arange(edge_capacity, device=g.device) < ef.size
             w = ef.weight if g.weighted else torch.ones_like(ef.weight)
             state, improved = relax_edges(state, ef.src, ef.dst, w, emask)

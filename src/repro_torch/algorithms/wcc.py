@@ -1,11 +1,19 @@
 """Weakly connected components (paper §4.4, §6.4): static and incremental.
 
 Static WCC unions every adjacency of the pool.  Incremental WCC runs the
-paper's ``naive`` scheme (re-union over every slab) and ``batch`` (union
-over the inserted batch, which the serving loop uses).  The
-``slab_iterator`` and ``update_iterator`` schemes wait for the iterators of
-updated vertices and edges.  Decremental WCC on GPUs is an open problem
-(paper §6.4): an epoch that deletes recomputes from scratch.
+paper's four schemes:
+
+* ``naive``           - re-union over every slab, blind to where the
+  updates landed (time grows with |E|);
+* ``slab_iterator``   - every adjacency of the vertices whose per-vertex
+  update flag is set;
+* ``update_iterator`` - only the lanes inserted this epoch (Fig. 12b,
+  Table 6);
+* ``batch``           - union over the inserted batch itself, the floor;
+  the serving loop uses it.
+
+Decremental WCC on GPUs is an open problem (paper §6.4): an epoch that
+deletes recomputes from scratch.
 
 Labels are the minimum vertex id of each component, whatever the scheme.
 """
@@ -17,9 +25,10 @@ import torch
 
 from ..core.slab_graph import SlabGraph, next_pow2
 from ..core.union_find import compress, init_parents, union_batch
-from ..core.worklist import pool_edges
+from ..core.worklist import pool_edges, updated_edges, updated_vertices
 from ..kernels.slab_sweep.ops import sweep_vertices
 from ..kernels.slab_sweep.ref import INT32_MAX
+from .sssp import _expand_frontier
 
 
 def _compact_lanes(g: SlabGraph, lane_mask: torch.Tensor,
@@ -62,6 +71,36 @@ def wcc_incremental_naive(parent: torch.Tensor, g: SlabGraph, *,
                           cap: Optional[int] = None) -> torch.Tensor:
     """Naive scheme: re-union over every slab list (time grows with |E|)."""
     return compress(_union_pool(parent, g, pool_edges(g).valid, cap=cap))
+
+
+def _union_frontier(parent: torch.Tensor, ef, cap: int) -> torch.Tensor:
+    emask = torch.arange(cap, device=parent.device) < ef.size
+    return compress(union_batch(parent, torch.where(emask, ef.src, 0),
+                                torch.where(emask, ef.dst, 0), emask))
+
+
+def wcc_incremental_slab_iterator(parent: torch.Tensor, g: SlabGraph, *,
+                                  cap: int, max_bpv: int = 4
+                                  ) -> torch.Tensor:
+    """SlabIterator scheme: every adjacency of the vertices with updates,
+    from a walk of their chains.  ``cap`` bounds the edges walked; only the
+    first ``max_bpv`` buckets of a vertex are walked, as in the
+    reference."""
+    ef = _expand_frontier(g, updated_vertices(g), edge_capacity=cap,
+                          max_bpv=max_bpv)
+    return _union_frontier(parent, ef, cap)
+
+
+def wcc_incremental_update_iterator(parent: torch.Tensor, g: SlabGraph, *,
+                                    cap: int, max_buckets: int = 0
+                                    ) -> torch.Tensor:
+    """UpdateIterator scheme: only the slabs holding this epoch's inserts,
+    from the flagged buckets' chain walk (the paper's best scheme; ``cap``
+    about twice the batch).  ``max_buckets`` defaults to ``cap``; edges or
+    buckets past the bounds are dropped without a flag, as in the
+    reference."""
+    ef = updated_edges(g, max_buckets=max_buckets or cap, out_capacity=cap)
+    return _union_frontier(parent, ef, cap)
 
 
 def wcc_incremental_batch(parent: torch.Tensor, bsrc: torch.Tensor,

@@ -8,13 +8,21 @@ from .hashing import (EMPTY_KEY, INVALID_SLAB, INVALID_VERTEX, SLAB_WIDTH,
 from .slab_graph import (SlabGraph, empty, ensure_capacity, from_edges_host,
                          next_pow2, plan_buckets, pool_stats,
                          update_slab_pointers)
-from .worklist import EdgeFrontier, PoolView, expand_vertices, pool_edges
+from .worklist import (CSR, EdgeFrontier, PoolView, csr_snapshot,
+                       expand_vertices, occupancy_stats, pool_edges,
+                       transpose_host, updated_lane_mask, updated_vertices)
+from .frontier import Frontier, clear, enqueue, make_frontier, swap
+from .iterators import bucket_iterator, slab_iterator, update_iterator
 
 __all__ = [
     "slab_graph_from_numpy", "slab_graph_to_numpy",
     "resolve_device", "resolve_impl", "EMPTY_KEY", "INVALID_SLAB", "INVALID_VERTEX", "SLAB_WIDTH", "TOMBSTONE_KEY",
     "bucket_hash", "is_valid_vertex", "SlabGraph", "empty",
     "ensure_capacity", "from_edges_host", "next_pow2", "plan_buckets",
-    "pool_stats", "update_slab_pointers", "EdgeFrontier", "PoolView",
-    "expand_vertices", "pool_edges",
+    "pool_stats", "update_slab_pointers",
+    "CSR", "EdgeFrontier", "PoolView", "csr_snapshot", "expand_vertices",
+    "occupancy_stats", "pool_edges", "transpose_host", "updated_lane_mask",
+    "updated_vertices",
+    "Frontier", "clear", "enqueue", "make_frontier", "swap",
+    "bucket_iterator", "slab_iterator", "update_iterator",
 ]

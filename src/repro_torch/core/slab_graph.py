@@ -72,6 +72,17 @@ class SlabGraph:
     def device(self) -> torch.device:
         return self.keys.device
 
+    def nbytes(self) -> int:
+        """Device bytes held by the representation (Table 5 accounting):
+        ``numel * itemsize`` summed over every tensor field.  Each field has
+        the reference's item size: keys int32 (the reference's uint32),
+        weights float32, pointers, counters and the 0-d scalars int32, the
+        ``upd_flag`` and ``slab_new`` flags one byte, so the count is the
+        reference's ``SlabGraph.nbytes()``."""
+        return sum(t.numel() * t.element_size()
+                   for t in (getattr(self, name) for name in FIELDS)
+                   if t is not None)
+
 
 # ============================================================================
 # Construction

@@ -1,12 +1,15 @@
 """Slab-update engine: chain-walk probe and commit kernels, run-local
-placement (see ``ops``)."""
+placement (see ``ops``), and the whole-pool oracle it reproduces
+(``ref``)."""
 from .kernel import slab_commit, slab_commit_torch, slab_probe, \
     slab_probe_torch
 from .ops import (FORWARD, SYMMETRIC, TRANSPOSE, apply_update, delete_edges,
                   insert_edges, query_edges, update_views)
-from .ref import batch_valid, edge_buckets, probe
+from .ref import (batch_valid, delete_edges_ref, edge_buckets,
+                  insert_edges_ref, probe, query_edges_ref)
 
 __all__ = ["slab_commit", "slab_commit_torch", "slab_probe",
            "slab_probe_torch", "FORWARD", "SYMMETRIC", "TRANSPOSE",
            "apply_update", "delete_edges", "insert_edges", "query_edges",
-           "update_views", "batch_valid", "edge_buckets", "probe"]
+           "update_views", "batch_valid", "delete_edges_ref",
+           "edge_buckets", "insert_edges_ref", "probe", "query_edges_ref"]

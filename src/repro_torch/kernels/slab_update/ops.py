@@ -34,23 +34,13 @@ from ...core.hashing import INVALID_SLAB, INVALID_VERTEX, SLAB_WIDTH, \
     TOMBSTONE_KEY
 from ...core.slab_graph import SlabGraph
 from .kernel import slab_commit, slab_probe
-from .ref import batch_valid, edge_buckets
+from .ref import _INT32_MAX, _scatter_drop, batch_valid, edge_buckets
 
 FORWARD = "forward"
 TRANSPOSE = "transpose"
 SYMMETRIC = "symmetric"
 
-_INT32_MAX = 2 ** 31 - 1
 _INT32_MIN = -2 ** 31
-
-
-def _scatter_drop(t: torch.Tensor, idx: torch.Tensor, vals) -> None:
-    """``t[idx] = vals`` in place, dropping indices outside ``t`` (the
-    reference's ``.at[].set(mode="drop")``)."""
-    keep = (idx >= 0) & (idx < t.shape[0])
-    if isinstance(vals, torch.Tensor):
-        vals = vals[keep]
-    t[idx[keep].long()] = vals
 
 
 def _classify(g: SlabGraph, src, dst):

@@ -1,6 +1,7 @@
-"""Port parity: SSSP/BFS trees, PageRank and the frontier expansion against
-the JAX reference on the CPU.  Trees must be bit-identical (min family and
-the same float32 adds); PageRank is held to ``PR_ATOL`` (sum order, see
+"""Port parity: SSSP/BFS trees, vanilla BFS levels, PageRank and the
+frontier expansion against the JAX reference on the CPU.  Trees and levels
+must be bit-identical (min family, integer sums and the same float32 adds);
+PageRank is held to ``PR_ATOL`` (sum order, see
 tests/test_torch_serve_slice.py)."""
 import jax.numpy as jnp
 import numpy as np
@@ -126,3 +127,33 @@ def test_expand_vertices_matches():
                                   max_bpv=bpv)
         for a, b in zip(got, want):
             assert np.array_equal(np_of(a), np_of(b))
+
+
+@pytest.mark.parametrize("hashing", [False, True])
+def test_bfs_vanilla_matches(hashing):
+    """Both bodies of the level-synchronous BFS: the ``sum`` sweep of the
+    frontier over the transpose, and the frontier expansion, with room for
+    every edge and with a buffer that drops some.  Hashed, two buckets a
+    vertex."""
+    rng = np.random.default_rng(9)
+    V = 64
+    src, dst = rng.integers(0, V, 200), rng.integers(0, V, 200)
+    if hashing:
+        fwd = jsg.empty(V, np.full(V, 2, np.int32), 512)
+        fwd, _ = jbatch.insert_edges(fwd, jids(src, 256), jids(dst, 256))
+    else:
+        fwd = jsg.from_edges_host(V, src, dst, hashing=False)
+    tr = jwl.transpose_host(fwd, hashing=hashing)
+    tf, tt = to_port(fwd), to_port(tr)
+    bpv = int(np.asarray(fwd.bucket_count).max())
+    levels = []
+    for cap, jin, tin in ((CAP, tr, tt), (CAP, None, None), (8, None, None)):
+        want, wit = ja.bfs_vanilla(fwd, src=3, edge_capacity=cap,
+                                   max_bpv=bpv, g_in=jin)
+        got, git = ta.bfs_vanilla(tf, src=3, edge_capacity=cap,
+                                  max_bpv=bpv, g_in=tin)
+        assert np.array_equal(np_of(got), np_of(want)), (cap, tin is None)
+        assert git == int(wit)
+        levels.append(got)
+    assert torch.equal(levels[0], levels[1])
+    assert int((levels[0] < ta.UNREACHED).sum()) > V // 2

@@ -16,7 +16,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.algorithms import (bfs_vanilla, wcc_incremental_batch,
+                                    wcc_incremental_naive,
+                                    wcc_incremental_slab_iterator,
+                                    wcc_incremental_update_iterator,
+                                    wcc_static)
 from repro_torch.core import batch as tbatch
+from repro_torch.core import (csr_snapshot, ensure_capacity,
+                              occupancy_stats, slab_iterator,
+                              transpose_host, update_iterator,
+                              updated_lane_mask, updated_vertices)
+from repro_torch.core.union_find import init_parents
+from repro_torch.core.worklist import updated_edges
 from repro_torch.core.bridge import slab_graph_from_numpy, \
     slab_graph_to_numpy
 from repro_torch.core.slab_graph import FIELDS, from_edges_host
@@ -32,8 +43,9 @@ from repro_torch.kernels.slab_intersect import (count_edges,
                                                 probe_hits, probe_hits_torch,
                                                 slab_count, slab_count_torch)
 from repro_torch.kernels.slab_intersect.ops import _work_items
-from repro_torch.kernels.slab_update import (slab_commit, slab_commit_torch,
-                                             slab_probe, slab_probe_torch)
+from repro_torch.kernels.slab_update import (insert_edges_ref, slab_commit,
+                                             slab_commit_torch, slab_probe,
+                                             slab_probe_torch)
 from repro_torch.kernels.embedding_bag import embedding_bag, \
     embedding_bag_ref
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
@@ -500,6 +512,101 @@ def test_compaction_on_card_matches_cpu(cuda, graph):
     assert torch.equal(rc.perm.cpu(), rh.perm)
     assert (rc.new_capacity, rc.live_lanes) == (rh.new_capacity,
                                                 rh.live_lanes)
+
+
+def _open_epoch(cuda, graph):
+    """The fixture's edges on the card and on the CPU, each with one
+    insert epoch left open through the engine: (card graph, CPU graph,
+    the card's batch)."""
+    rng, src, dst, _ = graph
+    V = 5000
+    s = np.concatenate([np.full(512, 7), rng.integers(0, V, 3584)])
+    d = rng.integers(0, V, 4096)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        g = ensure_capacity(from_edges_host(V, src, dst, hashing=False,
+                                            device=dev), 4096 + 64)
+        g, _ = tbatch.insert_edges(g, _ids(s, dev), _ids(d, dev))
+        out.append(g)
+    return out[0], out[1], (_ids(s, cuda), _ids(d, cuda))
+
+
+def test_engine_on_card_matches_the_oracle(cuda, graph):
+    """The engine's insert (kernels 1 and 2) against ``insert_edges_ref``
+    on the card, on a pool with a hub chain; the oracle leaves its input
+    as it was."""
+    rng, src, dst, _ = graph
+    V = 5000
+    s = np.concatenate([np.full(512, 7), rng.integers(0, V, 3584)])
+    d = rng.integers(0, V, 4096)
+    base = ensure_capacity(from_edges_host(V, src, dst, hashing=False,
+                                           device=cuda), 4096 + 64)
+    before = slab_graph_to_numpy(base)
+    oracle, om = insert_edges_ref(base, _ids(s, cuda), _ids(d, cuda))
+    for name in FIELDS:
+        if before[name] is not None:
+            assert np.array_equal(getattr(base, name).cpu().numpy(),
+                                  before[name]), name
+    launched = runtime.LAUNCHES["slab_commit"]
+    g, em = tbatch.insert_edges(base, _ids(s, cuda), _ids(d, cuda))
+    assert runtime.LAUNCHES["slab_commit"] > launched
+    assert torch.equal(em, om)
+    for name in FIELDS:
+        a, b = getattr(g, name), getattr(oracle, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+
+
+def test_iterators_on_card_match_cpu(cuda, graph):
+    """The worklist functions and the iterators of an open epoch, on the
+    card and on the CPU."""
+    gc, gh, _ = _open_epoch(cuda, graph)
+    for a, b in ((updated_lane_mask(gc), updated_lane_mask(gh)),
+                 (updated_vertices(gc), updated_vertices(gh))):
+        assert torch.equal(a.cpu(), b)
+    for fc, fh in ((updated_edges(gc, max_buckets=4096, out_capacity=8192),
+                    updated_edges(gh, max_buckets=4096, out_capacity=8192)),
+                   (csr_snapshot(gc, max_edges=1 << 17),
+                    csr_snapshot(gh, max_edges=1 << 17))):
+        for a, b in zip(fc, fh):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.cpu(), b)
+    for fn in (slab_iterator, update_iterator):
+        for a, b in zip(fn(gc, 7, max_neighbors=2048),
+                        fn(gh, 7, max_neighbors=2048)):
+            assert torch.equal(a.cpu(), b)
+    assert occupancy_stats(gc) == occupancy_stats(gh)
+
+
+def test_bfs_vanilla_and_wcc_schemes_on_card_match_cpu(cuda, graph):
+    """Both bodies of ``bfs_vanilla`` (the swept one through kernel 3's
+    int32 ``sum``) and the four incremental WCC schemes, on the card and on
+    the CPU."""
+    gc, gh, (s, d) = _open_epoch(cuda, graph)
+    levels = []
+    for g, dev in ((gc, cuda), (gh, "cpu")):
+        tr = transpose_host(g, device=dev)
+        launched = runtime.LAUNCHES["slab_sweep"]
+        swept, it = bfs_vanilla(g, src=7, edge_capacity=1 << 17, g_in=tr)
+        if dev is cuda:
+            assert runtime.LAUNCHES["slab_sweep"] - launched == it
+        expanded, it2 = bfs_vanilla(g, src=7, edge_capacity=1 << 17)
+        assert torch.equal(swept, expanded) and it == it2
+        levels.append(swept.cpu())
+    assert torch.equal(levels[0], levels[1])
+    labels = []
+    for g, bs, bd in ((gc, s, d), (gh, s.cpu(), d.cpu())):
+        before = init_parents(g.n_vertices, g.device)
+        mask = torch.ones(bs.shape[0], dtype=torch.bool, device=g.device)
+        got = [wcc_static(g), wcc_incremental_naive(before, g),
+               wcc_incremental_batch(wcc_static(g), bs, bd, mask),
+               wcc_incremental_slab_iterator(before, g, cap=1 << 17),
+               wcc_incremental_update_iterator(before, g, cap=8192)]
+        labels.append([t.cpu() for t in got])
+    for a, b in zip(*labels):
+        assert torch.equal(a, b)
 
 
 @pytest.fixture(scope="module")

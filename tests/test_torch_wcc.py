@@ -4,7 +4,8 @@ reference on the CPU.
 Labels are the minimum vertex id of each component whatever order the
 hooks land in, so every parent and label vector here must be bit-identical
 to the reference's (no tolerance), as must the iteration counts of label
-propagation.
+propagation.  The four incremental schemes (naive, batch, SlabIterator,
+UpdateIterator) are each held to the reference's.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +16,8 @@ from _torch_port import assert_vectors_equal, ids, jids, to_port
 
 from repro import stream as jstream
 from repro.algorithms import wcc as jwcc
-from repro.core import (delete_edges, from_edges_host, insert_edges,
-                        update_slab_pointers)
+from repro.core import (delete_edges, empty, ensure_capacity,
+                        from_edges_host, insert_edges, update_slab_pointers)
 from repro.core import union_find as juf
 from repro.core.worklist import pool_edges, transpose_host
 from repro_torch import stream as tstream
@@ -160,3 +161,59 @@ def test_wcc_stream_property_matches(policy):
             list(map(tuple, ins.tolist()))
         assert_vectors_equal(treg.read("wcc"), jreg.read("wcc"),
                              f"epoch {i}")
+
+
+def _open_epoch(seed, *, hashing):
+    """A 64-vertex reference graph with an open insert epoch, and the
+    labels of its graph before the batch.  Hashed, every eighth vertex has
+    six buckets, past the SlabIterator scheme's default ``max_bpv`` of 4
+    (the reference then skips its buckets past the fourth)."""
+    rng = np.random.default_rng(seed)
+    V = 64
+    if hashing:
+        g = empty(V, np.where(np.arange(V) % 8 == 0, 6, 2).astype(np.int32),
+                  1024)
+        g, _ = insert_edges(g, jids(rng.integers(0, V, 200), 256),
+                            jids(rng.integers(0, V, 200), 256))
+    else:
+        g = from_edges_host(V, rng.integers(0, V, 120),
+                            rng.integers(0, V, 120), hashing=False,
+                            slack_slabs=64)
+    g = update_slab_pointers(g)
+    before = jwcc.wcc_static(g)
+    g = ensure_capacity(g, 128)
+    g, _ = insert_edges(g, jids(rng.integers(0, V, 48), 64),
+                        jids(rng.integers(0, V, 48), 64))
+    return g, before, rng
+
+
+@pytest.mark.parametrize("hashing", [False, True])
+def test_iterator_schemes_match(hashing):
+    """The SlabIterator and UpdateIterator schemes from the pre-batch labels
+    and from a random forest, with room for every edge and with bounds that
+    drop some."""
+    gj, before, rng = _open_epoch(8, hashing=hashing)
+    gt = to_port(gj)
+    forest = _forest(rng, gj.n_vertices)
+    for parent in (np.asarray(before), forest):
+        pj, pt = jnp.asarray(parent), torch.from_numpy(np.array(parent))
+        for cap in (1024, 40):
+            assert_vectors_equal(
+                twcc.wcc_incremental_slab_iterator(pt, gt, cap=cap),
+                jwcc.wcc_incremental_slab_iterator(pj, gj, cap=cap),
+                f"slab_iterator, cap={cap}")
+        for cap, mb in ((128, 0), (16, 0), (128, 5)):
+            assert_vectors_equal(
+                twcc.wcc_incremental_update_iterator(pt, gt, cap=cap,
+                                                     max_buckets=mb),
+                jwcc.wcc_incremental_update_iterator(pj, gj, cap=cap,
+                                                     max_buckets=mb),
+                f"update_iterator, cap={cap}, max_buckets={mb}")
+    if not hashing:
+        # unhashed, every scheme with room gives the static labels
+        pt = torch.from_numpy(np.array(before))
+        want = twcc.wcc_static(gt)
+        for got in (twcc.wcc_incremental_slab_iterator(pt, gt, cap=1024),
+                    twcc.wcc_incremental_update_iterator(pt, gt, cap=128),
+                    twcc.wcc_incremental_naive(pt, gt)):
+            assert torch.equal(got, want)
