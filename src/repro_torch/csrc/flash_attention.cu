@@ -19,12 +19,13 @@
 // Both follow the TPU kernel's schedule: the TPU walks the key blocks of
 // one (b, h, q block) in order on one core and carries (acc, m, l) in VMEM
 // scratch; here one thread block owns one (b, h, query tile) and a loop
-// over 64-key tiles takes the place of that sequential grid dimension, with
-// (acc, m, l) in registers.  Key tiles wholly outside the causal / window
-// band or past kv_len are never loaded, as the reference's ``needed`` skips
-// them.  Numerics are the reference's: scores scaled by sm_scale in
-// float32, the softcap as softcap * tanhf(x / softcap) (tanhf, not a fast
-// approximation), expf, a masked score -inf whose exp is exactly 0, a
+// over key tiles (64 keys in bf16, 32 in float32) takes the place of that
+// sequential grid dimension, with (acc, m, l) in registers.  Key tiles
+// wholly outside the causal / window band or past kv_len are never loaded,
+// as the reference's ``needed`` skips them.  Numerics are the reference's:
+// scores scaled by sm_scale in float32, the softcap as softcap *
+// tanhf(x / softcap) (tanhf, not a fast approximation; x / softcap
+// correctly rounded), expf, a masked score -inf whose exp is exactly 0, a
 // running max that starts at NEG_INF = -1e30, a row with no visible key
 // (l = 0) written as 0, and the output rounded once.
 //
@@ -74,18 +75,44 @@
 //
 // ---- float32: CUDA cores -----------------------------------------------
 //
-// One block of 256 threads owns a 64-row query tile.  Per key tile: K and
-// V are loaded into shared memory; each thread computes a 4 x 4 block of
-// scores (rows rg*4..+3, columns cg + 16*j) from float4 reads of Q and K;
-// scale, softcap and mask; the row max and row sum are reduced over the 16
-// threads that share the rows with shuffles; the probabilities go to shared
-// memory, and each thread adds P·V into its float32 accumulator of 4 rows x
-// D/16 columns (float4 groups cg*4 + 64*jj).  Shared memory (float32 tiles,
-// rows padded by 4 floats so that 8 threads reading float4 at the same
-// column of 8 rows hit 32 distinct banks): Q, K and V tiles of 64 x (D + 4)
-// and a 64 x 68 probability tile, 217,088 bytes at D = 256.  Bound:
-// operations, on the CUDA cores (67 TFLOP/s float32); a TF32 product would
-// not hold the float32 gates.
+// Bound on this card: operations, on the CUDA cores (67 TFLOP/s float32;
+// a TF32 product would not hold the float32 gates): 4·D flops per visible
+// (q, k) pair, two fmas a pair and column.  Measured on an H100 at
+// gemma2-9b's shapes (tools/attention_variants.py), each of the two
+// products runs at about two thirds of the fma rate however its shared
+// loads are laid out (0.19 or 0.5 floats loaded an fma, 8 or 16 warps an
+// SM), and everything else (copies, barriers, the softmax's tanhf and
+// expf) takes about a sixth of the time.  The design:
+//
+// * A block of 8 warps owns 128 query rows, 16 a warp, and a loop walks
+//   32-key tiles.  A warp owns whole rows, so the online softmax and P stay
+//   inside it: P goes through a warp-private strip of shared memory with
+//   __syncwarp, no block barrier.
+// * Scores: the head dims are split in two: lane (kg, rg, hf) = (lane % 8,
+//   lane / 8 % 2, lane / 16) sums an 8 x 4 tile (rows rg + 2 i, keys
+//   kg + 8 j) of its warp's 16 x 32 block over half of them, 12 floats
+//   loaded for 32 fmas (a 4 x 4 tile over all of them loads 16 for 32),
+//   and one shuffle joins the halves; each half then keeps 4 of the 8 rows
+//   for the softmax.  A step reads float2s of Q and K, stored row-major
+//   with rows padded by 4 floats: a half warp reads 2 rows of Q and 8 of K
+//   on distinct banks.
+// * P·V: lane (cg, ro) = (lane % 16, lane / 16) owns 8 rows (ro + 2 i) x
+//   D/4 columns (4 cg + 64 jj + {0..3}) of O: per 4 keys a float4 of P for
+//   each row and, per key, D/64 float4 of V.  Each row's alpha (and, at the
+//   end, l) passes from the score lanes to these through the warp's strip.
+//   The loop over keys is not unrolled: unrolled, the D = 256 kernel
+//   spills.
+// * cp.async.cg, 16 B a thread, one K and one V buffer: V_t is issued
+//   before S_t's products and K_{t+1} as soon as every warp is done with
+//   K_t, so each copy lands during the other product; two barriers a tile.
+//   Rows past Sq (Q) or kv_len (K, V) are zero-filled.  Shared memory:
+//   Q 128 x (D + 4), K 32 x (D + 4), V 32 x D, and a warp's P 16 x 36 with
+//   16 alphas and 16 ls, 218,624 bytes at D = 256.
+// * A warp skips a tile none of its rows sees; the mask is applied only
+//   where the causal diagonal, the window's start or kv_len crosses the
+//   warp's 16 x 32 block.  Query tiles launch longest first.
+// * The row max is shared by a row's 8 lanes (3 shuffles); l is kept per
+//   lane and summed once at the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,51 +125,74 @@ constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
+// asynchronous copies (both kernels)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 row groups x 16 column groups
-constexpr int kPStride = kBK + 4;
-static_assert(kBQ == kBK, "load_tile fills kBK rows, for Q tiles too");
+constexpr int kBQ = 128;                  // query rows per block
+constexpr int kBK = 32;                   // keys per tile
+constexpr int kWarpRows = 16;             // query rows per warp
+constexpr int kWarps = kBQ / kWarpRows;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPStride = kBK + 4;         // floats a row of a warp's P
+static_assert(kWarpRows == 16 && kBK == 32, "the lane layouts below");
 
 template <int D>
 struct Tiles {
-  static constexpr int kStride = D + 4;
+  static constexpr int kStride = D + 4;   // Q and K rows, padded
+  static constexpr int kQ = kBQ * kStride;
+  static constexpr int kK = kBK * kStride;
+  static constexpr int kV = kBK * D;
+  // a warp's P (16 x kPStride), then its rows' alpha and l
+  static constexpr int kWarpScratch = kWarpRows * kPStride + 2 * kWarpRows;
+  static constexpr int kScratch = kWarps * kWarpScratch;
   static constexpr size_t kBytes =
-      sizeof(float) * (static_cast<size_t>(kBQ + 2 * kBK) * kStride +
-                       static_cast<size_t>(kBQ) * kPStride);
+      sizeof(float) * (kQ + kK + kV + kScratch);
+  static_assert(kBytes <= 232448, "over the 227 KB a block can use");
 };
 
-// rows x D elements of a head slice from row ``row0`` (rows past ``n_rows``
-// read as 0) into a float32 tile of stride D + 4.
-template <int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
+// kRows rows of a float32 head slice from row ``row0`` into a tile of row
+// stride ``kDst`` floats at shared address ``dst``, 16 B a copy; rows at or
+// past ``n_rows`` are zero-filled (their source address is the slice's
+// first row, which is never read).
+template <int D, int kRows, int kDst>
+__device__ __forceinline__ void copy_rows(uint32_t dst,
                                           const float* __restrict__ src,
                                           int row0, int n_rows) {
-  constexpr int kQuads = D / 4;
-  for (int i = threadIdx.x; i < kBK * kQuads; i += kThreads) {
-    const int r = i / kQuads, c = (i % kQuads) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
-      x = *reinterpret_cast<const float4*>(
-          src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * Tiles<D>::kStride + c) = x;
+  constexpr int kChunks = D / 4;
+  static_assert(kRows * kChunks % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + 4u * static_cast<uint32_t>(r * kDst + 4 * c),
+               src + (in ? static_cast<size_t>(row0 + r) * D + 4 * c : 0),
+               in);
   }
 }
 
-// max / sum over the 16 lanes that share a row group (lanes 0-15 or 16-31)
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+__device__ __forceinline__ float elem(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
 template <int D>
@@ -151,140 +201,250 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ v, float* __restrict__ out,
                     int Hq, int Hkv, int Sq, int Skv, int causal, int window,
                     int kv_len, float softcap, float sm_scale) {
-  constexpr int kStride = Tiles<D>::kStride;
-  constexpr int kCols = D / 16;  // accumulator columns a thread owns
+  using T = Tiles<D>;
+  constexpr int kStride = T::kStride;
+  constexpr int kHalf = D / 2;        // head dims of a lane's partial scores
+  constexpr int kGroups = D / 64;     // float4 column groups of O a lane owns
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * kStride;
-  float* Vs = Ks + kBK * kStride;
-  float* Ps = Vs + kBK * kStride;
+  float* Ks = Qs + T::kQ;
+  float* Vs = Ks + T::kK;
+  const uint32_t qs_s = static_cast<uint32_t>(__cvta_generic_to_shared(Qs));
+  const uint32_t ks_s = qs_s + 4u * T::kQ, vs_s = ks_s + 4u * T::kK;
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // the grid's slow axis walks the query tiles from the last one down
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
   const int hk = h / (Hq / Hkv);
   const float* qh = q + (static_cast<size_t>(b) * Hq + h) * Sq * D;
   const float* kh = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
   const float* vh = v + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
 
-  load_tile<D>(Qs, qh, q0, Sq);
+  // Scores: lane (kg, rg, hf) = (lane % 8, lane / 8 % 2, lane / 16) sums
+  // rows rg + 2 i (i < 8) x keys kg + 8 j (j < 4) of its warp's 16 x 32
+  // block over head dims [hf D/2, (hf + 1) D/2); one shuffle joins the two
+  // halves, and lane hf keeps rows i = 4 hf + i' (i' < 4) for the softmax.
+  // P V: lane (cg, ro) = (lane % 16, lane / 16) owns rows ro + 2 i (i < 8)
+  // of O at columns 4 cg + 64 jj + {0..3} (jj < D / 64).  Row rg + 2 i's
+  // alpha and l pass between the two layouts at [8 rg + i] of the warp's
+  // scratch.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kg = lane & 7, rg = (lane >> 3) & 1, hf = lane >> 4;
+  const int cg = lane & 15, ro = lane >> 4;
+  const int wq0 = q0 + warp * kWarpRows;
+  float* Ps = Vs + T::kV + warp * T::kWarpScratch;
+  float* alpha_s = Ps + kWarpRows * kPStride;
+  float* l_s = alpha_s + kWarpRows;
+  const float* qrow = Qs + (warp * kWarpRows + rg) * kStride + hf * kHalf;
+  const float* krow = Ks + kg * kStride + hf * kHalf;
 
   // key tiles that hold a visible key for some row of this query tile
   int k_hi = kv_len;
   if (causal) k_hi = min(k_hi, q0 + kBQ);
   int k_lo = 0;
   if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt0 = k_lo / kBK;
+  const int n_kt = max(0, (k_hi + kBK - 1) / kBK - kt0);
 
-  float acc[4][kCols];
-  float m[4], l[4];
+  copy_rows<D, kBQ, kStride>(qs_s, qh, q0, Sq);
+  if (n_kt > 0) copy_rows<D, kBK, kStride>(ks_s, kh, kt0 * kBK, kv_len);
+  cp_async_commit();
+
+  float acc[8][4 * kGroups];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] = 0.f;
+  float m[4], l[4];  // the softmax rows rg + 2 (4 hf + i')
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
 
-  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
-    __syncthreads();  // the previous tile's P·V is done with Ks, Vs, Ps
-    load_tile<D>(Ks, kh, k0, Skv);
-    load_tile<D>(Vs, vh, k0, Skv);
-    __syncthreads();
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = (kt0 + it) * kBK;
+    cp_async_wait<0>();
+    __syncthreads();  // K_t has landed; every warp is done with V_{t-1}
+    copy_rows<D, kBK, D>(vs_s, vh, k0, kv_len);  // lands during S_t
+    cp_async_commit();
 
-    float s[4][4];
+    // does a row of this warp see a key of this tile, and does the band's
+    // edge (causal diagonal, window start, kv_len) cross the warp's rows
+    bool live = wq0 < Sq, edge = k0 + kBK > kv_len;
+    if (causal) {
+      live = live && k0 <= wq0 + kWarpRows - 1;
+      edge = edge || k0 + kBK - 1 > wq0;
+    }
+    if (window > 0) {
+      live = live && wq0 - (k0 + kBK - 1) < window;
+      edge = edge || wq0 + kWarpRows - 1 - k0 >= window;
+    }
+
+    float sm[4][4];  // the softmax rows' scores at keys kg + 8 j
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) sm[i][j] = 0.f;
+    if (live) {
+      // S = Q K^T over this lane's half of the head dims: each step reads
+      // a float2 of 8 rows and of 4 keys for 64 fmas
+      float s[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+      for (int d = 0; d < kHalf; d += 2) {
+        float2 qv[8], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (rg * 4 + i) * kStride + d);
+        for (int i = 0; i < 8; ++i)
+          qv[i] = *reinterpret_cast<const float2*>(qrow + 2 * i * kStride + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (cg + 16 * j) * kStride + d);
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float2*>(krow + 8 * j * kStride + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          }
+      }
+      // the two halves meet: lane hf sends the rows it does not keep
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          const float mine = hf ? s[4 + i][j] : s[i][j];
+          const float sent = hf ? s[i][j] : s[4 + i][j];
+          sm[i][j] = mine + __shfl_xor_sync(kFull, sent, 16);
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // V_t has landed; every warp is done with K_t
+    if (it + 1 < n_kt)  // K_{t+1} lands during this tile's softmax and P V
+      copy_rows<D, kBK, kStride>(ks_s, kh, k0 + kBK, kv_len);
+    cp_async_commit();
+    if (!live) continue;
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = sm[i][j] * sm_scale;
+        if (softcap > 0.f) {
+          // x / softcap, correctly rounded without a division: the
+          // quotient through the rounded reciprocal, corrected once by its
+          // exact (fma) residual (Markstein)
+          const float q1 = x * inv_cap;
+          x = softcap * tanhf(fmaf(fmaf(-softcap, q1, x), inv_cap, q1));
+        }
+        sm[i][j] = x;
+      }
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qi = wq0 + rg + 2 * (4 * hf + i), kj = k0 + kg + 8 * j;
+          bool ok = kj < kv_len;
+          if (causal) ok = ok && qi >= kj;
+          if (window > 0) ok = ok && (qi - kj) < window;
+          if (!ok) sm[i][j] = -INFINITY;
         }
     }
 
+    // online softmax: a row's 8 lanes (lane bits 0-2) share its max; l is
+    // kept per lane and summed once at the end
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + rg * 4 + i;
-      float mx = kNegInf;
+      float mx = m[i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + cg + 16 * j;
-        float x = s[i][j] * sm_scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = kj < kv_len;
-        if (causal) ok = ok && qi >= kj;
-        if (window > 0) ok = ok && (qi - kj) < window;
-        s[i][j] = ok ? x : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
+      for (int j = 0; j < 4; ++j) mx = fmaxf(mx, sm[i][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+      const int r = rg + 2 * (4 * hf + i);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);  // 0 for a masked score
+        const float p = expf(sm[i][j] - mx);  // 0 for a masked score
         sum += p;
-        Ps[(rg * 4 + i) * kPStride + cg + 16 * j] = p;
+        Ps[r * kPStride + kg + 8 * j] = p;
       }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + group_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+      const float alpha = expf(m[i] - mx);
+      l[i] = l[i] * alpha + sum;
+      m[i] = mx;
+      if (kg == 0) alpha_s[8 * rg + 4 * hf + i] = alpha;
     }
-    __syncthreads();
+    __syncwarp();
 
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 p4[4];
+    const float4 a_lo = *reinterpret_cast<const float4*>(alpha_s + 8 * ro);
+    const float4 a_hi = *reinterpret_cast<const float4*>(alpha_s + 8 * ro + 4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(Ps + (rg * 4 + i) * kPStride + kk);
+    for (int i = 0; i < 8; ++i) {
+      const float a = elem(i < 4 ? a_lo : a_hi, i & 3);
+#pragma unroll
+      for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] *= a;
+    }
+
+    // O += P V: per 4 keys, a float4 of P for each of the lane's 8 rows and,
+    // per key, kGroups float4 of V (8 distinct a quarter warp)
+#pragma unroll 1
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 p4[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        p4[i] = *reinterpret_cast<const float4*>(Ps + (ro + 2 * i) * kPStride +
+                                                 kk);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const float* vrow = Vs + (kk + t) * kStride + cg * 4;
+        const float* vrow = Vs + (kk + t) * D + 4 * cg;
 #pragma unroll
-        for (int jj = 0; jj < D / 64; ++jj) {
+        for (int jj = 0; jj < kGroups; ++jj) {
           const float4 vv = *reinterpret_cast<const float4*>(vrow + 64 * jj);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = t == 0 ? p4[i].x : t == 1 ? p4[i].y
-                          : t == 2 ? p4[i].z : p4[i].w;
-            acc[i][jj * 4 + 0] = fmaf(p, vv.x, acc[i][jj * 4 + 0]);
-            acc[i][jj * 4 + 1] = fmaf(p, vv.y, acc[i][jj * 4 + 1]);
-            acc[i][jj * 4 + 2] = fmaf(p, vv.z, acc[i][jj * 4 + 2]);
-            acc[i][jj * 4 + 3] = fmaf(p, vv.w, acc[i][jj * 4 + 3]);
+          for (int i = 0; i < 8; ++i) {
+            const float p = elem(p4[i], t);
+            acc[i][4 * jj + 0] = fmaf(p, vv.x, acc[i][4 * jj + 0]);
+            acc[i][4 * jj + 1] = fmaf(p, vv.y, acc[i][4 * jj + 1]);
+            acc[i][4 * jj + 2] = fmaf(p, vv.z, acc[i][4 * jj + 2]);
+            acc[i][4 * jj + 3] = fmaf(p, vv.w, acc[i][4 * jj + 3]);
           }
         }
       }
     }
+    __syncwarp();  // P and alpha are read before the next tile writes them
   }
+  cp_async_wait<0>();
 
-  float* oh = out + (static_cast<size_t>(b) * Hq + h) * Sq * D;
+  // each row's l, summed over its 8 lanes, to the P V lanes
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + rg * 4 + i;
-    if (qi >= Sq) continue;
-    const float safe = l[i] > 0.f ? l[i] : 1.f;
+    float lr = l[i];
+    lr += __shfl_xor_sync(kFull, lr, 1);
+    lr += __shfl_xor_sync(kFull, lr, 2);
+    lr += __shfl_xor_sync(kFull, lr, 4);
+    if (kg == 0) l_s[8 * rg + 4 * hf + i] = lr;
+  }
+  __syncwarp();
+  const float4 l_lo = *reinterpret_cast<const float4*>(l_s + 8 * ro);
+  const float4 l_hi = *reinterpret_cast<const float4*>(l_s + 8 * ro + 4);
+  float* oh = out + (static_cast<size_t>(b) * Hq + h) * Sq * D;
 #pragma unroll
-    for (int jj = 0; jj < D / 64; ++jj)
-      *reinterpret_cast<float4*>(oh + static_cast<size_t>(qi) * D + cg * 4 +
-                                 64 * jj) =
-          make_float4(acc[i][jj * 4 + 0] / safe, acc[i][jj * 4 + 1] / safe,
-                      acc[i][jj * 4 + 2] / safe, acc[i][jj * 4 + 3] / safe);
+  for (int i = 0; i < 8; ++i) {
+    const int qi = wq0 + ro + 2 * i;
+    if (qi >= Sq) continue;
+    const float lr = elem(i < 4 ? l_lo : l_hi, i & 3);
+    const float safe = lr > 0.f ? lr : 1.f;
+    float* orow = oh + static_cast<size_t>(qi) * D + 4 * cg;
+#pragma unroll
+    for (int jj = 0; jj < kGroups; ++jj)
+      *reinterpret_cast<float4*>(orow + 64 * jj) =
+          make_float4(acc[i][4 * jj + 0] / safe, acc[i][4 * jj + 1] / safe,
+                      acc[i][4 * jj + 2] / safe, acc[i][4 * jj + 3] / safe);
   }
 }
 
@@ -294,11 +454,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int kv_len, float softcap, float sm_scale,
                cudaStream_t stream) {
   const size_t smem = Tiles<D>::kBytes;
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  if (n_qt > 65535 || static_cast<long long>(B) * Hq > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       attn_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  const dim3 grid(B * Hq, n_qt);
   attn_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
@@ -342,22 +505,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>(lbo >> 4) << 16 |
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(fill ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // kRows rows of a head slice from row ``row0`` into a tile at shared

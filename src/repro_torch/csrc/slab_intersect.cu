@@ -56,7 +56,12 @@
 // Membership probe.  One warp per query walks the query's C candidate rows
 // (-1 skipped): each thread compares one uint4 of the row with w and one
 // __ballot_sync says whether any lane holds it; the walk stops at the first
-// hit.  Bound: bytes, one 512 B row per candidate row read.
+// hit.  Bound: bytes, one 512 B row per candidate row read.  After an L2
+// flush it is latency: the launch and the id load, then one row round trip
+// for a query whose later ids are -1.  Issuing every row of a query before
+// one ballot, with several queries a warp, ran no faster on the triangle
+// phase's call, whose thousands of warps overlap their round trips anyway
+// (tools/slab_variants.py --kernels hits, variant ``grouped``).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

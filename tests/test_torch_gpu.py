@@ -750,6 +750,71 @@ def test_probe_hits_matches_plain(cuda, undirected):
     assert bool(got[:Q // 2].all())
 
 
+#: kernel 8's edge cases (name, Q, C): C of 1, 3, 8, 13 and 40 (walks of
+#: one to 40 rows), -1 pads inside a row list, row ids at or past the pool
+#: (skipped), a hit only in a query's last row, no hit at all, and Q not a
+#: multiple of a block's queries
+PROBE_CASES = [("C=1", 1000, 1), ("C=3", 1000, 3), ("C=8", 1000, 8),
+               ("C=13", 500, 13), ("C=40", 300, 40),
+               ("pads inside", 777, 6), ("rows past S", 500, 4),
+               ("last row hits", 600, 5), ("no hit", 600, 8),
+               ("ragged Q", 37, 2)]
+
+
+def probe_inputs(name, Q, C, seed=0):
+    """int32 ``ws`` (Q,), ``rows`` (Q, C) and ``keys`` (1024, 128) of a
+    ``PROBE_CASES`` entry; ``rows`` with every id past the pool as -1 (what
+    the plain version, which reads every id it is given, takes); and the
+    answers planted, (Q,) bool: each key is in no row but where a hit is
+    planted."""
+    rng = np.random.default_rng(seed)
+    S = 1024
+    keys = rng.integers(0, 5000, (S, 128))
+    keys[::5, 100:] = EMPTY                           # row tails
+    rows = rng.integers(0, S, (Q, C))
+    ws = 10000 + np.arange(Q)                         # in no row yet
+    if name in ("last row hits", "no hit"):
+        rows[:, -1] = rng.permutation(S)[:Q]          # a row per query
+    else:
+        rows[rng.random((Q, C)) < 0.2] = -1
+    if name == "pads inside":
+        rows[:, 1:-1:2] = -1
+    if name == "rows past S":
+        rows[rng.random((Q, C)) < 0.3] = S + rng.integers(0, 1 << 30)
+        rows[::9, 0] = 2 ** 31 - 1
+    planted = np.zeros(Q, bool)
+    if name == "last row hits":
+        keys[rows[:, -1], rng.integers(0, 128, Q)] = ws
+        planted[:] = True
+    elif name != "no hit":
+        # a hit for every other query, in its first or last valid row, at
+        # a lane no other query's hit takes
+        used = np.zeros(S, np.int64)
+        for i in range(0, Q, 2):
+            valid = [r for r in rows[i] if 0 <= r < S]
+            if valid:
+                r = valid[-1] if i % 4 else valid[0]
+                keys[r, used[r]] = ws[i]
+                used[r] += 1
+                planted[i] = True
+    plain = np.where(rows < S, rows, -1)
+    return [a.astype(np.int32) for a in (ws, rows, keys, plain)] + [planted]
+
+
+@pytest.mark.parametrize("case", PROBE_CASES,
+                         ids=[c[0] for c in PROBE_CASES])
+def test_probe_hits_cases(cuda, case):
+    *arrays, planted = probe_inputs(*case)
+    ws, rows, keys, plain = (torch.from_numpy(a).to(cuda) for a in arrays)
+    before = runtime.LAUNCHES["probe_hits"]
+    got = probe_hits(ws, rows, keys)
+    want = probe_hits_torch(ws, plain, keys)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["probe_hits"] == before + 1
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), planted)
+
+
 def test_count_edges_on_card_matches_cpu(cuda, undirected):
     rng, _, lo, hi, (gc, gh) = undirected
     n = 4096
@@ -806,6 +871,14 @@ ATTN_CASES = [
     (1, 40, 40, 128, 128, 128, True, 0, 0.0, "bfloat16", {}),
     (1, 8, 1, 128, 128, 256, True, 0, 0.0, "bfloat16", {}),
     (1, 4, 2, 77, 77, 128, True, 40, 50.0, "bfloat16", {}),
+    # float32 at the CUDA-core kernel's tile edges (128-row query tiles, 16
+    # rows a warp, 32-key tiles): Sq and kv_len multiples of none of them,
+    # a window edge inside a key tile, GQA 4:1 at head_dim 256, Sq > Skv
+    (1, 4, 2, 200, 200, 128, True, 0, 0.0, "float32", {}),
+    (1, 2, 2, 150, 300, 64, False, 0, 30.0, "float32", {"kv_len": 201}),
+    (1, 2, 1, 300, 300, 128, True, 50, 50.0, "float32", {}),
+    (1, 8, 2, 160, 160, 256, True, 0, 50.0, "float32", {}),
+    (2, 4, 1, 300, 260, 64, True, 100, 0.0, "float32", {"kv_len": 250}),
 ]
 # gemma2-9b's attention at a card-sized length: bf16, head_dim 256, GQA
 # 16/8, a window and softcap 50, and a ragged length (not a tile multiple)

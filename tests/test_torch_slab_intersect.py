@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from _torch_port import assert_vectors_equal, ids, to_port
+from test_torch_gpu import PROBE_CASES, probe_inputs
 from test_triangle_stream import _und_graph
 
 from repro.algorithms import search_edges as jsearch_edges
@@ -171,6 +172,22 @@ def test_probe_hits_matches(Q, C, S):
     tr = torch.from_numpy(rows)
     for fn in (tsi.probe_hits_torch, tsi.probe_hits, tsi.probe_hits_ref):
         assert_vectors_equal(fn(tw, tr, tk), want, fn.__name__)
+
+
+@pytest.mark.parametrize("case", PROBE_CASES,
+                         ids=[c[0] for c in PROBE_CASES])
+def test_probe_hits_edge_cases(case):
+    """The plain probe against the reference's Pallas kernel on the card
+    test's edge cases (ids past the pool given to both as -1)."""
+    ws, _, keys, rows, planted = probe_inputs(*case)
+    want = jsi.probe_hits_pallas(
+        jnp.asarray(ws.view(np.uint32)), jnp.asarray(rows),
+        jnp.asarray(keys.view(np.uint32)), queries_per_block=128,
+        interpret=True)
+    got = tsi.probe_hits(torch.from_numpy(ws), torch.from_numpy(rows),
+                         torch.from_numpy(keys))
+    assert_vectors_equal(got, want, case[0])
+    assert np.array_equal(got.numpy(), planted)
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Read phase 5's decode gates at another seed on one CUDA card.
 
-    python3 tools/lm_gate.py --seed 1
+    python3 tools/lm_gate.py --seed 1 [--kernels-from DIR]
 
 Runs ``chip_smoke.lm_phase`` with gemma2-9b's weights and prompts drawn from
 ``--seed`` (``chip_smoke.py`` itself uses seed 0): the full-width bf16 serve,
@@ -9,7 +9,9 @@ its ``lm_check`` line (the clean decode against ``forward`` over 128 steps,
 and the first 16 steps again with the position and the ring slot off by
 one, in bf16 and in float32) and the kernel-10 lines.  Prints the card's
 name and power limit first and whether every gate held last; exits 1 when
-one failed.  Exits nonzero without a CUDA card.
+one failed.  ``--kernels-from DIR`` builds the kernels from the sources of
+another checkout (an unpacked earlier commit), so that the same phase
+times an earlier kernel.  Exits nonzero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ ROOT = Path(__file__).resolve().parents[1]
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--kernels-from", type=Path, default=None,
+                    help="build the kernels from this checkout's sources "
+                         "(an unpacked earlier commit) instead")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -34,6 +39,8 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.kernels import runtime
 
+    if args.kernels_from is not None:
+        runtime.CSRC = args.kernels_from / "src" / "repro_torch" / "csrc"
     print(cs.gpu_line(), flush=True)
     built = runtime.build(verbose=True)
     try:

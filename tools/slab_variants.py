@@ -10,8 +10,9 @@ checkout (an unpacked earlier commit) under the name ``parent``.  All are
 compiled in parallel into ``build/slab_variants/`` and loaded with ctypes.
 ``--kernels`` picks among ``sweep``, ``count`` (``slab_sweep.cu``,
 ``slab_intersect.cu``), ``probe``, ``commit`` (``slab_update.cu``),
-``chain`` (``slab_compact.cu``) and ``bag`` (``embedding_bag.cu``); the
-default is all six.  ``serve`` (with ``--parent``) also runs the serve of
+``chain`` (``slab_compact.cu``), ``hits`` (the membership probe of
+``slab_intersect.cu``) and ``bag`` (``embedding_bag.cu``); the default is
+all seven.  ``serve`` (with ``--parent``) also runs the serve of
 ``chip_smoke.SERVE_ARGS`` end to end from this checkout and from the
 parent's, each in its own process, in turns (parent, committed, committed,
 parent), and prints each request's latency.
@@ -42,6 +43,14 @@ with every entry parked (``parked_ms``: no store, no atomic), beside the
 plan's degree runs (``chip_smoke.degree_runs``).  These variants are called
 through their C entry points directly, since the parent's may take other
 arguments than the committed wrappers pass.
+
+The membership probe (``hits``) runs on 5,120 queries of the hashed
+symmetric view, half of them its edges, with each query's bucket chain as
+its candidate rows, as the triangle phase calls it; on the same queries
+with 8 random rows each; and on 256 of them with 8 random rows each (no
+caller sends so few: it shows where ``grouped`` gains): each variant's
+device time, L2 flushed before each call and warm.  ``grouped`` is the
+design tried and not kept (every row of a query read before one ballot).
 
 The bag runs on ``chip_smoke.bag_inputs`` (MIND's 2**21 x 64 table, float32
 and bfloat16; B = 512 and 65,536): each variant with the L2 warm and
@@ -413,7 +422,131 @@ _NO_PREFETCH = ("""#pragma unroll
                    my, mw);
 """)
 
+#: a design of the membership probe tried and not kept: G lanes a query
+#: (8, 16 or 32 from C), its row ids in one load, every row's quads issued
+#: before one ballot
+_HITS_GROUPED = [("""__global__ void probe_hits_kernel(const uint32_t* __restrict__ ws,
+                                  const int32_t* __restrict__ rows,
+                                  const uint32_t* __restrict__ keys,
+                                  uint8_t* __restrict__ out, int Q, int C,
+                                  int S) {
+  const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int t = threadIdx.x & 31;
+  if (q >= Q) return;  // uniform per warp
+  const uint32_t w = ws[q];
+  const int32_t* my_rows = rows + static_cast<size_t>(q) * C;
+  int hit = 0;
+  for (int c = 0; c < C && !hit; ++c) {
+    const int r = my_rows[c];
+    if (static_cast<unsigned>(r) >= static_cast<unsigned>(S)) continue;
+    hit = __ballot_sync(kFull, quad_has(row_quad(keys, r, t), w)) != 0;
+  }
+  if (t == 0) out[q] = static_cast<uint8_t>(hit);
+}
+""", """template <int G>
+__global__ void probe_hits_kernel(const uint32_t* __restrict__ ws,
+                                  const int32_t* __restrict__ rows,
+                                  const uint32_t* __restrict__ keys,
+                                  uint8_t* __restrict__ out, int Q, int C,
+                                  int S) {
+  constexpr int kQuads = 32 / G;  // quads of a row a lane reads
+  constexpr int kRows = G / 4;    // rows a step: 8 loads in flight a lane
+  const int lane = threadIdx.x & 31, j = lane % G, lead = lane - j;
+  const int64_t qq =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const bool active = qq < Q;
+  const int64_t q = active ? qq : 0;
+  const uint32_t w = active ? ws[q] : 0u;
+  const int32_t* my_rows = rows + q * C;
+  const unsigned gmask = (G == 32 ? kFull : (1u << G) - 1) << lead;
+  bool hit = false, done = false;
+  // every bound below is uniform over the warp, so are the shuffles
+  for (int c0 = 0; c0 < C && !done; c0 += G) {
+    const int n = min(G, C - c0);
+    const int id = active && j < n ? my_rows[c0 + j] : -1;
+    for (int r0 = 0; r0 < n; r0 += kRows) {
+      uint4 kv[kRows][kQuads];
+      bool ok[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = __shfl_sync(kFull, id, lead + min(r0 + r, G - 1));
+        ok[r] = r0 + r < n &&
+                static_cast<unsigned>(row) < static_cast<unsigned>(S);
+        if (ok[r]) {
+#pragma unroll
+          for (int k = 0; k < kQuads; ++k)
+            kv[r][k] = row_quad(keys, row, j + G * k);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (!ok[r]) continue;
+#pragma unroll
+        for (int k = 0; k < kQuads; ++k) hit |= quad_has(kv[r][k], w);
+      }
+      const unsigned found = __ballot_sync(kFull, hit);
+      done = __all_sync(kFull, !active || (found & gmask) != 0);
+      if (done) break;
+    }
+  }
+  hit = (__ballot_sync(kFull, hit) & gmask) != 0;
+  if (active && j == 0) out[q] = static_cast<uint8_t>(hit);
+}
+
+template <int G>
+void launch_probe_hits(const void* ws, const void* rows, const void* keys,
+                       void* out, int Q, int C, int S, cudaStream_t stream) {
+  constexpr int kQueriesPerBlock = kWarpsPerBlock * 32 / G;
+  const int blocks = static_cast<int>(
+      (static_cast<int64_t>(Q) + kQueriesPerBlock - 1) / kQueriesPerBlock);
+  probe_hits_kernel<G><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const uint32_t*>(ws), static_cast<const int32_t*>(rows),
+      static_cast<const uint32_t*>(keys), static_cast<uint8_t*>(out), Q, C,
+      S);
+}
+"""),
+                 ("""  if (Q > 0) {
+    const int blocks = (Q + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    probe_hits_kernel<<<blocks, kWarpsPerBlock * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(ws), static_cast<const int32_t*>(rows),
+        static_cast<const uint32_t*>(keys), static_cast<uint8_t*>(out), Q, C,
+        S);
+  }
+""", """  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Q > 0) {
+    // lanes a query: the fewest that read a query's rows in one step
+    if (C <= 2)
+      launch_probe_hits<8>(ws, rows, keys, out, Q, C, S, s);
+    else if (C <= 4)
+      launch_probe_hits<16>(ws, rows, keys, out, Q, C, S, s);
+    else
+      launch_probe_hits<32>(ws, rows, keys, out, Q, C, S, s);
+  }
+""")]
+_HITS_ONE_G = ("""    if (C <= 2)
+      launch_probe_hits<8>(ws, rows, keys, out, Q, C, S, s);
+    else if (C <= 4)
+      launch_probe_hits<16>(ws, rows, keys, out, Q, C, S, s);
+    else
+      launch_probe_hits<32>(ws, rows, keys, out, Q, C, S, s);
+""", """    launch_probe_hits<32>(ws, rows, keys, out, Q, C, S, s);
+""")
+
 VARIANTS.update({
+    ("hits", "committed"): ("the source as committed", []),
+    ("hits", "grouped"): (
+        "G lanes a query, every row read before one ballot",
+        _HITS_GROUPED),
+    ("hits", "grouped_warp"): (
+        "grouped, but 32 lanes a query whatever C",
+        _HITS_GROUPED + [_HITS_ONE_G]),
+    ("hits", "ids_only"): (
+        "(not the function) the row ids and keys read, no row",
+        [("    hit = __ballot_sync(kFull, quad_has(row_quad(keys, r, t), w)) "
+          "!= 0;\n",
+          "    hit = __ballot_sync(kFull, static_cast<uint32_t>(r) == w) != "
+          "0;\n")]),
     ("commit", "committed"): ("the source as committed", []),
     ("commit", "perlane"): (
         "an atomic a live entry, no run sums",
@@ -527,8 +660,9 @@ extern "C" int row_gather(const void* flat, int n, const void* table,
 
 #: kernel -> source
 SOURCES = {"sweep": "slab_sweep", "count": "slab_intersect",
-           "probe": "slab_update", "chain": "slab_compact",
-           "commit": "slab_update", "bag": "embedding_bag"}
+           "hits": "slab_intersect", "probe": "slab_update",
+           "chain": "slab_compact", "commit": "slab_update",
+           "bag": "embedding_bag"}
 
 
 def ptxas_summary(log: str) -> dict:
@@ -882,6 +1016,74 @@ def bag_variants(torch, np, cs, libs):
             "flushed_gather_GBps": n_bytes / flushed / 1e6}), flush=True)
 
 
+def hits_variants(torch, np, cs, libs, sym, src, dst):
+    """The membership probe's variants on the triangle phase's kind of
+    call: 5,120 (u, w) queries on the hashed symmetric view, half of them
+    edges of the graph, with each query's bucket chain as its candidate
+    rows (``materialize_chains`` to the pool's longest chain); on the
+    same queries with 8 random rows of the pool each (C = 8, almost all
+    misses); and on the first 256 of them with 8 random rows (too few
+    warps to hide one another's round trips).  Each is held to the plain
+    version exactly (but a variant that is not the function), then timed
+    with the L2 flushed before each call and warm, through the C entry
+    point."""
+    from repro_torch.core.slab_graph import pool_stats
+    from repro_torch.kernels.slab_intersect import probe_hits_torch
+    from repro_torch.kernels.slab_intersect.ops import materialize_chains
+
+    rng = np.random.default_rng(4)
+    n, V = 2560, int(sym.bucket_count.shape[0])
+    pick = rng.choice(len(src), n, replace=False)
+    qs = np.concatenate([src[pick], rng.integers(0, V, n)]).astype(np.uint32)
+    qd = np.concatenate([dst[pick], rng.integers(0, V, n)]).astype(np.uint32)
+    us, ws_all = (torch.from_numpy(a.view(np.int32).copy()).cuda()
+                  for a in (qs, qd))
+    mask = torch.ones(2 * n, dtype=torch.bool, device="cuda")
+    S = sym.keys.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = {
+        "bucket chains": materialize_chains(
+            sym, us, ws_all, mask, max_chain=pool_stats(sym)["max_chain"]),
+        "8 random rows": torch.randint(0, S, (2 * n, 8), generator=gen,
+                                       device="cuda", dtype=torch.int32),
+        "few queries": torch.randint(0, S, (256, 8), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    for case, rows in cases.items():
+        Q, C = rows.shape
+        ws = ws_all[:Q]
+        want = probe_hits_torch(ws, rows, sym.keys)
+        entries = {}
+        for key, lib in libs.items():
+            if key[0] != "hits":
+                continue
+            fn = lib.probe_hits
+            fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+            fn.restype = _I
+
+            def call(fn=fn, rows=rows, Q=Q, C=C):
+                out = torch.empty(Q, dtype=torch.bool, device="cuda")
+                rc = fn(ws.data_ptr(), rows.data_ptr(), sym.keys.data_ptr(),
+                        out.data_ptr(), Q, C, S,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise SystemExit(f"probe_hits launch failed: code {rc}")
+                return out
+            got = call()
+            torch.cuda.synchronize()
+            exact = not VARIANTS.get(key, ("",))[0].startswith("(not")
+            if exact and not torch.equal(got, want):
+                raise SystemExit(f"{key} differs from the plain version")
+            entries[key[1]] = call
+        print(json.dumps({"kernel": "probe_hits",
+                          "case": f"{case}: Q={Q}, C={C}",
+                          "hits": int(want.sum()),
+                          "valid_rows": int((rows >= 0).sum()),
+                          "flushed_ms": in_turns(torch, cs, entries, flush),
+                          "ms": in_turns(torch, cs, entries, None)}),
+              flush=True)
+
+
 def dense_items(g2, us, vs, emask, *, max_bpv):
     """The dense (edge, bucket) layout the parent's ops built: per slot the
     head slab of v's bucket (-1 = inactive) and u."""
@@ -911,7 +1113,8 @@ def sweep_and_count(torch, np, cs, libs, args, kernels):
     V = 1 << 20
     src, dst = synth.rmat_edges(V, 1 << 24, seed=0)
     src, dst, _ = dedup_pairs(src, dst)
-    fwd = from_edges_host(V, src, dst, hashing=False, device="cuda")
+    fwd = (from_edges_host(V, src, dst, hashing=False, device="cuda")
+           if "sweep" in kernels else None)
     sym = from_edges_host(V, np.concatenate([src, dst]),
                           np.concatenate([dst, src]), hashing=True,
                           device="cuda")
@@ -955,6 +1158,8 @@ def sweep_and_count(torch, np, cs, libs, args, kernels):
                 del a
             print(json.dumps(row), flush=True)
 
+    if "hits" in kernels:
+        hits_variants(torch, np, cs, libs, sym, src, dst)
     if "count" not in kernels:
         return
     # -- count ----------------------------------------------------------------
@@ -1137,7 +1342,7 @@ def main() -> int:
     if "bag" in kernels:
         bag_variants(torch, np, cs, libs)
         torch.cuda.empty_cache()
-    if kernels & {"sweep", "count"}:
+    if kernels & {"sweep", "count", "hits"}:
         sweep_and_count(torch, np, cs, libs, args, kernels)
     if "serve" in kernels:
         serve_turns(cs, args.parent)
