@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Six phases, each printing JSON lines (the third with the iterators
-phase after it):
+Six phases, each printing JSON lines (the third with the iterators and
+the durability phases after it):
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -60,6 +60,24 @@ phase after it):
    give the self-check's BFS distances.  Kernel 3 is held to its plain
    version on the int32 ``sum`` call with the largest frontier and timed as
    in phase 2; the phase prints each call's host-clock time.
+   Then **durability**, on host copies of the serve's views as booted (the
+   serve's device memory is not raised by them) and the serve's three
+   update batches, with the serve's maintenance policy (update 2
+   compacts): an uninterrupted twin registers PageRank, ``bfs_0``, ``wcc``
+   and ``sssp_0`` lazily and applies the three updates with no WAL.  For
+   each of ``apply.admitted`` (before the WAL append: the batch is lost
+   and fed again) and ``apply.post_wal`` (after it: the log recovers it)
+   a fresh store journals to a ``WriteAheadLog``, applies update 1, reads
+   the four properties, saves a checkpoint, applies update 2 (a
+   compaction), dies in update 3 under the fault, and ``recover``
+   (restore onto the card plus WAL replay, the compaction re-derived)
+   and re-feeding must give the twin's version, every pool leaf
+   ``torch.equal`` to the twin's, its maintenance count, BFS, SSSP and
+   WCC bit for bit, PageRank within ``DUR_PR_ATOL``, and an audit with no
+   violation.  A disk with less free space than three checkpoints fails
+   the phase.  Each site prints checkpoint bytes, save, restore and
+   recovery seconds, replay ms per record, WAL record bytes, and the
+   update latencies with the WAL beside the twin's.
 4. **triangles** - a second store on the same RMAT scale-20 graph, hashed,
    with the forward and symmetric views and a maintenance policy that
    compacts at a tombstone ratio of 0.0015, serves a live triangle count
@@ -156,6 +174,14 @@ TRI_TOMBSTONE_RATIO = 0.0015
 #: of the served forward view, with ITER_HUB edges out of the hub (vertex
 #: 0), ITER_PRESENT edges the graph holds and ITER_DUP in-batch repeats
 ITER_BATCH, ITER_HUB, ITER_PRESENT, ITER_DUP = 65536, 4096, 1024, 1024
+#: the durability phase: the two kill sites (before and after the WAL
+#: append), and PageRank against the twin's, max abs: both stop at an L1
+#: step <= 1e-5, and on the card the contributions are summed with float
+#: atomics (``index_add_``), so the recovered vector, warm-started from
+#: the checkpointed one, need not equal the twin's bit for bit
+DUR_SITES = ("apply.admitted", "apply.post_wal")
+DUR_PR_ATOL = 2e-5
+DUR_PROPS = ("pagerank", "bfs_0", "wcc", "sssp_0")
 #: the serve phase's kernels; the triangles phase adds the other two
 SERVE_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
                  "slab_chain_rank")
@@ -931,11 +957,13 @@ def check_maintenance(torch, np, out, want) -> list:
 # the iterators phase: the iterator API and its consumers on the served store
 # ----------------------------------------------------------------------------
 
-def clone_graph(g):
-    """A copy of a SlabGraph whose tensors the engine may mutate."""
+def clone_graph(g, device=None):
+    """A copy of a SlabGraph whose tensors the engine may mutate, on
+    ``device`` (the graph's own by default)."""
     from repro_torch.core.slab_graph import FIELDS
     return dataclasses.replace(g, **{
-        name: None if getattr(g, name) is None else getattr(g, name).clone()
+        name: None if getattr(g, name) is None
+        else getattr(g, name).to(device or g.device, copy=True)
         for name in FIELDS})
 
 
@@ -1184,6 +1212,258 @@ def iterators_phase(torch, np, out, want) -> dict:
           "bfs_sweep_launches": sweep_launches, "ms": ms,
           "seconds": time.perf_counter() - t_phase})
     return {"results": [row]}
+
+
+# ----------------------------------------------------------------------------
+# the durability phase: checkpoint, write-ahead log and crash recovery
+# ----------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def keeping_boot(stream_mod, kept: dict):
+    """Copy the serve's views to the host as booted: the serve builds its
+    ``RequestPipeline`` right after the boot, before any request."""
+    real = stream_mod.RequestPipeline
+
+    def pipeline(store, registry=None, **kw):
+        kept.update({name: clone_graph(g, "cpu")
+                     for name, g in store.views.items()})
+        return real(store, registry, **kw)
+
+    with swapped(stream_mod, RequestPipeline=pipeline):
+        yield kept
+
+
+#: flight-recorder events that end each phase of an apply, and the name of
+#: the phase's time in a durability line
+APPLY_PHASE_ENDS = {"store.capacity_grow": "grow_ms",
+                    "store.apply.post_wal": "wal_ms",
+                    "store.apply.dispatch": "engine_ms",
+                    "store.apply.close": "close_ms",
+                    "store.maintain": "maintain_ms"}
+
+
+def apply_phases_ms(since_ns: int) -> list:
+    """Each apply since ``since_ns`` split by the flight recorder (which
+    is always on): ms from admission to the end of capacity growth, then
+    to the end of the WAL append, of the engine, of the epoch close and of
+    a maintenance pass, each from the end of the phase before."""
+    from repro_torch.obs import flight
+    out = []
+    for e in flight.snapshot():
+        if e["ts_ns"] < since_ns:
+            continue
+        if e["event"] == "store.apply.admitted":
+            out.append({"version": e["a"] + 1})
+            last = e["ts_ns"]
+        elif out and e["event"] in APPLY_PHASE_ENDS:
+            out[-1][APPLY_PHASE_ENDS[e["event"]]] = (e["ts_ns"] - last) / 1e6
+            last = e["ts_ns"]
+    return out
+
+
+def durability_phase(torch, np, boot: dict, updates: list, *,
+                     device: str = "cuda") -> dict:
+    """The twin, then a kill, recovery and re-feed at each of DUR_SITES;
+    one ``durability`` line per site.  ``boot`` holds host copies of the
+    serve's booted views, ``updates`` the serve's first three update
+    batches (the second compacts on the serve's policy)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import resilience as rz
+    from repro_torch.algorithms import (bfs_stream_property,
+                                        pagerank_stream_property,
+                                        sssp_stream_property,
+                                        wcc_stream_property)
+    from repro_torch.core.slab_graph import FIELDS
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.resilience import faults
+    from repro_torch.stream import (GraphStore, MaintenancePolicy,
+                                    PropertyRegistry)
+
+    t_phase = time.perf_counter()
+    args = serve_mod.parse_args(SERVE_ARGS)
+    n_edges = int(boot["forward"].n_edges)
+    cap = n_edges + args.requests * args.batch + 4096
+
+    def policy():
+        return MaintenancePolicy(tombstone_ratio=args.tombstone_ratio)
+
+    def specs():
+        return [pagerank_stream_property(),
+                bfs_stream_property(0, edge_capacity=cap),
+                wcc_stream_property(),
+                sssp_stream_property(0, edge_capacity=cap)]
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def fresh():
+        views = {name: clone_graph(g, device) for name, g in boot.items()}
+        store = GraphStore(views, weighted=False, maintenance=policy())
+        registry = PropertyRegistry(store)
+        for spec in specs():
+            registry.register(spec)
+        return store, registry
+
+    def apply_ms(store, b):
+        t0 = time.perf_counter()
+        store.apply(b.ins_src, b.ins_dst, b.ins_w, b.del_src, b.del_dst)
+        sync()
+        return 1e3 * (time.perf_counter() - t0)
+
+    def read_all(registry):
+        out = {name: registry.read(name) for name in DUR_PROPS}
+        sync()
+        return out
+
+    runtime.reset_launches()
+    # -- the uninterrupted twin -------------------------------------------
+    twin, twin_reg = fresh()
+    update_ms, versions = [], []
+    t_ns = time.perf_counter_ns()
+    for k, b in enumerate(updates):
+        update_ms.append(apply_ms(twin, b))
+        versions.append(twin.version)
+        if k == 0:
+            read_all(twin_reg)        # the same reads as the killed runs
+    check(twin.maintenance_count >= 1,
+          "the twin's second update should compact on the policy")
+    twin_split = apply_phases_ms(t_ns)
+    want = read_all(twin_reg)
+
+    est = sum(g.nbytes() for g in twin.views.values())
+    rows = []
+    for site in DUR_SITES:
+        t_site = time.perf_counter()
+        root = Path(tempfile.mkdtemp(prefix="durability-"))
+        ck, wd = root / "ckpt", root / "wal"
+        free = shutil.disk_usage(root).free
+        check(free >= 3 * est, f"{root}: {free} bytes free, under three "
+              f"checkpoints' {3 * est} bytes")
+        try:
+            store, registry = fresh()
+            store.attach_wal(rz.WriteAheadLog(wd))
+            t_ns = time.perf_counter_ns()
+            ms_wal = [apply_ms(store, updates[0])]
+            read_all(registry)
+            t0 = time.perf_counter()
+            path = store.save(ck, registry=registry)
+            save_s = time.perf_counter() - t0
+            ckpt_bytes = sum(f.stat().st_size for f in path.iterdir())
+            # passes before the checkpoint (0 on the serve's policy): the
+            # restored store counts only the passes it replays
+            before = store.maintenance_count
+            ms_wal.append(apply_ms(store, updates[1]))
+            check(store.maintenance_count > before,
+                  f"{site}: update 2 should compact before the kill")
+            wal_split = apply_phases_ms(t_ns)
+            crashed = False
+            try:
+                with faults.inject(rz.FaultSpec(site, at=1)):
+                    b = updates[2]
+                    store.apply(b.ins_src, b.ins_dst, b.ins_w, b.del_src,
+                                b.del_dst)
+            except rz.InjectedCrash:
+                crashed = True
+            check(crashed, f"{site}: the injected crash never fired")
+            store.wal.close()
+            records, _ = rz.read_wal(wd)
+            record_bytes = [rz.wal._HEAD.size + 4 * (
+                (2 + (r.ins_w is not None)) * len(r.ins_src)
+                + 2 * len(r.del_src)) for r in records]
+            del store, registry
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+            timed = {}
+
+            class TimedRestore(GraphStore):
+                @classmethod
+                def restore(cls, *a, **kw):
+                    t = time.perf_counter()
+                    out = super().restore(*a, **kw)
+                    sync()
+                    timed["restore_s"] = time.perf_counter() - t
+                    return out
+
+            t0 = time.perf_counter()
+            t_ns = time.perf_counter_ns()
+            rec, rec_reg, report = rz.recover(
+                ck, wd, store_cls=TimedRestore, specs=specs(),
+                maintenance=policy(), device=device)
+            sync()
+            recover_s = time.perf_counter() - t0
+            replay_split = apply_phases_ms(t_ns)
+            check(not report.anomalies, f"{site}: {report.anomalies}")
+            check(report.crash_reason == f"injected_crash@{site}",
+                  f"{site}: recovery read {report.crash_reason!r}")
+            compactions = rec.maintenance_count
+            check(compactions >= 1,
+                  f"{site}: replay re-derived no compaction")
+            resume = versions.index(rec.version) + 1
+            for b in updates[resume:]:
+                rec.apply(b.ins_src, b.ins_dst, b.ins_w, b.del_src,
+                          b.del_dst)
+            sync()
+            check(rec.version == twin.version,
+                  f"{site}: recovered to v{rec.version}, twin "
+                  f"v{twin.version}")
+            for name, g in twin.views.items():
+                for f in FIELDS:
+                    a, b = getattr(rec.views[name], f), getattr(g, f)
+                    check((a is None and b is None) or (
+                        a.shape == b.shape and torch.equal(a, b)),
+                        f"{site}: recovered {name}.{f} differs from the "
+                        f"twin's")
+            check(before + rec.maintenance_count == twin.maintenance_count
+                  and rec._resilience_meta() == twin._resilience_meta(),
+                  f"{site}: maintenance counters differ from the twin's")
+            got = read_all(rec_reg)
+            for name in ("bfs_0", "sssp_0"):
+                check(torch.equal(got[name].dist, want[name].dist)
+                      and torch.equal(got[name].parent,
+                                      want[name].parent),
+                      f"{site}: recovered {name} differs from the twin's")
+            check(torch.equal(got["wcc"], want["wcc"]),
+                  f"{site}: recovered wcc differs from the twin's")
+            pr_err = float((got["pagerank"] - want["pagerank"]).abs().max())
+            check(pr_err <= DUR_PR_ATOL, f"{site}: PageRank {pr_err} from "
+                  f"the twin's, over {DUR_PR_ATOL}")
+            t0 = time.perf_counter()
+            audit = rz.audit_store(rec)
+            audit_s = time.perf_counter() - t0
+            check(audit.ok, f"{site}: audit found {audit.violations}")
+            replay_s = recover_s - timed["restore_s"]
+            row = {"phase": "durability", "site": site,
+                   "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+                   "restore_s": timed["restore_s"],
+                   "replayed": report.replayed,
+                   "replay_ms": 1e3 * replay_s / max(1, report.replayed),
+                   "recover_s": recover_s,
+                   "wal_record_bytes": record_bytes,
+                   "update_ms_wal": ms_wal, "update_ms": update_ms[:2],
+                   "wal_split_ms": wal_split[:2],
+                   "twin_split_ms": twin_split[:2],
+                   "replay_split_ms": replay_split,
+                   "audit_s": audit_s, "audit_checks": audit.checks_run,
+                   "compaction_replayed": compactions,
+                   "version": rec.version, "pagerank_max_abs": pr_err,
+                   "disk_free_bytes": free,
+                   "seconds": time.perf_counter() - t_site}
+            emit(row)
+            rows.append(row)
+            del rec, rec_reg, got
+            gc.collect()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    launches = dict(runtime.LAUNCHES)
+    emit({"phase": "durability", "twin_update_ms": update_ms,
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return {"rows": rows, "launches": launches}
 
 
 # ----------------------------------------------------------------------------
@@ -2300,6 +2580,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import numpy as np
 
+    import repro_torch.stream as stream_mod
     from repro_torch.kernels import runtime
     from repro_torch.launch import serve as serve_mod
 
@@ -2332,9 +2613,11 @@ def main() -> int:
 
     # ---------------------------------------------------------------- serve
     torch.cuda.reset_peak_memory_stats()
-    runtime.reset_launches()
-    out = serve_mod.main(SERVE_ARGS)
-    torch.cuda.synchronize()
+    boot = {}
+    with keeping_boot(stream_mod, boot):
+        runtime.reset_launches()
+        out = serve_mod.main(SERVE_ARGS)
+        torch.cuda.synchronize()
     launches = dict(runtime.LAUNCHES)
     store = out["store"]
     last = store.last_maintenance
@@ -2376,7 +2659,20 @@ def main() -> int:
     t0 = time.perf_counter()
     results += iterators_phase(torch, np, out, want)["results"]
     emit({"phase": "iterators", "seconds": time.perf_counter() - t0})
+    updates = [req for kind, req, _, _ in out["responses"]
+               if kind == "update"][:3]
     del out, want, store, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- durability
+    t0 = time.perf_counter()
+    durability_phase(torch, np, boot, updates)
+    for name in SERVE_KERNELS:
+        check(runtime.LAUNCHES[name] > 0,
+              f"{name} was never launched in the durability phase")
+    emit({"phase": "durability", "seconds": time.perf_counter() - t0})
+    del boot, updates
     gc.collect()
     torch.cuda.empty_cache()
 

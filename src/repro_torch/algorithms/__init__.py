@@ -5,11 +5,12 @@ packages an incremental maintainer for the stream registry."""
 from .bfs import (UNREACHED, bfs_decremental, bfs_incremental,
                   bfs_tree_static, bfs_vanilla)
 from .bfs import stream_property as bfs_stream_property
-from .pagerank import pagerank, pagerank_dynamic
+from .pagerank import pagerank, pagerank_dynamic, slab_contrib_sums_ref
 from .pagerank import stream_property as pagerank_stream_property
 from .sssp import (INF, NO_PARENT, TreeState, init_state, relax_edges,
                    relax_sweep, run_to_convergence, sssp_decremental,
-                   sssp_incremental, sssp_static)
+                   sssp_incremental, sssp_static, tree_state_like)
+from .sssp import stream_property as sssp_stream_property
 from .triangle import (batch_graph, count_kernel, search_edges,
                        triangles_decremental, triangles_incremental,
                        triangles_static, undirected_host)
@@ -22,10 +23,11 @@ from .wcc import stream_property as wcc_stream_property
 
 __all__ = ["UNREACHED", "bfs_decremental", "bfs_incremental",
            "bfs_tree_static", "bfs_vanilla", "bfs_stream_property",
-           "pagerank", "pagerank_dynamic",
+           "pagerank", "pagerank_dynamic", "slab_contrib_sums_ref",
            "pagerank_stream_property", "INF", "NO_PARENT", "TreeState",
            "init_state", "relax_edges", "relax_sweep", "run_to_convergence",
            "sssp_decremental", "sssp_incremental", "sssp_static",
+           "sssp_stream_property", "tree_state_like",
            "batch_graph", "count_kernel", "search_edges",
            "triangles_decremental", "triangles_incremental",
            "triangles_static", "undirected_host", "triangle_stream_property",

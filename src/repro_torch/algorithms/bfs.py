@@ -16,7 +16,8 @@ import torch
 from ..core.slab_graph import SlabGraph
 from ..kernels.slab_sweep.ops import sweep_vertices
 from .sssp import (TreeState, _expand_frontier, init_state,
-                   run_to_convergence, sssp_decremental, sssp_incremental)
+                   run_to_convergence, sssp_decremental, sssp_incremental,
+                   tree_state_like)
 
 #: the level of a vertex the search has not reached
 UNREACHED = 2 ** 30
@@ -92,7 +93,8 @@ def bfs_decremental(g: SlabGraph, state: TreeState, bsrc, bdst, bmask, *,
 def stream_property(src: int, *, edge_capacity: int, max_bpv: int = 1):
     """PropertySpec: the BFS tree from ``src``, maintained with the
     decremental then incremental SSSP engine on an unweighted store; the
-    convergence loop sweeps the store's transpose view."""
+    convergence loop sweeps the store's transpose view.  On a weighted
+    store register ``sssp.stream_property`` instead."""
     from ..stream.properties import PropertySpec
 
     def _init(store):
@@ -118,4 +120,4 @@ def stream_property(src: int, *, edge_capacity: int, max_bpv: int = 1):
         return state
 
     return PropertySpec(name=f"bfs_{src}", init=_init, on_batch=_on_batch,
-                        refresh=_init)
+                        refresh=_init, state_like=tree_state_like)

@@ -16,6 +16,15 @@ from ..core.slab_graph import SlabGraph
 from ..kernels.slab_sweep.ops import sweep_partials
 
 
+def slab_contrib_sums_ref(keys: torch.Tensor, valid: torch.Tensor,
+                          contrib: torch.Tensor) -> torch.Tensor:
+    """Per-slab sums of ``contrib`` over the valid lanes: the plain oracle
+    of the ``sum`` sweep's partials.  keys (S, 128) int32, valid (S, 128)
+    bool, contrib (V,) float32 -> (S,) float32."""
+    idx = torch.where(valid, keys, 0).long()
+    return torch.where(valid, contrib[idx], 0.0).sum(dim=1)
+
+
 def pagerank(g_in: SlabGraph, out_degree: torch.Tensor, *,
              init_pr: Optional[torch.Tensor] = None, damping: float = 0.85,
              error_margin: float = 1e-5,
@@ -75,4 +84,6 @@ def stream_property(*, damping: float = 0.85, error_margin: float = 1e-5,
     return PropertySpec(
         name="pagerank", init=lambda store: _run(store),
         on_batch=lambda store, state, batch: _run(store, init_pr=state),
-        refresh=lambda store: _run(store), collapse_replay=True)
+        refresh=lambda store: _run(store),
+        state_like=lambda n: torch.zeros(n, dtype=torch.float32),
+        collapse_replay=True)

@@ -218,3 +218,44 @@ def sssp_decremental(g: SlabGraph, state: TreeState, bsrc, bdst, bmask, *,
     return run_to_convergence(g, state, improved,
                               edge_capacity=edge_capacity, max_bpv=max_bpv,
                               g_in=g_in)
+
+
+def tree_state_like(n_vertices: int) -> TreeState:
+    """The checkpoint skeleton of a tree state: (float32, int32) planes."""
+    return TreeState(torch.zeros(n_vertices, dtype=torch.float32),
+                     torch.zeros(n_vertices, dtype=torch.int32))
+
+
+def stream_property(src: int, *, edge_capacity: int, max_bpv: int = 1,
+                    n_rounds: int = 32):
+    """PropertySpec: the ⟨distance, parent⟩ SSSP tree from ``src``.  A
+    batch's deletes run the decremental invalidate and re-seed path, its
+    inserts the incremental relaxation; both converge by sweeping the
+    store's transpose view.  Unweighted stores use unit weights."""
+    from ..stream.properties import PropertySpec
+
+    def _init(store):
+        state, _ = sssp_static(store.forward, src,
+                               edge_capacity=edge_capacity, max_bpv=max_bpv,
+                               g_in=store.transpose)
+        return state
+
+    def _on_batch(store, state, batch):
+        if batch.del_src is not None:
+            state, _ = sssp_decremental(store.forward, state, batch.del_src,
+                                        batch.del_dst, batch.del_mask,
+                                        src=src, edge_capacity=edge_capacity,
+                                        max_bpv=max_bpv, n_rounds=n_rounds,
+                                        g_in=store.transpose)
+        if batch.ins_src is not None:
+            w = (batch.ins_w if batch.ins_w is not None
+                 else torch.ones(batch.ins_src.shape[0], dtype=torch.float32,
+                                 device=batch.ins_src.device))
+            state, _ = sssp_incremental(store.forward, state, batch.ins_src,
+                                        batch.ins_dst, w, batch.ins_mask,
+                                        edge_capacity=edge_capacity,
+                                        max_bpv=max_bpv, g_in=store.transpose)
+        return state
+
+    return PropertySpec(name=f"sssp_{src}", init=_init, on_batch=_on_batch,
+                        refresh=_init, state_like=tree_state_like)

@@ -100,9 +100,10 @@ def triangles_static(g: SlabGraph, *, max_bpv: int = 4,
             break
         cap = min(cap * 2, cap_pool)
     else:
-        raise RuntimeError(f"triangle.compact: compact_edges still "
-                           f"overflows at cap {cap} after {attempts} "
-                           f"attempts")
+        from ..resilience.guard import RetryExhausted
+        raise RetryExhausted(
+            "triangle.compact", attempts,
+            RuntimeError(f"compact_edges still overflows at cap {cap}"))
 
     n = int(n)
     es = torch.nn.functional.pad(es, (0, chunk))   # windows never run short
@@ -329,5 +330,9 @@ def stream_property():
             return count + triangles_incremental(g, gb, lo, hi, keep, **kw)
         return count - triangles_decremental(g, gb, lo, hi, keep, **kw)
 
+    # an int64 total where the reference keeps a wrapping int32 one: a
+    # reference checkpoint's total is widened on restore
     return PropertySpec(name="triangles", init=_refresh, on_batch=_on_batch,
-                        refresh=_refresh)
+                        refresh=_refresh,
+                        state_like=lambda n: torch.zeros(
+                            (), dtype=torch.int64))

@@ -187,4 +187,5 @@ def stream_property(*, cap: Optional[int] = None):
         return labels
 
     return PropertySpec(name="wcc", init=_refresh, on_batch=_on_batch,
-                        refresh=_refresh)
+                        refresh=_refresh,
+                        state_like=lambda n: torch.zeros(n, dtype=torch.int32))

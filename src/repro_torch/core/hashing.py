@@ -29,6 +29,7 @@ EMPTY_KEY = -2
 TOMBSTONE_KEY = -3
 INVALID_VERTEX = -1
 INVALID_SLAB = -1
+INVALID_LANE = -1
 
 _KNUTH = 2654435761
 _MASK32 = 0xFFFFFFFF

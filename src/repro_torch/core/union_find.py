@@ -31,6 +31,11 @@ def compress(parent: torch.Tensor) -> torch.Tensor:
         parent = pp
 
 
+def find(parent: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Roots of a batch of vertices; ``parent`` must be compressed."""
+    return parent[v.long()]
+
+
 def union_batch(parent: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
     """Union the edges ``(u, v)`` where ``mask`` is set: hook the larger

@@ -1,5 +1,7 @@
-"""Synthetic data made with numpy from a seed: RMAT edge lists, LM token
-batches and recsys interaction batches."""
-from .synth import lm_batches, recsys_batches, rmat_edges
+"""Synthetic data made with numpy from a seed: RMAT and uniform edge lists,
+padded edge batches, LM token batches and recsys interaction batches."""
+from .synth import (edge_batches, lm_batches, recsys_batches, rmat_edges,
+                    uniform_edges)
 
-__all__ = ["lm_batches", "recsys_batches", "rmat_edges"]
+__all__ = ["edge_batches", "lm_batches", "recsys_batches", "rmat_edges",
+           "uniform_edges"]

@@ -6,7 +6,7 @@ draws in the same order, so one seed gives the same data in both packages.
 """
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -34,6 +34,38 @@ def rmat_edges(n_vertices: int, n_edges: int, *, seed: int = 0,
     dst %= n_vertices
     keep = src != dst
     return src[keep].astype(np.uint32), dst[keep].astype(np.uint32)
+
+
+def uniform_edges(n_vertices: int, n_edges: int, *, seed: int = 0,
+                  weighted: bool = False):
+    """``n_edges`` uniform draws over ``n_vertices``, self-loops dropped;
+    (src, dst) as uint32, and float32 weights in [0.1, 10) when
+    ``weighted``."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_vertices, n_edges).astype(np.uint32)
+    dst = rng.integers(0, n_vertices, n_edges).astype(np.uint32)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    if weighted:
+        return src, dst, rng.uniform(0.1, 10.0, len(src)).astype(np.float32)
+    return src, dst
+
+
+def edge_batches(src: np.ndarray, dst: np.ndarray, batch_size: int, *,
+                 pad_to: Optional[int] = None
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Fixed-shape batches of ``pad_to`` (default ``batch_size``) lanes:
+    uint32 src and dst padded with 0xFFFFFFFF, and the mask of real
+    lanes."""
+    cap = pad_to or batch_size
+    for i in range(0, len(src), batch_size):
+        s = src[i:i + batch_size]
+        d = dst[i:i + batch_size]
+        ps = np.full(cap, 0xFFFFFFFF, np.uint32)
+        pd = np.full(cap, 0xFFFFFFFF, np.uint32)
+        ps[:len(s)] = s
+        pd[:len(d)] = d
+        yield ps, pd, np.arange(cap) < len(s)
 
 
 def lm_batches(vocab_size: int, batch: int, seq_len: int, *,

@@ -8,6 +8,9 @@ and a ``RequestPipeline`` on one device.  With ``--maintain`` (the
 default) a ``MaintenancePolicy`` checks every closed epoch: once the
 tombstones reach ``--tombstone-ratio`` of the occupied lanes, both views
 compact (and may shrink) instead of growing for as long as the server runs.
+``--checkpoint DIR`` saves the store and its properties at the end;
+``--trace``, ``--metrics`` and ``--metrics-json`` arm the telemetry plane;
+``--evidence-dir`` writes a metrics and flight-recorder snapshot on exit.
 
     python -m repro_torch.launch.serve --device cuda --vertices 1048576 \\
         --initial-edges 16777216 --batch 65536 --requests 15
@@ -132,14 +135,62 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "epoch close)")
     ap.add_argument("--tombstone-ratio", type=float, default=0.2,
                     help="compaction trigger: dead/occupied lanes")
+    ap.add_argument("--checkpoint", default=None,
+                    help="directory to snapshot the store into at the end")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="arm the telemetry plane and write a Chrome "
+                         "trace-event JSON (open in Perfetto) on exit")
+    ap.add_argument("--metrics", action="store_true",
+                    help="arm the metrics registry and print the "
+                         "counter/histogram table on exit")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="also export the metrics registry summary as JSON")
+    ap.add_argument("--evidence-dir", default=None, metavar="DIR",
+                    help="write a metrics and flight-recorder snapshot into "
+                         "DIR on exit (atexit and SIGTERM)")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
+
+
+def _arm_evidence(evdir, log) -> None:
+    """Snapshot the metrics and the flight ring into ``evdir`` at exit,
+    and turn SIGTERM into an exit so that the snapshot still runs."""
+    import atexit
+    import json
+    import pathlib
+    import signal
+    import sys
+
+    from .. import obs
+    from ..obs import flight
+    evdir = pathlib.Path(evdir)
+    snapped = []
+
+    def snap():
+        if snapped:
+            return                    # atexit and SIGTERM may both call
+        snapped.append(True)
+        try:
+            evdir.mkdir(parents=True, exist_ok=True)
+            (evdir / "metrics.json").write_text(json.dumps(
+                obs.get_registry().summary(), indent=2, default=str))
+            flight.export_chrome_trace(evdir / "flight_trace.json")
+            (evdir / "flight_events.json").write_text(json.dumps(
+                {"stats": flight.stats(), "events": flight.snapshot()},
+                indent=2))
+            log(f"[serve] evidence snapshot -> {evdir}")
+        except Exception as e:        # evidence must never mask the exit
+            log(f"[serve] evidence snapshot failed: {e}")
+
+    atexit.register(snap)
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(128 + signum))
 
 
 def serve(args: argparse.Namespace, *, log=print) -> dict:
     """Boot the store and registry, serve the request stream; returns the
     store, registry, ledger, per-class latencies and the responses as
     ``(kind, request, response, kernel launches)``."""
+    from .. import obs
     from ..algorithms import (bfs_stream_property, pagerank_stream_property,
                               wcc_stream_property)
     from ..core.device import resolve_device
@@ -149,6 +200,10 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
                           RequestPipeline, dedup_pairs)
 
     dev = resolve_device(args.device)
+    if args.trace or args.metrics or args.metrics_json:
+        obs.enable()
+    if args.evidence_dir:
+        _arm_evidence(args.evidence_dir, log)
     rng = np.random.default_rng(args.seed)
     V = args.vertices
     t_boot = time.perf_counter()
@@ -190,6 +245,7 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
                     if n > before[k]}
         responses.append((kind, req, resp, launched))
         lat.setdefault(resp.kind, []).append(resp.latency_s)
+        obs.observe(f"serve.latency.{resp.kind}", resp.latency_s)
         log(f"[serve] req {i:03d} {kind:13s} {1e3 * resp.latency_s:8.1f}"
             f" ms  v{resp.version:<4d} {describe(resp)}"
             + "".join(f" {k}={n}" for k, n in launched.items()))
@@ -222,6 +278,20 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
                 else "never triggered")
         log(f"[serve] maintenance: {store.maintenance_count} passes, "
             f"last: {last}")
+    if args.checkpoint:
+        path = store.save(args.checkpoint, registry=registry)
+        log(f"[serve] checkpointed store+properties -> {path}")
+    if args.metrics:
+        log("[serve] --- metrics " + "-" * 47)
+        log(obs.get_registry().render_table())
+    if args.metrics_json:
+        obs.get_registry().export(args.metrics_json)
+        log(f"[serve] metrics -> {args.metrics_json}")
+    if args.trace:
+        path = obs.export_chrome_trace(
+            args.trace, counters=obs.get_registry().counters())
+        log(f"[serve] chrome trace -> {path} "
+            f"({len(obs.trace.events())} events)")
     return {"store": store, "registry": registry, "ledger": ledger,
             "responses": responses, "latency": latency, "boot_s": boot_s,
             "serve_s": elapsed, "generate_s": gen_s, "pool": st}

@@ -1,16 +1,38 @@
-"""Admission validation of raw update batches.
+"""Admission guards and overload protection for the serving path.
 
-Runs before ``canonical_batch``'s uint32 casts could wrap a negative id or
-truncate a float.  A bad batch raises :class:`QuarantinedBatch` with
-structured per-field reasons; the store has not moved.  ``src`` ids index
-bucket layouts and must be ``< n_vertices``; ``dst`` ids may exceed
-``n_vertices`` but must not collide with the reserved key sentinels.
+Three defenses, all host-side and state-free until they fire:
+
+* :func:`validate_batch` - admission validation of RAW update inputs, run
+  before ``canonical_batch``'s uint32 casts could wrap a negative id or
+  truncate a float.  A bad batch raises :class:`QuarantinedBatch` with
+  structured per-field reasons; the store has not moved.  ``src`` ids
+  index bucket layouts and must be ``< n_vertices``; ``dst`` ids may
+  exceed ``n_vertices`` but must not collide with the reserved key
+  sentinels.
+* :class:`RetryBudget` / :func:`run_with_retries` - bounded retries
+  around capacity growth.  Only :class:`InjectedOOM` is retried, as in the
+  reference; exhaustion raises :class:`RetryExhausted`.
+* :class:`CircuitBreaker` - trips after ``threshold`` consecutive apply
+  failures; while open the pipeline sheds update groups and serves
+  version-tagged stale property reads.  The cooldown counts shed groups,
+  not wall time, so runs replay deterministically.
 """
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+import time
+from typing import Any, Callable, List, Optional
 
 import numpy as np
+
+from .. import obs
+from ..obs import flight as _flight
+from .faults import InjectedOOM
+
+_FL_TRIP = _flight.intern("breaker.open")
+_FL_CLOSE = _flight.intern("breaker.closed")
+_FL_HALF = _flight.intern("breaker.half_open")
+_FL_SHED = _flight.intern("breaker.shed")
 
 #: dst ids the update plane reserves (uint32 key sentinels)
 _SENTINELS = (0xFFFFFFFD, 0xFFFFFFFE, 0xFFFFFFFF)
@@ -25,6 +47,17 @@ class QuarantinedBatch(Exception):
         bits = "; ".join(f"{r['field']}: {r['reason']} x{r['count']}"
                          for r in reasons)
         super().__init__(f"batch quarantined - {bits}")
+
+
+class RetryExhausted(Exception):
+    """A bounded retry loop ran out of budget."""
+
+    def __init__(self, site: str, attempts: int, last: Exception):
+        super().__init__(f"{site}: {attempts} attempts exhausted "
+                         f"(last: {last})")
+        self.site = site
+        self.attempts = attempts
+        self.last = last
 
 
 def _check_ids(reasons: List[dict], field: str, raw, *, n_vertices: int,
@@ -99,4 +132,99 @@ def validate_batch(ins_src, ins_dst, ins_w, del_src, del_dst, *,
             _check_ids(reasons, field, raw, n_vertices=n_vertices,
                        is_src=is_src)
     if reasons:
+        obs.emit_event("batch_quarantined", reasons=len(reasons))
+        obs.inc("guard.quarantined")
         raise QuarantinedBatch(reasons)
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryBudget:
+    """Bounded retry with backoff for transient allocation failures."""
+    max_attempts: int = 4
+    backoff_s: float = 0.0     # 0 keeps runs free of wall-clock waits
+    multiplier: float = 2.0
+
+
+def run_with_retries(fn: Callable[[], Any], *, budget: RetryBudget,
+                     site: str) -> Any:
+    """Run ``fn`` under the budget; only :class:`InjectedOOM` is retried.
+    Exhaustion raises :class:`RetryExhausted`."""
+    delay = budget.backoff_s
+    last: Optional[Exception] = None
+    for attempt in range(1, budget.max_attempts + 1):
+        try:
+            return fn()
+        except InjectedOOM as e:
+            last = e
+            obs.emit_event("retry", site=site, attempt=attempt)
+            obs.inc(f"guard.retry.{site}")
+            if delay:
+                time.sleep(delay)
+                delay *= budget.multiplier
+    raise RetryExhausted(site, budget.max_attempts, last)
+
+
+#: the failure classes the pipeline turns into error responses (an
+#: InjectedCrash is not among them: a simulated kill must unwind)
+PIPELINE_RECOVERABLE = (QuarantinedBatch, RetryExhausted, InjectedOOM)
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half_open"
+
+
+class CircuitBreaker:
+    """Count-based breaker over the pipeline's update path.
+
+    ``threshold`` consecutive apply failures trip it OPEN; while open every
+    update group is shed (``allow()`` False).  After ``cooldown`` shed
+    groups it goes HALF_OPEN and admits one probe: success closes it,
+    failure re-opens it and restarts the cooldown.
+    """
+
+    def __init__(self, *, threshold: int = 3, cooldown: int = 8):
+        if threshold < 1 or cooldown < 1:
+            raise ValueError("threshold and cooldown must be >= 1")
+        self.threshold = int(threshold)
+        self.cooldown = int(cooldown)
+        self.state = CLOSED
+        self.failures = 0          # consecutive failures while closed
+        self.trips = 0
+        self.shed_count = 0        # update groups shed in all
+        self._shed_since_trip = 0
+
+    def allow(self) -> bool:
+        """May the next update group run?  Call ``shed`` when it may not."""
+        if self.state == OPEN and self._shed_since_trip >= self.cooldown:
+            self.state = HALF_OPEN
+            obs.emit_event("breaker_half_open")
+            _flight.record(_FL_HALF)
+        return self.state != OPEN
+
+    def shed(self) -> None:
+        self.shed_count += 1
+        self._shed_since_trip += 1
+        obs.inc("breaker.shed")
+        _flight.record(_FL_SHED, self.shed_count)
+
+    def record_success(self) -> None:
+        if self.state != CLOSED:
+            obs.emit_event("breaker_closed")
+            _flight.record(_FL_CLOSE)
+        self.state = CLOSED
+        self.failures = 0
+
+    def record_failure(self) -> None:
+        self.failures += 1
+        if self.state == HALF_OPEN or self.failures >= self.threshold:
+            if self.state != OPEN:
+                self.trips += 1
+                obs.emit_event("breaker_open", failures=self.failures)
+                obs.inc("breaker.trips")
+                _flight.record(_FL_TRIP, self.failures)
+            self.state = OPEN
+            self._shed_since_trip = 0
+
+    def status(self) -> dict:
+        return {"state": self.state, "failures": self.failures,
+                "trips": self.trips, "shed": self.shed_count}

@@ -8,8 +8,14 @@
 * ``PropertyRead`` reads the registry (lazy properties catch up here).
 
 Every request gets a ``Response`` with the store version it observed and
-its latency; a malformed update batch comes back as a ``kind="error"``
-response and the pipeline serves the rest of the sequence.
+its latency.  Malformed requests and recoverable apply failures
+(``QuarantinedBatch``, ``RetryExhausted``, ``InjectedOOM``) come back as
+structured ``kind="error"`` responses and the pipeline serves the rest of
+the sequence; an ``InjectedCrash`` (a simulated kill) unwinds.  An
+optional ``CircuitBreaker`` sheds update groups after K consecutive apply
+failures; while it is open a ``PropertyRead`` serves the registry's
+``peek``, a version-tagged and possibly stale state, instead of forcing a
+catch-up through a failing store.
 """
 from __future__ import annotations
 
@@ -20,9 +26,20 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..resilience.guard import QuarantinedBatch
+from .. import obs
+from ..obs import flight as _flight
+from ..obs import postmortem as _postmortem
+from ..resilience.faults import InjectedCrash
+from ..resilience.guard import (OPEN, PIPELINE_RECOVERABLE, CircuitBreaker,
+                                QuarantinedBatch)
 from .properties import PropertyRegistry
 from .store import GraphStore
+
+# one flight code per request class: the black box records every served
+# request (class, latency ns, group size) even with metrics off
+_FL_REQ = {k: _flight.intern(f"pipeline.{k}")
+           for k in ("update", "member", "neighbors", "property",
+                     "error", "shed")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,9 +132,19 @@ class RequestPipeline:
     Latencies are taken after the device has finished the request's work."""
 
     def __init__(self, store: GraphStore,
-                 registry: Optional[PropertyRegistry] = None):
+                 registry: Optional[PropertyRegistry] = None, *,
+                 coalesce: bool = True, batch_membership: bool = True,
+                 breaker: Optional[CircuitBreaker] = None):
         self.store = store
         self.registry = registry
+        self.coalesce = coalesce
+        self.batch_membership = batch_membership
+        #: optional overload valve: updates shed while it is open, reads
+        #: serve version-tagged stale states
+        self.breaker = breaker
+        if breaker is not None:
+            # post-mortem bundles carry the breaker's state
+            _postmortem.register_breaker(breaker)
 
     def _sync(self) -> None:
         if self.store.device.type == "cuda":
@@ -143,6 +170,82 @@ class RequestPipeline:
             at += n
         return out
 
+    def _observe(self, kind: str, dt: float, group: int = 1) -> None:
+        """The flight record of one served request (always), and its
+        latency and counts (with metrics on)."""
+        _flight.record(_FL_REQ[kind], int(1e9 * dt), group)
+        if not obs.metrics.enabled():
+            return
+        obs.observe(f"pipeline.latency.{kind}", dt)
+        obs.inc(f"pipeline.requests.{kind}", group)
+        obs.inc(f"pipeline.dispatches.{kind}")
+        if group > 1:
+            obs.inc(f"pipeline.coalesced.{kind}", group - 1)
+
+    def _fail(self, exc: BaseException, dt: float) -> Response:
+        """Structured error response for one recoverable failure."""
+        payload: Dict[str, Any] = {"error": type(exc).__name__,
+                                   "detail": str(exc)}
+        if isinstance(exc, QuarantinedBatch):
+            payload["reasons"] = exc.reasons
+        obs.inc("pipeline.errors.update")
+        return Response("error", self.store.version, payload, dt)
+
+    def _run_updates(self, group: List[UpdateBatch]) -> List[Response]:
+        t0 = time.perf_counter()
+        if self.breaker is not None and not self.breaker.allow():
+            self.breaker.shed()
+            dt = time.perf_counter() - t0
+            self._observe("shed", dt, len(group))
+            payload = {"error": "circuit_open", "shed": True,
+                       "breaker": self.breaker.status()}
+            return [Response("error", self.store.version, payload, dt)
+                    for _ in group]
+        try:
+            with obs.span("pipeline.update", coalesced=len(group)):
+                payload = self._apply_updates(group)
+                self._sync()
+        except InjectedCrash:
+            raise                  # a simulated kill: nothing catches it
+        except PIPELINE_RECOVERABLE as e:
+            if self.breaker is not None:
+                self.breaker.record_failure()
+            dt = time.perf_counter() - t0
+            self._observe("error", dt, len(group))
+            return [self._fail(e, dt)] * len(group)
+        if self.breaker is not None:
+            self.breaker.record_success()
+        dt = time.perf_counter() - t0
+        self._observe("update", dt, len(group))
+        return [Response("update", self.store.version, payload, dt)
+                for _ in group]
+
+    def _read_property(self, name: str) -> Response:
+        t0 = time.perf_counter()
+        if self.registry is None:
+            return Response("error", self.store.version,
+                            {"error": "no_registry",
+                             "detail": "PropertyRead requires a "
+                                       "PropertyRegistry"},
+                            time.perf_counter() - t0)
+        if self.breaker is not None and self.breaker.state == OPEN:
+            # the store is shedding writes: serve the last good state,
+            # tagged with the version it holds for
+            value, version = self.registry.peek(name)
+            dt = time.perf_counter() - t0
+            self._observe("property", dt)
+            obs.inc("pipeline.stale_reads")
+            return Response("property", version,
+                            {"name": name, "value": value, "stale": True,
+                             "staleness": self.store.version - version}, dt)
+        with obs.span("pipeline.property", prop=name):
+            value = self.registry.read(name)
+            self._sync()
+        dt = time.perf_counter() - t0
+        self._observe("property", dt)
+        return Response("property", self.store.version,
+                        {"name": name, "value": value}, dt)
+
     def run(self, requests: Sequence[Request]) -> List[Response]:
         responses: List[Optional[Response]] = [None] * len(requests)
         i = 0
@@ -151,59 +254,42 @@ class RequestPipeline:
             j = i + 1
             t0 = time.perf_counter()
             if isinstance(r, UpdateBatch):
-                while (j < len(requests)
+                while (self.coalesce and j < len(requests)
                        and isinstance(requests[j], UpdateBatch)):
                     j += 1
-                try:
-                    payload = self._apply_updates(list(requests[i:j]))
-                    kind = "update"
-                except QuarantinedBatch as e:
-                    payload = {"error": type(e).__name__, "detail": str(e),
-                               "reasons": e.reasons}
-                    kind = "error"
-                self._sync()
-                dt = time.perf_counter() - t0
-                for k in range(i, j):
-                    responses[k] = Response(kind, self.store.version,
-                                            payload, dt)
+                responses[i:j] = self._run_updates(list(requests[i:j]))
             elif isinstance(r, MembershipQuery):
-                while (j < len(requests)
+                while (self.batch_membership and j < len(requests)
                        and isinstance(requests[j], MembershipQuery)):
                     j += 1
-                payloads = self._run_membership(list(requests[i:j]))
+                with obs.span("pipeline.member", merged=j - i):
+                    payloads = self._run_membership(list(requests[i:j]))
                 dt = time.perf_counter() - t0
+                self._observe("member", dt, j - i)
                 for k, p in zip(range(i, j), payloads):
                     responses[k] = Response("member", self.store.version,
                                             p, dt)
             elif isinstance(r, NeighborsQuery):
-                ef = self.store.neighbors(r.vertices,
-                                          out_capacity=r.out_capacity)
+                with obs.span("pipeline.neighbors"):
+                    ef = self.store.neighbors(r.vertices,
+                                              out_capacity=r.out_capacity)
                 n = int(ef.size)
                 payload = {"src": ef.src[:n].cpu().numpy(),
                            "dst": ef.dst[:n].cpu().numpy(),
                            "count": n, "overflow": bool(ef.overflow)}
+                dt = time.perf_counter() - t0
+                self._observe("neighbors", dt)
                 responses[i] = Response("neighbors", self.store.version,
-                                        payload, time.perf_counter() - t0)
+                                        payload, dt)
             elif isinstance(r, PropertyRead):
-                if self.registry is None:
-                    responses[i] = Response(
-                        "error", self.store.version,
-                        {"error": "no_registry",
-                         "detail": "PropertyRead requires a "
-                                   "PropertyRegistry"},
-                        time.perf_counter() - t0)
-                else:
-                    value = self.registry.read(r.name)
-                    self._sync()
-                    responses[i] = Response(
-                        "property", self.store.version,
-                        {"name": r.name, "value": value},
-                        time.perf_counter() - t0)
+                responses[i] = self._read_property(r.name)
             else:
+                obs.inc("pipeline.errors.unknown_request")
                 responses[i] = Response(
                     "error", self.store.version,
                     {"error": "unknown_request",
                      "detail": f"unsupported request type "
-                               f"{type(r).__name__}"}, 0.0)
+                               f"{type(r).__name__}",
+                     "request": type(r).__name__}, 0.0)
             i = j
         return responses

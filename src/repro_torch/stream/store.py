@@ -22,29 +22,52 @@ one versioned unit.  Per ``apply(inserts, deletes)``:
 
 The views mutate in place: a ``SlabGraph`` read from ``store.forward`` is
 valid until the next ``apply``.
+
+Resilience plane (all opt-in): the raw batch is validated at admission;
+with a ``WriteAheadLog`` attached the canonical batch is journaled (fsync)
+before the engine runs, and rolled back if the apply then fails short of a
+simulated kill; capacity growth runs under a ``RetryBudget``; every phase
+carries a named fault point and a flight-recorder event; an
+``AuditPolicy`` audits the pools on its cadence; ``save``/``restore``
+checkpoint the views, the property states and the maintenance counters,
+so ``resilience.recover`` (restore plus WAL replay) re-derives the crashed
+process's trajectory bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.batch import query_edges, update_views
 from ..core.device import resolve_device
 from ..core.hashing import INVALID_VERTEX, as_key_bits
-from ..core.slab_graph import (SlabGraph, ensure_capacity, from_edges_host,
-                               next_pow2, pool_stats, update_slab_pointers)
+from ..core.slab_graph import (FIELDS, SlabGraph, ensure_capacity,
+                               from_edges_host, next_pow2, pool_stats,
+                               update_slab_pointers)
 from ..core.worklist import EdgeFrontier, expand_vertices
 from ..kernels.slab_compact import compact, reclaim_free_slabs
-from ..resilience.guard import validate_batch
+from ..obs import flight as _flight
+from ..resilience import faults
+from ..resilience.guard import RetryBudget, run_with_retries, validate_batch
 
 FORWARD = "forward"
 TRANSPOSE = "transpose"
 SYMMETRIC = "symmetric"
 ALL_VIEWS = (FORWARD, TRANSPOSE, SYMMETRIC)
+
+# flight-recorder codes: each apply phase writes one ring event even with
+# tracing and metrics off, so a post-mortem shows the last phase cleared
+_FL_ADMIT = _flight.intern("store.apply.admitted")
+_FL_GROW = _flight.intern("store.capacity_grow")
+_FL_POST_WAL = _flight.intern("store.apply.post_wal")
+_FL_DISPATCH = _flight.intern("store.apply.dispatch")
+_FL_CLOSE = _flight.intern("store.apply.close")
+_FL_MAINTAIN = _flight.intern("store.maintain")
 
 
 def _pad_ids(a: np.ndarray, n: int, device) -> torch.Tensor:
@@ -142,6 +165,90 @@ class VersionedStoreBase:
         self._deletes_since_maint = 0
         #: one event per maintenance pass, bounded like the batch log
         self.maintenance_events: List[dict] = []
+        #: optional WriteAheadLog: every apply journals its canonical batch
+        #: (fsync) before the engine runs
+        self.wal = None
+        #: optional AuditPolicy: pool invariant audits every N epochs
+        self.audits = None
+        self._epochs_since_audit = 0
+        #: InvariantReport events, bounded like the batch log
+        self.audit_events: List[dict] = []
+        #: bounded retries of capacity growth
+        self.retry = RetryBudget()
+
+    # ----------------------------------------------------- resilience plane
+    def attach_wal(self, wal) -> "VersionedStoreBase":
+        """Journal every applied batch through ``wal``; with ``save`` and
+        ``resilience.recover`` a crash recovers exactly.  Returns self."""
+        self.wal = wal
+        return self
+
+    def attach_audits(self, policy) -> "VersionedStoreBase":
+        """Audit the pools on the policy's cadence.  Returns self."""
+        self.audits = policy
+        return self
+
+    def _wal_append(self, i_s, i_d, i_w, d_s, d_d):
+        """Journal the canonical batch for version + 1 (the version
+        ``_record_batch`` will assign); the rollback token, or None
+        without a WAL."""
+        if self.wal is None:
+            return None
+        with obs.span("store.apply.wal", version=self.version):
+            token = self.wal.append(self.version + 1, i_s, i_d, i_w,
+                                    d_s, d_d)
+        obs.inc("store.wal.appends")
+        return token
+
+    def audit(self, *, views=None, cross_view: bool = True):
+        """Run the pool invariant audit now; the ``InvariantReport`` (also
+        appended to ``audit_events``)."""
+        from ..resilience.invariants import audit_store
+        report = audit_store(self, views=views, cross_view=cross_view)
+        self.audit_events.append(report.as_event())
+        if len(self.audit_events) > self._log_capacity:
+            self.audit_events = self.audit_events[-self._log_capacity:]
+        return report
+
+    def _auto_audit(self) -> None:
+        """Epoch-close hook: audit on the AuditPolicy's cadence."""
+        if self.audits is None or not self.audits.every:
+            return
+        self._epochs_since_audit += 1
+        if self._epochs_since_audit < self.audits.every:
+            return
+        self._epochs_since_audit = 0
+        report = self.audit(views=self.audits.views,
+                            cross_view=self.audits.cross_view)
+        if not report.ok and self.audits.fail_fast:
+            from ..resilience.invariants import InvariantViolationError
+            raise InvariantViolationError(report)
+
+    def _dump_postmortem(self, exc: BaseException) -> None:
+        """Crash hook: write the post-mortem bundle beside the WAL (never
+        raises; skips the pipeline-recoverable failures)."""
+        from ..obs import postmortem
+        postmortem.on_apply_failure(self, exc)
+
+    def _resilience_meta(self) -> dict:
+        """The host counters a checkpoint carries, so that a recovered
+        store's maintenance triggers fire as the crashed one's would."""
+        return {"epochs_since_maint": int(self._epochs_since_maint),
+                "deletes_since_maint": int(self._deletes_since_maint),
+                "tombstone_base": int(self._tombstone_base),
+                "last_reserve": {k: int(v)
+                                 for k, v in self._last_reserve.items()}}
+
+    def _adopt_resilience_meta(self, meta: dict) -> None:
+        res = meta.get("resilience")
+        if not res:
+            return
+        self._epochs_since_maint = int(res.get("epochs_since_maint", 0))
+        self._deletes_since_maint = int(res.get("deletes_since_maint", 0))
+        self._tombstone_base = int(res.get("tombstone_base", 0))
+        self._last_reserve = {k: int(v)
+                              for k, v in res.get("last_reserve",
+                                                  {}).items()}
 
     def add_listener(self, fn: Callable[[AppliedBatch], None]) -> None:
         """Subscribe to applied batches (called with the epoch still open)."""
@@ -242,8 +349,10 @@ class VersionedStoreBase:
             stats = self.pool_stats(chains=False)
         scan_s = time.perf_counter() - t_scan
         t0 = time.perf_counter()
-        reports, reclaimed = self._maintain_views(
-            action, policy, shrink=policy.allow_shrink(stats))
+        with obs.span("store.maintain", version=self.version,
+                      action=action, trigger=trigger):
+            reports, reclaimed = self._maintain_views(
+                action, policy, shrink=policy.allow_shrink(stats))
         self._epochs_since_maint = 0
         self._deletes_since_maint = 0
         # compaction drops every tombstone; reclamation frees only wholly
@@ -270,6 +379,10 @@ class VersionedStoreBase:
         if len(self.maintenance_events) > self._log_capacity:
             self.maintenance_events = \
                 self.maintenance_events[-self._log_capacity:]
+        obs.emit_event("maintenance", **record.as_event())
+        obs.inc(f"store.maintain.{action}")
+        _flight.record(_FL_MAINTAIN, batch.version,
+                       record.slabs_reclaimed, record.capacity_after)
         return record
 
 
@@ -353,56 +466,122 @@ class GraphStore(VersionedStoreBase):
 
         Deletes apply first, then inserts; weighted stores default missing
         insert weights to 1.  Then the maintenance policy, if any, checks
-        the closed epoch.  Returns the ``AppliedBatch`` (also logged).
+        the closed epoch, and the audit policy, if any, audits it.  Returns
+        the ``AppliedBatch`` (also logged).
+
+        The raw inputs are validated at admission (``QuarantinedBatch``,
+        nothing moved); the canonical batch is journaled to an attached
+        WAL before the engine runs; capacity growth runs under the store's
+        ``RetryBudget``; the fault sites are ``apply.admitted``,
+        ``store.capacity_grow``, ``apply.post_wal``, ``apply.pre_close``
+        and ``apply.post_close``, in that order.
         """
         validate_batch(ins_src, ins_dst, ins_w, del_src, del_dst,
                        n_vertices=self.n_vertices)
-        i_s, i_d, i_w, d_s, d_d = canonical_batch(
-            ins_src, ins_dst, ins_w, del_src, del_dst,
-            weighted=self.weighted)
-        roles = tuple(v for v in ALL_VIEWS if v in self._views)
+        t0 = time.perf_counter()
+        epoch_span = obs.span("store.apply", version=self.version)
+        epoch_span.__enter__()
+        try:
+            with obs.span("store.apply.host_dedup"):
+                i_s, i_d, i_w, d_s, d_d = canonical_batch(
+                    ins_src, ins_dst, ins_w, del_src, del_dst,
+                    weighted=self.weighted)
+            faults.fault_point("apply.admitted", version=self.version)
+            _flight.record(_FL_ADMIT, self.version, len(i_s), len(d_s))
+            roles = tuple(v for v in ALL_VIEWS if v in self._views)
 
-        if len(i_s):
-            # an insert lane opens at most one slab
-            p = next_pow2(len(i_s))
-            for name in roles:
-                need = 2 * p + 64 if name == SYMMETRIC else p + 64
-                self._views[name] = ensure_capacity(self._views[name], need)
-                self._last_reserve[name] = need
+            if len(i_s):
+                # an insert lane opens at most one slab
+                p = next_pow2(len(i_s))
 
-        dels = ins = None
-        del_sj = del_dj = ins_sj = ins_dj = ins_wj = None
-        if len(d_s):
-            p = next_pow2(len(d_s))
-            del_sj = _pad_ids(d_s, p, self.device)
-            del_dj = _pad_ids(d_d, p, self.device)
-            dels = (del_sj, del_dj)
-        if len(i_s):
-            p = next_pow2(len(i_s))
-            ins_sj = _pad_ids(i_s, p, self.device)
-            ins_dj = _pad_ids(i_d, p, self.device)
-            ins_wj = _pad_f32(i_w, p, self.device)
-            ins = (ins_sj, ins_dj, ins_wj)
+                def _grow():
+                    faults.fault_point("store.capacity_grow",
+                                       version=self.version)
+                    for name in roles:
+                        need = 2 * p + 64 if name == SYMMETRIC else p + 64
+                        self._views[name] = ensure_capacity(
+                            self._views[name], need)
+                        self._last_reserve[name] = need
+                    _flight.record(_FL_GROW, self.version, p)
 
-        ins_mask = del_mask = None
-        n_inserted = n_deleted = 0
-        if ins is not None or dels is not None:
-            new_views, ins_mask, del_mask = update_views(
-                tuple(self._views[r] for r in roles), roles, ins, dels)
-            for r, g in zip(roles, new_views):
-                self._views[r] = g
-            if del_mask is not None:
-                n_deleted = int(del_mask.sum())
-            if ins_mask is not None:
-                n_inserted = int(ins_mask.sum())
+                with obs.span("store.apply.capacity"):
+                    run_with_retries(_grow, budget=self.retry,
+                                     site="store.capacity_grow")
 
-        batch = self._record_batch(
-            ins_src=ins_sj, ins_dst=ins_dj, ins_w=ins_wj, ins_mask=ins_mask,
-            del_src=del_sj, del_dst=del_dj, del_mask=del_mask,
-            n_inserted=n_inserted, n_deleted=n_deleted)
-        for name, g in self._views.items():
-            self._views[name] = update_slab_pointers(g)
+            dels = ins = None
+            del_sj = del_dj = ins_sj = ins_dj = ins_wj = None
+            if len(d_s):
+                p = next_pow2(len(d_s))
+                del_sj = _pad_ids(d_s, p, self.device)
+                del_dj = _pad_ids(d_d, p, self.device)
+                dels = (del_sj, del_dj)
+            if len(i_s):
+                p = next_pow2(len(i_s))
+                ins_sj = _pad_ids(i_s, p, self.device)
+                ins_dj = _pad_ids(i_d, p, self.device)
+                ins_wj = _pad_f32(i_w, p, self.device)
+                ins = (ins_sj, ins_dj, ins_wj)
+
+            # durability: journal the canonical batch, then run the engine
+            wal_token = self._wal_append(i_s, i_d, i_w, d_s, d_d)
+            faults.fault_point("apply.post_wal", version=self.version)
+            _flight.record(_FL_POST_WAL, self.version,
+                           0 if wal_token is None else 1)
+
+            try:
+                ins_mask = del_mask = None
+                n_inserted = n_deleted = 0
+                if ins is not None or dels is not None:
+                    with obs.span("store.apply.dispatch",
+                                  version=self.version, views=len(roles)):
+                        new_views, ins_mask, del_mask = update_views(
+                            tuple(self._views[r] for r in roles), roles,
+                            ins, dels)
+                        for r, g in zip(roles, new_views):
+                            self._views[r] = g
+                        if del_mask is not None:
+                            n_deleted = int(del_mask.sum())
+                        if ins_mask is not None:
+                            n_inserted = int(ins_mask.sum())
+                faults.fault_point("apply.pre_close", version=self.version)
+                _flight.record(_FL_DISPATCH, self.version,
+                               n_inserted, n_deleted)
+
+                with obs.span("store.apply.notify"):
+                    batch = self._record_batch(
+                        ins_src=ins_sj, ins_dst=ins_dj, ins_w=ins_wj,
+                        ins_mask=ins_mask, del_src=del_sj, del_dst=del_dj,
+                        del_mask=del_mask, n_inserted=n_inserted,
+                        n_deleted=n_deleted)
+                with obs.span("store.apply.epoch_close",
+                              sync=tuple(self._views.values())):
+                    for name, g in self._views.items():
+                        self._views[name] = update_slab_pointers(g)
+                faults.fault_point("apply.post_close", version=self.version)
+                _flight.record(_FL_CLOSE, batch.version,
+                               n_inserted, n_deleted)
+            except faults.InjectedCrash:
+                raise          # a simulated kill: the WAL record survives
+            except BaseException:
+                # the journaled batch never applied in this process and the
+                # caller sees the failure: drop the record, so that a later
+                # replay does not resurrect a rejected batch
+                if wal_token is not None:
+                    self.wal.rollback(wal_token)
+                raise
+            epoch_span.annotate(inserted=n_inserted, deleted=n_deleted)
+        except BaseException as e:
+            self._dump_postmortem(e)
+            raise
+        finally:
+            epoch_span.__exit__(None, None, None)
+        if obs.metrics.enabled():
+            obs.observe("store.apply", time.perf_counter() - t0)
+            obs.inc("store.apply.epochs")
+            obs.inc("store.apply.inserted", n_inserted)
+            obs.inc("store.apply.deleted", n_deleted)
         self._auto_maintain()
+        self._auto_audit()
         return batch
 
     # --------------------------------------------------------------- queries
@@ -432,3 +611,114 @@ class GraphStore(VersionedStoreBase):
                                _pad_ids(vertices, p, self.device), vmask,
                                out_capacity=next_pow2(out_capacity),
                                max_bpv=self._max_bpv)
+
+    # ------------------------------------------------------------ checkpoint
+    def save(self, ckpt_dir, step: Optional[int] = None, *, registry=None,
+             extra: Optional[dict] = None, keep_last: int = 3):
+        """Persist every view and the registered property states
+        atomically (``checkpoint.ckpt``, the reference's format).
+
+        The manifest's ``extra`` carries what ``restore`` needs to rebuild
+        the structure: each view's bucket count, the store version, each
+        property's version and the maintenance counters.  A checkpoint at
+        the current version retires the WAL segments it covers."""
+        from ..checkpoint import ckpt
+        step = self.version if step is None else int(step)
+        props = {} if registry is None else registry.states()
+        prop_versions = {} if registry is None else registry.versions()
+        meta = {
+            "stream_store": True,
+            "version": int(self.version),
+            "n_vertices": int(self.n_vertices),
+            "weighted": bool(self.weighted),
+            "views": {name: int(g.n_buckets)
+                      for name, g in self._views.items()},
+            "prop_versions": {k: int(v) for k, v in prop_versions.items()},
+            "resilience": self._resilience_meta(),
+        }
+        if extra:
+            meta.update(extra)
+        path = ckpt.save(ckpt_dir, step, {"views": dict(self._views),
+                                          "props": props}, extra=meta,
+                         keep_last=keep_last)
+        if self.wal is not None and step == self.version:
+            self.wal.truncate(self.version)
+        return path
+
+    @classmethod
+    def restore(cls, ckpt_dir, *, step: Optional[int] = None,
+                specs: Sequence = (),
+                policies: Optional[Dict[str, str]] = None,
+                log_capacity: int = 64, maintenance=None, device="cuda"):
+        """Rebuild ``(store, registry)`` from a checkpoint on ``device``
+        (``cuda`` unless the caller passes ``"cpu"``; raises without a
+        card).
+
+        ``specs`` must cover every property the checkpoint holds (their
+        ``state_like`` gives the skeleton); the maintainers resume from the
+        saved states and versions.  The registry is None when the
+        checkpoint holds no property and no spec was given.
+        ``maintenance=`` re-attaches the crashed process's policy; its
+        counters come from the manifest, so a WAL replay re-derives the
+        maintenance epochs exactly.  The views' skeleton is built from the
+        manifest alone (dtypes, no tensors), so nothing is allocated on the
+        device beyond the restored leaves.
+        """
+        from ..checkpoint import ckpt
+        from ..checkpoint.ckpt import CheckpointError
+        dev = resolve_device(device)
+        manifest = ckpt.read_manifest(ckpt_dir, step=step)
+        meta = manifest["extra"]
+        missing = [k for k in ("n_vertices", "weighted", "views",
+                               "prop_versions") if k not in meta]
+        if not meta.get("stream_store") or missing:
+            raise CheckpointError(
+                f"{ckpt_dir} step {manifest['step']} is not a GraphStore "
+                f"checkpoint (missing meta: "
+                f"{missing or ['stream_store']}) - it was saved by a "
+                "different layer or an incompatible version; pick another "
+                "step= or re-checkpoint")
+        V = int(meta["n_vertices"])
+        weighted = bool(meta["weighted"])
+
+        def view_like(n_buckets: int) -> SlabGraph:
+            dtypes = {f: torch.int32 for f in FIELDS}
+            dtypes.update(weights=torch.float32 if weighted else None,
+                          upd_flag=torch.bool, slab_new=torch.bool)
+            return SlabGraph(**dtypes, n_vertices=V,
+                             n_buckets=int(n_buckets), weighted=weighted)
+
+        like_views = {name: view_like(nb)
+                      for name, nb in meta["views"].items()}
+        spec_by_name = {s.name: s for s in specs}
+        like_props = {}
+        for name in meta["prop_versions"]:
+            spec = spec_by_name.get(name)
+            if spec is None or spec.state_like is None:
+                raise KeyError(
+                    f"checkpoint stores property {name!r}; pass its "
+                    f"PropertySpec (with a state_like) via specs= to "
+                    f"restore it")
+            like_props[name] = spec.state_like(V)
+        tree, _ = ckpt.restore(ckpt_dir, {"views": like_views,
+                                          "props": like_props},
+                               step=manifest["step"], device=dev)
+        store = cls(tree["views"], weighted=weighted,
+                    version=meta["version"], log_capacity=log_capacity,
+                    maintenance=maintenance)
+        store._adopt_resilience_meta(meta)
+
+        registry = None
+        if spec_by_name:
+            from .properties import PropertyRegistry
+            registry = PropertyRegistry(store)
+            policies = policies or {}
+            for name, spec in spec_by_name.items():
+                if name in tree["props"]:
+                    registry.register(spec,
+                                      policy=policies.get(name, "lazy"),
+                                      _state=tree["props"][name],
+                                      _version=meta["prop_versions"][name])
+                else:
+                    registry.register(spec, policy=policies.get(name, "lazy"))
+        return store, registry

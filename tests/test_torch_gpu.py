@@ -1035,3 +1035,97 @@ def test_lm_on_card_matches_cpu(cuda):
         logits, cache = card.decode_step(cache, toks[:, pos].to(cuda), pos)
         torch.testing.assert_close(logits, full[:, pos], atol=1e-4,
                                    rtol=1e-4)
+
+
+# ----------------------------------------------------------------------------
+# durability: checkpoint and crash recovery onto the card
+# ----------------------------------------------------------------------------
+
+DUR_V = 96
+DUR_SITES = ("apply.admitted", "store.capacity_grow", "apply.post_wal",
+             "apply.pre_close", "apply.post_close")
+
+
+def _dur_store(device):
+    from repro_torch.stream import GraphStore, MaintenancePolicy
+    rng = np.random.default_rng(3)
+    src = rng.integers(0, DUR_V, 400).astype(np.uint32)
+    dst = rng.integers(0, DUR_V, 400).astype(np.uint32)
+    return GraphStore.from_edges(
+        DUR_V, src, dst, device=device,
+        maintenance=MaintenancePolicy(tombstone_ratio=0.05))
+
+
+def _dur_stream(n):
+    """Random inserts, and deletes of seed edges, so the policy compacts
+    every second epoch."""
+    rng = np.random.default_rng(23)
+    s0 = np.random.default_rng(3).integers(0, DUR_V, (2, 400)) \
+        .astype(np.uint32)
+    return [(rng.integers(0, DUR_V, 60).astype(np.uint32),
+             rng.integers(0, DUR_V, 60).astype(np.uint32), None,
+             s0[0, 12 * t:12 * t + 12], s0[1, 12 * t:12 * t + 12])
+            for t in range(n)]
+
+
+def _assert_views_equal(a, b):
+    assert a.version == b.version
+    for name in b.views:
+        for f in FIELDS:
+            x, y = getattr(a.views[name], f), getattr(b.views[name], f)
+            assert (x is None and y is None) or (
+                x.shape == y.shape and torch.equal(x.cpu(), y.cpu())), \
+                (name, f)
+
+
+def test_checkpoint_save_restore_on_card(cuda, tmp_path):
+    from repro_torch.algorithms import wcc_stream_property
+    from repro_torch.stream import GraphStore, PropertyRegistry
+    store = _dur_store(cuda)
+    registry = PropertyRegistry(store)
+    registry.register(wcc_stream_property())
+    for b in _dur_stream(3):
+        store.apply(*b)
+    store.save(tmp_path, registry=registry)
+    got, reg2 = GraphStore.restore(tmp_path, specs=[wcc_stream_property()])
+    assert got.device.type == "cuda"
+    assert all(g.keys.is_cuda for g in got.views.values())
+    _assert_views_equal(got, store)
+    assert torch.equal(reg2.read("wcc"), registry.read("wcc"))
+    # and the same checkpoint restores on the CPU, leaf for leaf
+    host, _ = GraphStore.restore(tmp_path, specs=[wcc_stream_property()],
+                                 device="cpu")
+    _assert_views_equal(host, store)
+
+
+@pytest.mark.parametrize("site", DUR_SITES)
+def test_recover_onto_card_matches_twin(cuda, site, tmp_path):
+    from repro_torch import resilience as rz
+    from repro_torch.resilience import faults
+    from repro_torch.stream import MaintenancePolicy
+    batches = _dur_stream(8)
+    twin = _dur_store(cuda)
+    vers = []
+    for b in batches:
+        twin.apply(*b)
+        vers.append(twin.version)
+    assert twin.maintenance_count >= 2
+    store = _dur_store(cuda).attach_wal(rz.WriteAheadLog(tmp_path / "wal"))
+    with pytest.raises(rz.InjectedCrash):
+        for t, b in enumerate(batches):
+            if t == 2:
+                store.save(tmp_path / "ck")
+            if t == 5:
+                with faults.inject(rz.FaultSpec(site, at=1)):
+                    store.apply(*b)
+            else:
+                store.apply(*b)
+    store.wal.close()
+    rec, _, report = rz.recover(
+        tmp_path / "ck", tmp_path / "wal",
+        maintenance=MaintenancePolicy(tombstone_ratio=0.05))
+    assert rec.device.type == "cuda" and not report.anomalies
+    for b in batches[vers.index(rec.version) + 1:]:
+        rec.apply(*b)
+    _assert_views_equal(rec, twin)
+    assert rz.audit_store(rec).ok

@@ -1,6 +1,7 @@
 """The port runs without JAX: every module of ``repro_torch``, and
-``chip_smoke.py``, imports in a process where ``import jax`` and
-``import repro`` fail."""
+``chip_smoke.py``, imports in a process where ``import jax``, ``import
+repro``, ``import msgpack`` and ``import ml_dtypes`` fail (the card's
+machine has none of them)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +12,8 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["msgpack"] = None
+sys.modules["ml_dtypes"] = None
 sys.path[:0] = [sys.argv[1], sys.argv[2]]
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
@@ -19,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro")
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                    "ml_dtypes")
              and sys.modules[m] is not None)
 print(len(names), bad)
 """
