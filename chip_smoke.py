@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Six phases, each printing JSON lines (the third with the iterators and
-the durability phases after it):
+Six phases, each printing JSON lines (the third with the iterators, the
+durability and the sharded phases after it):
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -78,6 +78,27 @@ the durability phases after it):
    the phase.  Each site prints checkpoint bytes, save, restore and
    recovery seconds, replay ms per record, WAL record bytes, and the
    update latencies with the WAL beside the twin's.
+   Then **sharded**: the serve again with ``--shards 4 --health
+   --slo-update-ms 2000 --metrics --metrics-json``, a ``ShardedGraphStore``
+   of four shards on the card fed the same batches, with the launch counts
+   zeroed before and read after.  Before its first request the booted
+   symmetric view's triangles are counted (``triangles_sharded``, int64),
+   which must equal phase 4's static count.  The union of the shards' live
+   edges must be phase 3's edge set, the last BFS levels and WCC labels
+   equal phase 3's bit for bit, PageRank within ``DUR_PR_ATOL`` of it, the
+   membership answers equal; no shard pool row may hold a key after an
+   EMPTY lane, and ``audit_store`` must find nothing.  The health report
+   must sample every request class and be healthy at 2,000 ms; the kernel
+   summary must count one ``slab_update.update_shards`` dispatch an update
+   and, for every shard pool shape it swept, a steady ``sweep_vertices``
+   call no shorter than kernel 3's device time for the cheapest sweep at
+   that shape; the probe, commit, sweep, census, chain-walk and count
+   kernels must launch.  A planted SLO fault (a 1e-3 ms update target, a
+   breaker with ``burn_threshold`` 1.0) must shed the updates after the
+   first report.  One ``sharded`` line prints each request's ms beside
+   phase 3's, the route imbalance per update, the fixpoints' host reads
+   and instrumented waits per iteration, peak memory, the health report
+   and the kernel summary.
 4. **triangles** - a second store on the same RMAT scale-20 graph, hashed,
    with the forward and symmetric views and a maintenance policy that
    compacts at a tombstone ratio of 0.0015, serves a live triangle count
@@ -182,6 +203,16 @@ ITER_BATCH, ITER_HUB, ITER_PRESENT, ITER_DUP = 65536, 4096, 1024, 1024
 DUR_SITES = ("apply.admitted", "apply.post_wal")
 DUR_PR_ATOL = 2e-5
 DUR_PROPS = ("pagerank", "bfs_0", "wcc", "sssp_0")
+#: the sharded phase: the serve on SHARDS shards of one card, its update
+#: SLO (objective 0.9; property reads 4x, membership 1x), the kernels it
+#: must launch, and the seed of its planted SLO fault's batches
+SHARDS = 4
+SHARD_SLO_UPDATE_MS = 2000
+SHARD_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
+                 "slab_chain_rank", "slab_count")
+SHARD_FAULT_SEED = 5
+#: BFS levels of an unreached vertex (``algorithms.bfs.UNREACHED``)
+SHARD_UNREACHED = 2 ** 30
 #: the serve phase's kernels; the triangles phase adds the other two
 SERVE_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
                  "slab_chain_rank")
@@ -1467,6 +1498,261 @@ def durability_phase(torch, np, boot: dict, updates: list, *,
 
 
 # ----------------------------------------------------------------------------
+# the sharded phase: the serve on a ShardedGraphStore, health and kernel
+# instrumentation armed
+# ----------------------------------------------------------------------------
+
+def served_reference(torch, np, out) -> dict:
+    """Host copies of what phase 3's unsharded serve answered: its edge
+    ledger, each request's host-clock ms, and its last BFS (as int32
+    levels), WCC, PageRank and membership answers."""
+    last = {}
+    for kind, _, resp, _ in out["responses"]:
+        last[kind] = resp
+    dist = last["read:bfs_0"].payload["value"].dist
+    levels = torch.where(dist >= 1e29, SHARD_UNREACHED, dist).to(torch.int32)
+    return {"ledger": out["ledger"].keys.copy(),
+            "request_ms": [1e3 * resp.latency_s
+                           for _, _, resp, _ in out["responses"]],
+            "bfs_0": levels.cpu(),
+            "wcc": last["read:wcc"].payload["value"].cpu(),
+            "pagerank": last["read:pagerank"].payload["value"].cpu(),
+            "member": np.asarray(last["member"].payload["found"]).copy()}
+
+
+@contextlib.contextmanager
+def at_boot(stream_mod, fn):
+    """Call ``fn(store)`` on the serve's store as booted: the serve builds
+    its ``RequestPipeline`` right after the boot, before any request."""
+    real = stream_mod.RequestPipeline
+
+    def pipeline(store, registry=None, **kw):
+        fn(store)
+        return real(store, registry, **kw)
+
+    with swapped(stream_mod, RequestPipeline=pipeline):
+        yield
+
+
+def sharded_edge_keys(torch, sg):
+    """Sorted ``src << 32 | dst`` of every live lane over the shards, the
+    src ids made global again."""
+    from repro_torch.core.worklist import pool_edges
+    from repro_torch.distributed.sharded_graph import shard_slice
+
+    parts = []
+    for k in range(sg.n_shards):
+        g = shard_slice(sg, k)
+        rows, lanes = torch.nonzero(pool_edges(g).valid, as_tuple=True)
+        src = g.slab_vertex[rows].long() * sg.n_shards + k
+        parts.append((src << 32) | (g.keys[rows, lanes].long() & 0xFFFFFFFF))
+    return torch.sort(torch.cat(parts)).values
+
+
+def sweep_floor_ms(torch, store, shape: str) -> dict:
+    """Kernel 3's device time for the cheapest sweep the fixpoints make on
+    a shard pool of ``shape`` (``rows x 128``): the head rows only (every
+    sweep reads at least those), an all-inactive frontier, int32 ``min``."""
+    from repro_torch.kernels.slab_sweep.kernel import slab_sweep
+
+    for name, sg in store.views.items():
+        g = sg.graphs
+        if "x".join(str(d) for d in g.keys.shape[1:]) != shape:
+            continue
+        rows = g.n_buckets
+        keys, owner = g.keys[0, :rows], g.slab_vertex[0, :rows]
+        V = store.n_vertices
+        values = torch.zeros(V, dtype=torch.int32, device=keys.device)
+        frontier = torch.zeros(V, dtype=torch.bool, device=keys.device)
+        ms = device_ms(torch, lambda: slab_sweep(
+            keys, owner, values, None, frontier, None, semiring="min",
+            n_vertices=V))
+        return {"view": name, "rows": rows, "kernel_ms": ms}
+    raise SmokeFailure(f"no view of the sharded store has shard pools of "
+                       f"shape {shape}")
+
+
+def sharded_phase(torch, np, ref3: dict) -> dict:
+    """Serve the sharded configuration (SHARDS shards on the card) with the
+    health engine and the kernel instrumentation armed, hold it to phase
+    3's answers, plant an SLO fault, and count the booted symmetric view's
+    triangles; returns the launch counts and the triangle count."""
+    import tempfile
+
+    import repro_torch.stream as stream_mod
+    from repro_torch import obs
+    from repro_torch.distributed import sharded_graph
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.obs.health import HealthEngine, SLOTarget
+    from repro_torch.resilience import CircuitBreaker
+    from repro_torch.stream import UpdateBatch, canonical_batch
+
+    t_phase = time.perf_counter()
+    obs.reset()
+    sharded_graph.reset_fix_stats()
+    torch.cuda.reset_peak_memory_stats()
+    tri = {}
+
+    def count_triangles(store):
+        t0 = time.perf_counter()
+        tri["triangles"] = int(sharded_graph.triangles_sharded(
+            store.symmetric))
+        tri["triangles_s"] = time.perf_counter() - t0
+
+    args = SERVE_ARGS + ["--shards", str(SHARDS), "--health",
+                         "--slo-update-ms", str(SHARD_SLO_UPDATE_MS),
+                         "--metrics"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "metrics.json"
+        with at_boot(stream_mod, count_triangles):
+            runtime.reset_launches()
+            out = serve_mod.main(args + ["--metrics-json", str(path)])
+            torch.cuda.synchronize()
+        launches = dict(runtime.LAUNCHES)
+        metrics_json = json.loads(path.read_text())
+    peak = torch.cuda.max_memory_allocated()
+    summary = obs.kernel_summary()
+    obs.disable()
+    fix = dict(sharded_graph.FIX_STATS)
+    store, registry = out["store"], out["registry"]
+    check(store.n_shards == SHARDS, "the serve did not shard its store")
+    check(metrics_json.get("kernels") == summary,
+          "--metrics-json does not carry the kernel summary")
+
+    # the served state against phase 3's unsharded serve of the same batches
+    t0 = time.perf_counter()
+    check(np.array_equal(out["ledger"].keys, ref3["ledger"]),
+          "the sharded serve drew other batches than phase 3")
+    live = sharded_edge_keys(torch, store.forward)
+    want = torch.from_numpy(ref3["ledger"].astype(np.int64)).to(live.device)
+    check(live.numel() == want.numel() and torch.equal(live, want),
+          f"the shards hold {live.numel()} edges, phase 3's store "
+          f"{want.numel()}")
+    del live, want
+    last = {}
+    for kind, _, resp, _ in out["responses"]:
+        last[kind] = resp
+    bfs = last["read:bfs_0"].payload["value"].cpu()
+    check(torch.equal(bfs, ref3["bfs_0"]),
+          "sharded BFS levels differ from phase 3's")
+    wcc = last["read:wcc"].payload["value"].cpu()
+    check(torch.equal(wcc, ref3["wcc"]),
+          "sharded WCC labels differ from phase 3's")
+    pr_err = float((last["read:pagerank"].payload["value"].cpu()
+                    - ref3["pagerank"]).abs().max())
+    check(pr_err <= DUR_PR_ATOL, f"sharded PageRank {pr_err} from phase "
+          f"3's, above {DUR_PR_ATOL}")
+    check(np.array_equal(last["member"].payload["found"], ref3["member"]),
+          "sharded membership answers differ from phase 3's")
+    unpacked = unpacked_rows(torch, [sg.graphs.keys[k]
+                                     for sg in store.views.values()
+                                     for k in range(SHARDS)])
+    check(unpacked == 0, f"{unpacked} rows of the shard pools hold a key "
+          "after an EMPTY lane")
+    audit = store.audit()
+    check(audit.ok, f"audit of the sharded store: {audit.as_event()}")
+    check_s = time.perf_counter() - t0
+
+    # the health report of the serve: every class sampled, healthy
+    report = out["health_report"]
+    check(report is not None and all(c.samples > 0 for c in report.classes)
+          and {c.request_class for c in report.classes}
+          >= {"update", "property", "member"},
+          "the health report misses a request class")
+    check(report.healthy, f"the serve burned its SLOs at "
+          f"{SHARD_SLO_UPDATE_MS} ms: {report.as_dict()}")
+
+    # the kernel statistics: one update_shards dispatch an update served
+    updates = [req for kind, req, _, _ in out["responses"]
+               if kind == "update"]
+    calls = sum(k["calls"] for k in summary.values()
+                if k["family"] == "slab_update" and k["op"] == "update_shards")
+    check(calls == len(updates), f"{calls} update_shards dispatches for "
+          f"{len(updates)} updates")
+    floors = {}
+    for key, k in summary.items():
+        if k["op"] != "sweep_vertices" or not k["steady_calls"]:
+            continue
+        floor = sweep_floor_ms(torch, store, k["shape"])
+        steady_ms = 1e3 * k["steady_s"] / k["steady_calls"]
+        check(steady_ms >= floor["kernel_ms"],
+              f"{key}: {steady_ms} ms a steady call, under kernel 3's "
+              f"{floor['kernel_ms']} ms on the same pool")
+        floors[key] = {**floor, "steady_ms": steady_ms}
+    check(floors, "no steady sweep_vertices dispatch was recorded")
+    for name in SHARD_KERNELS:
+        check(launches[name] > 0,
+              f"{name} was never launched in the sharded phase")
+
+    # a planted SLO fault: a 1e-3 ms update target burns the budget, and a
+    # breaker with burn_threshold 1.0 sheds the updates after the report
+    rng = np.random.default_rng(SHARD_FAULT_SEED)
+    engine = HealthEngine([SLOTarget("update", latency_s=1e-6,
+                                     objective=0.9)], window=16)
+    breaker = CircuitBreaker(threshold=99, cooldown=8, burn_threshold=1.0)
+    pipe = stream_mod.RequestPipeline(store, registry, coalesce=False,
+                                      breaker=breaker, health=engine,
+                                      health_every=2)
+    batches = [rng.integers(0, store.n_vertices, (1024, 2)).astype(np.uint32)
+               for _ in range(6)]
+    resps = pipe.run([UpdateBatch(ins_src=b[:, 0], ins_dst=b[:, 1])
+                      for b in batches])
+    shed = [bool(r.payload.get("shed")) for r in resps]
+    check(breaker.burn_trips >= 1 and shed[:2] == [False, False]
+          and all(shed[2:]),
+          f"the planted SLO fault should trip after the first report and "
+          f"shed the rest: burn_trips {breaker.burn_trips}, shed {shed}")
+
+    imbalance = []
+    for req in updates:
+        i_s, _, _, d_s, _ = canonical_batch(req.ins_src, req.ins_dst, None,
+                                            req.del_src, req.del_dst,
+                                            weighted=False)
+        row = {}
+        for kind, a in (("ins", i_s), ("del", d_s)):
+            counts = np.bincount(a.astype(np.int64) % SHARDS,
+                                 minlength=SHARDS)
+            row[kind] = float(counts.max() / counts.mean())
+        imbalance.append(row)
+    sweeps = sum(k["calls"] for k in summary.values()
+                 if k["op"] == "sweep_vertices")
+    last_m = store.last_maintenance
+    emit({"phase": "sharded", "card": gpu_line(), "shards": SHARDS,
+          "boot_s": out["boot_s"], "serve_s": out["serve_s"],
+          "requests": [{"i": i, "kind": kind,
+                        "ms": 1e3 * resp.latency_s,
+                        "unsharded_ms": ref3["request_ms"][i],
+                        "launched": launched}
+                       for i, (kind, _, resp, launched)
+                       in enumerate(out["responses"])],
+          "latency": out["latency"],
+          "route_imbalance": imbalance,
+          "fixpoint": {"iterations": fix["iterations"],
+                       "host_reads": fix["host_reads"],
+                       "host_reads_per_iteration":
+                           fix["host_reads"] / max(1, fix["iterations"]),
+                       "instrumented_waits_per_iteration":
+                           sweeps / max(1, fix["iterations"])},
+          "max_memory_allocated": peak,
+          "pagerank_max_abs_err": pr_err,
+          "maintenance": {"passes": store.maintenance_count,
+                          "last": last_m.describe() if last_m else None,
+                          "events": store.maintenance_events},
+          "unpacked_rows": unpacked, "audit_checks": audit.checks_run,
+          "check_s": check_s,
+          "health": report.as_dict(),
+          "slo_fault": {"burn_trips": breaker.burn_trips, "shed": shed,
+                        "breaker": breaker.status()},
+          "kernel_summary": summary, "sweep_floor": floors,
+          "triangles_at_boot": tri["triangles"],
+          "triangles_s": tri["triangles_s"],
+          "kernels": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches, "triangles": tri["triangles"]}
+
+
+# ----------------------------------------------------------------------------
 # phase 4: live triangle counting on the symmetric view
 # ----------------------------------------------------------------------------
 
@@ -1538,10 +1824,17 @@ def triangle_requests(np, V, ledger, rng):
 
 
 def closure_keys(np, src, dst):
-    """Sorted ``pair_keys`` of the symmetric closure of (src, dst)."""
+    """Sorted ``pair_keys`` of the symmetric closure of (src, dst), as host
+    uint64.  Deduplicated by ``torch.unique`` on the card: the keys are
+    below 2**52, so their int64 order is their uint64 order, and numpy's
+    sort of 32 M keys took ~45 s on the H100 machine's host."""
+    import torch
+
     from repro_torch.launch.serve import pair_keys
-    return np.unique(np.concatenate([pair_keys(src, dst),
-                                     pair_keys(dst, src)]))
+    keys = np.concatenate([pair_keys(src, dst), pair_keys(dst, src)])
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.unique(torch.from_numpy(keys.view(np.int64)).to(dev)
+                        ).cpu().numpy().view(np.uint64)
 
 
 def check_boot_counts(torch, np, store, src, dst) -> dict:
@@ -1776,6 +2069,7 @@ def triangles_phase(torch, np) -> dict:
         static_s = time.perf_counter() - t0
         capture.stage = None
         mark("static count")
+        static_count = int(registry.read("triangles"))
         inserted = False
         for kind, req in triangle_requests(np, V, ledger, rng):
             capture.stage = ("delta" if kind == "read:triangles" and inserted
@@ -1876,7 +2170,8 @@ def triangles_phase(torch, np) -> dict:
                                                   c["args"][4])]
     results = compare_triangle_kernels(torch, capture.got,
                                        (tq[1], rows, g.keys), pools)
-    return {"launches": launches, "results": results}
+    return {"launches": launches, "results": results,
+            "static_count": static_count}
 
 
 # ----------------------------------------------------------------------------
@@ -2661,6 +2956,7 @@ def main() -> int:
     emit({"phase": "iterators", "seconds": time.perf_counter() - t0})
     updates = [req for kind, req, _, _ in out["responses"]
                if kind == "update"][:3]
+    ref3 = served_reference(torch, np, out)
     del out, want, store, last
     gc.collect()
     torch.cuda.empty_cache()
@@ -2676,12 +2972,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -------------------------------------------------------------- sharded
+    t0 = time.perf_counter()
+    sharded = sharded_phase(torch, np, ref3)
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t0})
+    del ref3
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------ triangles
     t0 = time.perf_counter()
     tri = triangles_phase(torch, np)
     results += tri["results"]
     launches.update({k: tri["launches"][k]
                      for k in ("slab_count", "probe_hits")})
+    check(sharded["triangles"] == tri["static_count"],
+          f"triangles_sharded counted {sharded['triangles']} on the booted "
+          f"sharded view, the triangles phase {tri['static_count']}")
     emit({"phase": "triangles", "seconds": time.perf_counter() - t0})
     del tri
     gc.collect()

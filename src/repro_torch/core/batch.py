@@ -10,8 +10,10 @@ from __future__ import annotations
 
 from ..kernels.slab_update.ops import (apply_update, delete_edges,
                                        insert_edges, query_edges,
+                                       query_shards, update_shards,
                                        update_views)
 from ..kernels.slab_update.ref import batch_valid, edge_buckets, probe
 
 __all__ = ["apply_update", "delete_edges", "insert_edges", "query_edges",
-           "update_views", "batch_valid", "edge_buckets", "probe"]
+           "query_shards", "update_shards", "update_views", "batch_valid",
+           "edge_buckets", "probe"]

@@ -202,6 +202,41 @@ def update_slab_pointers(g: SlabGraph) -> SlabGraph:
 
 
 # ============================================================================
+# Stacked pools: a leading shard axis on every tensor field
+# ============================================================================
+
+def stack_graphs(graphs) -> SlabGraph:
+    """One graph whose tensor fields stack ``graphs``' along a new leading
+    shard axis (every graph has the same shapes and metadata)."""
+    g0 = graphs[0]
+    return dataclasses.replace(g0, **{
+        f: (None if getattr(g0, f) is None
+            else torch.stack([getattr(g, f) for g in graphs]))
+        for f in FIELDS})
+
+
+def shard_view(graphs: SlabGraph, k: int) -> SlabGraph:
+    """Shard ``k`` of a stacked graph, its tensors views into the stacked
+    ones: the engine's in-place writes land in the stack."""
+    return dataclasses.replace(graphs, **{
+        f: None if getattr(graphs, f) is None else getattr(graphs, f)[k]
+        for f in FIELDS})
+
+
+def write_back(graphs: SlabGraph, k: int, g: SlabGraph) -> None:
+    """Copy into shard ``k`` of ``graphs`` every field the engine re-bound
+    on ``g`` (a ``shard_view`` it was handed) instead of writing in place;
+    the fields it wrote in place are the stack's already."""
+    for f in FIELDS:
+        t = getattr(g, f)
+        if t is None:
+            continue
+        dst = getattr(graphs, f)[k]
+        if t.data_ptr() != dst.data_ptr():
+            dst.copy_(t)
+
+
+# ============================================================================
 # Host-side bulk construction
 # ============================================================================
 

@@ -23,7 +23,10 @@ PyTorch scatter, as the reference leaves it to XLA.
 Both entry points run on a closed epoch and reset the epoch state.  They
 build new key pools (``compact``) or write the old one in place
 (``reclaim_free_slabs``): either way the graph passed in is consumed, and
-the caller threads the one that comes back.
+the caller threads the one that comes back.  ``compact_shards`` and
+``reclaim_shards`` do the same to shard-stacked pools, shard by shard;
+every compacted shard lands on one capacity, so the stack stays
+rectangular.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ import torch
 
 from ...core.device import resolve_impl
 from ...core.hashing import EMPTY_KEY, INVALID_SLAB, SLAB_WIDTH
-from ...core.slab_graph import SlabGraph, next_pow2
+from ...core.slab_graph import (SlabGraph, next_pow2, shard_view,
+                                stack_graphs, write_back)
+from ...obs.instrument import timed_dispatch
 from .kernel import chain_rank, chain_rank_torch, slab_live, slab_live_torch
 from .ref import (assemble, compact_ref, live_lane_mask, perm_of,
                   rebuild_links, recount_degrees, slab_of_rank)
@@ -122,6 +127,7 @@ def _pick_capacity(needed: int, current: int, n_buckets: int, *,
     return cap
 
 
+@timed_dispatch("slab_compact")
 def compact(g: SlabGraph, *, impl: str = "auto",
             capacity_slabs: Optional[int] = None, slack_slabs: int = 64,
             shrink: bool = True) -> Tuple[SlabGraph, CompactionReport]:
@@ -174,6 +180,7 @@ def _chain_tails(next_slab: torch.Tensor, n_buckets: int) -> torch.Tensor:
     return tail
 
 
+@timed_dispatch("slab_compact")
 def reclaim_free_slabs(g: SlabGraph) -> Tuple[SlabGraph, int]:
     """Unlink wholly dead overflow slabs and recycle them; ``(graph,
     n_reclaimed)``.
@@ -223,5 +230,57 @@ def reclaim_free_slabs(g: SlabGraph) -> Tuple[SlabGraph, int]:
     return g2, n_freed
 
 
-__all__ = ["IMPLS", "CompactionReport", "compact", "reclaim_free_slabs",
-           "slab_live", "chain_rank"]
+# ----------------------------------------------------------------------------
+# shard-stacked pools
+# ----------------------------------------------------------------------------
+
+@timed_dispatch("slab_compact")
+def compact_shards(graphs: SlabGraph, *, impl: str = "auto",
+                   capacity_slabs: Optional[int] = None,
+                   slack_slabs: int = 64, shrink: bool = True
+                   ) -> Tuple[SlabGraph, CompactionReport]:
+    """Compact a shard-stacked graph (a leading shard axis on every tensor
+    field).  Every shard lands on one power-of-two capacity, sized from
+    the largest survivor need over the shards, so the stack stays
+    rectangular.  The report sums over the shards; ``perm`` is
+    ``(n_shards, S_old)``.  Consumes ``graphs``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    if impl != "oracle":
+        resolve_impl(impl, graphs.keys)
+    shards = [shard_view(graphs, k) for k in range(graphs.keys.shape[0])]
+    plans = [_plan(g, plain=impl == "oracle") for g in shards]
+    counts_h = torch.stack([p[-1] for p in plans]).cpu()  # (n_shards, nb)
+    extra = ((counts_h + SLAB_WIDTH - 1) // SLAB_WIDTH - 1).clamp_min(0)
+    nb, old_cap = graphs.n_buckets, graphs.keys.shape[1]
+    needed = nb + int(extra.sum(dim=1).max())
+    cap = _pick_capacity(needed, old_cap, nb, capacity_slabs=capacity_slabs,
+                         slack_slabs=slack_slabs, shrink=shrink)
+    outs = [compact_ref(g, capacity_slabs=cap) if impl == "oracle"
+            else _commit(g, *plan, capacity_slabs=cap)
+            for g, plan in zip(shards, plans)]
+    old_next_free = int(graphs.next_free.max())
+    del shards, plans, graphs
+    g2 = stack_graphs([o[0] for o in outs])
+    report = CompactionReport(
+        perm=torch.stack([o[1] for o in outs]),
+        live_lanes=int(counts_h.sum()), live_slabs=needed,
+        old_capacity=old_cap, new_capacity=cap,
+        old_next_free=old_next_free, new_next_free=int(g2.next_free.max()))
+    return g2, report
+
+
+@timed_dispatch("slab_compact")
+def reclaim_shards(graphs: SlabGraph) -> Tuple[SlabGraph, int]:
+    """``reclaim_free_slabs`` on every shard of a stacked graph (the
+    capacity stays); ``(graphs, slabs reclaimed over all shards)``."""
+    total = 0
+    for k in range(graphs.keys.shape[0]):
+        g, n = reclaim_free_slabs.__wrapped__(shard_view(graphs, k))
+        write_back(graphs, k, g)
+        total += n
+    return graphs, total
+
+
+__all__ = ["IMPLS", "CompactionReport", "compact", "compact_shards",
+           "reclaim_free_slabs", "reclaim_shards", "slab_live", "chain_rank"]

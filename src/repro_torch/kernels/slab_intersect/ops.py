@@ -20,8 +20,8 @@ All are count-identical, since the sum is order-independent.  Totals are
 0-d int64 tensors: at the serve's RMAT scale-20 graph Σ|N(u) ∩ N(v)| = 6T
 is above 2**31, where the reference's int32 total wraps.
 
-The per-shard forms (``count_edges_local``, ``count_shards``) wait for the
-sharded plane.
+The per-shard forms: ``count_edges_local`` is the uninstrumented body,
+``count_shards`` counts every shard of stacked pools in turn.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ import torch
 
 from ...core.device import IMPLS as _DEVICE_IMPLS, resolve_impl
 from ...core.hashing import INVALID_SLAB
-from ...core.slab_graph import SlabGraph
+from ...core.slab_graph import SlabGraph, shard_view
+from ...obs.instrument import timed_dispatch
 from ..slab_update.ref import edge_buckets
 from .kernel import probe_hits, slab_count
 from .ref import count_edges_ref
@@ -60,6 +61,7 @@ def _work_items(g2: SlabGraph, us, vs, emask, *, max_bpv: int):
     return start, us[edge].to(torch.int32)
 
 
+@timed_dispatch("slab_intersect")
 def count_edges(g1: SlabGraph, g2: SlabGraph, us: torch.Tensor,
                 vs: torch.Tensor, emask: torch.Tensor, *, impl: str = "auto",
                 max_bpv: int = 4) -> torch.Tensor:
@@ -76,6 +78,22 @@ def count_edges(g1: SlabGraph, g2: SlabGraph, us: torch.Tensor,
     per_item = slab_count(g1.keys, g1.next_slab, g1.bucket_offset,
                           g1.bucket_count, g2.keys, g2.next_slab, start, u)
     return per_item.sum(dtype=torch.int64)
+
+
+#: the body without the instrumentation wrapper
+count_edges_local = count_edges.__wrapped__
+
+
+def count_shards(graphs1: SlabGraph, graphs2: SlabGraph, us: torch.Tensor,
+                 vs: torch.Tensor, emask: torch.Tensor, *,
+                 impl: str = "auto", max_bpv: int = 4) -> torch.Tensor:
+    """Shard-stacked ``count_edges``: a leading shard axis on every
+    argument, ``(n_shards,)`` int64 counts out.  ``us``, ``vs`` and
+    ``emask`` are ``(n_shards, B)`` per-shard work queues."""
+    return torch.stack([
+        count_edges_local(shard_view(graphs1, k), shard_view(graphs2, k),
+                          us[k], vs[k], emask[k], impl=impl, max_bpv=max_bpv)
+        for k in range(graphs1.keys.shape[0])])
 
 
 def _walk_chains(g: SlabGraph, cur: torch.Tensor, max_chain: int
@@ -125,5 +143,6 @@ def search_edges_kernel(g: SlabGraph, us: torch.Tensor, ws: torch.Tensor,
     return probe_hits(ws, rows, g.keys) & mask
 
 
-__all__ = ["IMPLS", "count_edges", "adjacency_rows", "materialize_chains",
+__all__ = ["IMPLS", "count_edges", "count_edges_local", "count_shards",
+           "adjacency_rows", "materialize_chains",
            "search_edges_kernel"]

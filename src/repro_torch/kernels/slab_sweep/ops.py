@@ -19,6 +19,7 @@ import torch
 
 from ...core.device import resolve_impl
 from ...core.slab_graph import SlabGraph
+from ...obs.instrument import timed_dispatch
 from .kernel import slab_sweep
 from .ref import SEMIRINGS, INT32_MAX
 
@@ -34,6 +35,7 @@ def _slice_rows(g: SlabGraph, rows: Optional[int]) -> SlabGraph:
         weights=None if g.weights is None else g.weights[:rows])
 
 
+@timed_dispatch("slab_sweep")
 def sweep_partials(g: SlabGraph, values: torch.Tensor, *, semiring: str,
                    frontier: Optional[torch.Tensor] = None,
                    target: Optional[torch.Tensor] = None,
@@ -62,6 +64,7 @@ def sweep_partials(g: SlabGraph, values: torch.Tensor, *, semiring: str,
                       n_vertices=g.n_vertices if n_keys is None else n_keys)
 
 
+@timed_dispatch("slab_sweep")
 def sweep_vertices(g: SlabGraph, values: torch.Tensor, *, semiring: str,
                    frontier: Optional[torch.Tensor] = None,
                    target: Optional[torch.Tensor] = None,

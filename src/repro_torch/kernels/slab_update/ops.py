@@ -22,6 +22,12 @@ bit patterns on the graph's device, padded with INVALID_VERTEX (-1).
 
 ``impl`` follows the tensors (``core.device.resolve_impl``): the kernels on
 CUDA, their plain versions on the CPU.
+
+The stacked shard plane (``update_shards``, ``query_shards``) takes a
+graph whose tensor fields carry a leading shard axis and runs the
+per-graph engine on each shard's views in turn (``core.slab_graph.
+shard_view``), so the in-place commits land in the stacked pools; the
+``*_local`` names are the uninstrumented per-graph bodies they run.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ import torch
 from ...core.device import resolve_impl
 from ...core.hashing import INVALID_SLAB, INVALID_VERTEX, SLAB_WIDTH, \
     TOMBSTONE_KEY
-from ...core.slab_graph import SlabGraph
+from ...core.slab_graph import SlabGraph, shard_view, write_back
+from ...obs.instrument import timed_dispatch
 from .kernel import slab_commit, slab_probe
 from .ref import _INT32_MAX, _scatter_drop, batch_valid, edge_buckets
 
@@ -68,6 +75,7 @@ def _classify(g: SlabGraph, src, dst):
 # engine bodies
 # ----------------------------------------------------------------------------
 
+@timed_dispatch("slab_update")
 def query_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor, *,
                 impl: str = "auto") -> torch.Tensor:
     """Batched membership query; invalid lanes (out-of-range src, sentinel
@@ -80,6 +88,7 @@ def query_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor, *,
     return found & valid
 
 
+@timed_dispatch("slab_update")
 def insert_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor,
                  w: Optional[torch.Tensor] = None, *, impl: str = "auto"
                  ) -> Tuple[SlabGraph, torch.Tensor]:
@@ -188,6 +197,7 @@ def insert_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor,
     return g, inserted
 
 
+@timed_dispatch("slab_update")
 def delete_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor, *,
                  impl: str = "auto") -> Tuple[SlabGraph, torch.Tensor]:
     """Batched delete (found lanes become TOMBSTONE); returns (graph,
@@ -208,6 +218,7 @@ def delete_edges(g: SlabGraph, src: torch.Tensor, dst: torch.Tensor, *,
     return g, deleted
 
 
+@timed_dispatch("slab_update")
 def apply_update(g: SlabGraph, ins_src=None, ins_dst=None, ins_w=None,
                  del_src=None, del_dst=None, *, impl: str = "auto"):
     """One mixed epoch, deletes before inserts; returns
@@ -221,6 +232,7 @@ def apply_update(g: SlabGraph, ins_src=None, ins_dst=None, ins_w=None,
     return g, ins_mask, del_mask
 
 
+@timed_dispatch("slab_update")
 def update_views(views: Tuple[SlabGraph, ...], roles: Tuple[str, ...],
                  ins=None, dels=None, *, impl: str = "auto"):
     """Apply one canonical batch to every view; deletes before inserts.
@@ -268,6 +280,56 @@ def update_views(views: Tuple[SlabGraph, ...], roles: Tuple[str, ...],
     return tuple(views), ins_mask, del_mask
 
 
+# ----------------------------------------------------------------------------
+# stacked shard plane: the engine on every shard of a leading shard axis
+# ----------------------------------------------------------------------------
+
+#: the per-graph bodies without the instrumentation wrapper
+query_edges_local = query_edges.__wrapped__
+insert_edges_local = insert_edges.__wrapped__
+delete_edges_local = delete_edges.__wrapped__
+
+
+@timed_dispatch("slab_update")
+def update_shards(graphs: SlabGraph, ins=None, dels=None, *,
+                  impl: str = "auto"):
+    """One mixed update epoch on a shard-stacked graph, deletes before
+    inserts, shard by shard.
+
+    ``graphs`` carries a leading shard axis on every tensor field;
+    ``ins`` is ``(src, dst, w | None)`` and ``dels`` ``(src, dst)``, each
+    ``(n_shards, cap)`` owner-routed batches (INVALID padding, src
+    shard-local, dst global).  Returns ``(graphs, inserted_mask | None,
+    deleted_mask | None)`` with ``(n_shards, cap)`` masks.  Consumes
+    ``graphs`` (the stacked pools are written in place).
+    """
+    ins_masks, del_masks = [], []
+    for k in range(graphs.keys.shape[0]):
+        g = shard_view(graphs, k)
+        if dels is not None:
+            g, m = delete_edges_local(g, dels[0][k], dels[1][k], impl=impl)
+            del_masks.append(m)
+        if ins is not None:
+            g, m = insert_edges_local(
+                g, ins[0][k], ins[1][k],
+                None if ins[2] is None else ins[2][k], impl=impl)
+            ins_masks.append(m)
+        write_back(graphs, k, g)
+    return (graphs, torch.stack(ins_masks) if ins is not None else None,
+            torch.stack(del_masks) if dels is not None else None)
+
+
+@timed_dispatch("slab_update")
+def query_shards(graphs: SlabGraph, src: torch.Tensor, dst: torch.Tensor,
+                 *, impl: str = "auto") -> torch.Tensor:
+    """Membership over a shard-stacked graph: ``(n_shards, cap)``
+    owner-routed queries to an ``(n_shards, cap)`` found mask."""
+    return torch.stack([
+        query_edges_local(shard_view(graphs, k), src[k], dst[k], impl=impl)
+        for k in range(graphs.keys.shape[0])])
+
+
 __all__ = ["FORWARD", "TRANSPOSE", "SYMMETRIC", "query_edges",
            "insert_edges", "delete_edges", "apply_update", "update_views",
-           "slab_probe", "slab_commit"]
+           "query_edges_local", "insert_edges_local", "delete_edges_local",
+           "update_shards", "query_shards", "slab_probe", "slab_commit"]

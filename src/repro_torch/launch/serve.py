@@ -8,16 +8,25 @@ and a ``RequestPipeline`` on one device.  With ``--maintain`` (the
 default) a ``MaintenancePolicy`` checks every closed epoch: once the
 tombstones reach ``--tombstone-ratio`` of the occupied lanes, both views
 compact (and may shrink) instead of growing for as long as the server runs.
-``--checkpoint DIR`` saves the store and its properties at the end;
-``--trace``, ``--metrics`` and ``--metrics-json`` arm the telemetry plane;
-``--evidence-dir`` writes a metrics and flight-recorder snapshot on exit.
+``--shards N`` (N > 1) serves a ``ShardedGraphStore`` instead: the same
+views vertex-partitioned into N shards on the one device, with the sharded
+PageRank, BFS and WCC properties.  ``--checkpoint DIR`` saves the store
+and its properties at the end (the unsharded store only); ``--trace``,
+``--metrics`` and ``--metrics-json`` arm the telemetry plane (the metrics
+output carries the kernel dispatch statistics); ``--health`` runs the SLO
+burn-rate engine in the pipeline (targets from ``--slo-update-ms``) and
+prints its reports; ``--evidence-dir`` writes a metrics and
+flight-recorder snapshot on exit.
 
     python -m repro_torch.launch.serve --device cuda --vertices 1048576 \\
         --initial-edges 16777216 --batch 65536 --requests 15
+    python -m repro_torch.launch.serve --device cpu --shards 4 --health \\
+        --metrics
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Optional
 
@@ -135,6 +144,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "epoch close)")
     ap.add_argument("--tombstone-ratio", type=float, default=0.2,
                     help="compaction trigger: dead/occupied lanes")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="vertex-partition the store into N shards on the "
+                         "one device (ShardedGraphStore)")
     ap.add_argument("--checkpoint", default=None,
                     help="directory to snapshot the store into at the end")
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -145,6 +157,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "counter/histogram table on exit")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="also export the metrics registry summary as JSON")
+    ap.add_argument("--health", action="store_true",
+                    help="run the SLO burn-rate HealthEngine inside the "
+                         "pipeline and print its reports")
+    ap.add_argument("--slo-update-ms", type=float, default=2000.0,
+                    help="--health: update-class latency SLO (objective "
+                         "0.9; member the same, property 4x)")
     ap.add_argument("--evidence-dir", default=None, metavar="DIR",
                     help="write a metrics and flight-recorder snapshot into "
                          "DIR on exit (atexit and SIGTERM)")
@@ -152,11 +170,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _metrics_summary() -> dict:
+    """The metrics registry's summary with the kernel dispatch statistics
+    under ``kernels``."""
+    from .. import obs
+    summary = obs.get_registry().summary()
+    summary["kernels"] = obs.kernel_summary()
+    return summary
+
+
 def _arm_evidence(evdir, log) -> None:
     """Snapshot the metrics and the flight ring into ``evdir`` at exit,
     and turn SIGTERM into an exit so that the snapshot still runs."""
     import atexit
-    import json
     import pathlib
     import signal
     import sys
@@ -173,7 +199,7 @@ def _arm_evidence(evdir, log) -> None:
         try:
             evdir.mkdir(parents=True, exist_ok=True)
             (evdir / "metrics.json").write_text(json.dumps(
-                obs.get_registry().summary(), indent=2, default=str))
+                _metrics_summary(), indent=2, default=str))
             flight.export_chrome_trace(evdir / "flight_trace.json")
             (evdir / "flight_events.json").write_text(json.dumps(
                 {"stats": flight.stats(), "events": flight.snapshot()},
@@ -188,8 +214,9 @@ def _arm_evidence(evdir, log) -> None:
 
 def serve(args: argparse.Namespace, *, log=print) -> dict:
     """Boot the store and registry, serve the request stream; returns the
-    store, registry, ledger, per-class latencies and the responses as
-    ``(kind, request, response, kernel launches)``."""
+    store, registry, ledger, per-class latencies, the health engine (or
+    None) and the responses as ``(kind, request, response, kernel
+    launches)``."""
     from .. import obs
     from ..algorithms import (bfs_stream_property, pagerank_stream_property,
                               wcc_stream_property)
@@ -197,7 +224,9 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
     from ..data.synth import rmat_edges
     from ..kernels.runtime import LAUNCHES
     from ..stream import (GraphStore, MaintenancePolicy, PropertyRegistry,
-                          RequestPipeline, dedup_pairs)
+                          RequestPipeline, ShardedGraphStore, dedup_pairs,
+                          sharded_bfs_property, sharded_pagerank_property,
+                          sharded_wcc_property)
 
     dev = resolve_device(args.device)
     if args.trace or args.metrics or args.metrics_json:
@@ -211,21 +240,41 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
     src, dst, _ = dedup_pairs(src, dst)
     policy = (MaintenancePolicy(tombstone_ratio=args.tombstone_ratio)
               if args.maintain else None)
-    # pagerank, bfs and wcc read only the forward and transpose views
-    store = GraphStore.from_edges(
-        V, src, dst, hashing=False, with_symmetric=False,
-        slack_slabs=args.requests * args.batch // 64 + 512,
-        maintenance=policy, device=dev)
-    registry = PropertyRegistry(store)
-    cap = len(src) + args.requests * args.batch + 4096
-    registry.register(pagerank_stream_property(), policy=args.policy)
-    registry.register(bfs_stream_property(0, edge_capacity=cap),
-                      policy=args.policy)
-    registry.register(wcc_stream_property(), policy=args.policy)
+    if args.shards > 1:
+        # the same views, vertex-partitioned; the analytics run as sharded
+        # sweep super-steps
+        store = ShardedGraphStore.from_edges(V, args.shards, src, dst,
+                                             maintenance=policy, device=dev)
+        registry = PropertyRegistry(store)
+        registry.register(sharded_pagerank_property(), policy=args.policy)
+        registry.register(sharded_bfs_property(0), policy=args.policy)
+        registry.register(sharded_wcc_property(), policy=args.policy)
+    else:
+        # pagerank, bfs and wcc read only the forward and transpose views
+        store = GraphStore.from_edges(
+            V, src, dst, hashing=False, with_symmetric=False,
+            slack_slabs=args.requests * args.batch // 64 + 512,
+            maintenance=policy, device=dev)
+        registry = PropertyRegistry(store)
+        cap = len(src) + args.requests * args.batch + 4096
+        registry.register(pagerank_stream_property(), policy=args.policy)
+        registry.register(bfs_stream_property(0, edge_capacity=cap),
+                          policy=args.policy)
+        registry.register(wcc_stream_property(), policy=args.policy)
     boot_s = time.perf_counter() - t_boot
-    log(f"[serve] boot: V={V} E={store.n_edges} device={dev} "
-        f"({boot_s:.1f}s)")
-    pipeline = RequestPipeline(store, registry)
+    log(f"[serve] boot: V={V} E={store.n_edges} shards={args.shards} "
+        f"device={dev} ({boot_s:.1f}s)")
+    health = None
+    if args.health:
+        from ..obs.health import HealthEngine, SLOTarget
+        slo_s = args.slo_update_ms / 1e3
+        health = HealthEngine(
+            [SLOTarget("update", latency_s=slo_s, objective=0.9),
+             SLOTarget("property", latency_s=4 * slo_s, objective=0.9),
+             SLOTarget("member", latency_s=slo_s, objective=0.9)],
+            window=128)
+    pipeline = RequestPipeline(store, registry, health=health,
+                               health_every=8)
 
     ledger = EdgeLedger(src, dst)
     lat = {}
@@ -249,6 +298,11 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
         log(f"[serve] req {i:03d} {kind:13s} {1e3 * resp.latency_s:8.1f}"
             f" ms  v{resp.version:<4d} {describe(resp)}"
             + "".join(f" {k}={n}" for k, n in launched.items()))
+        if health is not None and (i + 1) % 10 == 0:
+            r = health.report()
+            log(f"[serve] health: {'OK' if r.healthy else 'BURNING'} "
+                f"worst_burn={r.worst_burn:.2f} "
+                f"({r.worst_burn_class or '-'})")
         t_gen = time.perf_counter()
     elapsed = time.perf_counter() - t0
     log(f"[serve] {args.requests} requests in {elapsed:.1f}s "
@@ -278,14 +332,31 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
                 else "never triggered")
         log(f"[serve] maintenance: {store.maintenance_count} passes, "
             f"last: {last}")
+    report = None
+    if health is not None:
+        report = health.report()
+        for line in report.render().splitlines():
+            log(f"[serve] {line}")
     if args.checkpoint:
-        path = store.save(args.checkpoint, registry=registry)
-        log(f"[serve] checkpointed store+properties -> {path}")
+        if args.shards > 1:
+            log("[serve] --checkpoint is not wired for sharded stores yet")
+        else:
+            path = store.save(args.checkpoint, registry=registry)
+            log(f"[serve] checkpointed store+properties -> {path}")
     if args.metrics:
         log("[serve] --- metrics " + "-" * 47)
         log(obs.get_registry().render_table())
+        ks = obs.kernel_summary()
+        if ks:
+            log("[serve] --- kernel dispatch stats " + "-" * 33)
+            for key, k in sorted(ks.items()):
+                steady = k["steady_s"] / max(1, k["steady_calls"])
+                log(f"[serve] {key:44s} calls={k['calls']:<5d} "
+                    f"compile={k['compile_s']:.3f}s "
+                    f"steady={1e3 * steady:.2f}ms bytes={k['bytes']}")
     if args.metrics_json:
-        obs.get_registry().export(args.metrics_json)
+        with open(args.metrics_json, "w") as f:
+            json.dump(_metrics_summary(), f, indent=2, default=str)
         log(f"[serve] metrics -> {args.metrics_json}")
     if args.trace:
         path = obs.export_chrome_trace(
@@ -294,7 +365,8 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
             f"({len(obs.trace.events())} events)")
     return {"store": store, "registry": registry, "ledger": ledger,
             "responses": responses, "latency": latency, "boot_s": boot_s,
-            "serve_s": elapsed, "generate_s": gen_s, "pool": st}
+            "serve_s": elapsed, "generate_s": gen_s, "pool": st,
+            "health": health, "health_report": report}
 
 
 def main(argv=None) -> dict:

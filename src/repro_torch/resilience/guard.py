@@ -13,9 +13,11 @@ Three defenses, all host-side and state-free until they fire:
   around capacity growth.  Only :class:`InjectedOOM` is retried, as in the
   reference; exhaustion raises :class:`RetryExhausted`.
 * :class:`CircuitBreaker` - trips after ``threshold`` consecutive apply
-  failures; while open the pipeline sheds update groups and serves
-  version-tagged stale property reads.  The cooldown counts shed groups,
-  not wall time, so runs replay deterministically.
+  failures, or (with ``burn_threshold``) when an ``obs.health`` report's
+  worst burn rate reaches the threshold; while open the pipeline sheds
+  update groups and serves version-tagged stale property reads.  The
+  cooldown counts shed groups, not wall time, so runs replay
+  deterministically.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ _FL_TRIP = _flight.intern("breaker.open")
 _FL_CLOSE = _flight.intern("breaker.closed")
 _FL_HALF = _flight.intern("breaker.half_open")
 _FL_SHED = _flight.intern("breaker.shed")
+_FL_BURN_TRIP = _flight.intern("breaker.burn_trip")
 
 #: dst ids the update plane reserves (uint32 key sentinels)
 _SENTINELS = (0xFFFFFFFD, 0xFFFFFFFE, 0xFFFFFFFF)
@@ -180,18 +183,30 @@ class CircuitBreaker:
     update group is shed (``allow()`` False).  After ``cooldown`` shed
     groups it goes HALF_OPEN and admits one probe: success closes it,
     failure re-opens it and restarts the cooldown.
+
+    ``burn_threshold`` (optional) arms SLO burn-rate shedding: fed
+    ``obs.health`` reports through :meth:`note_health`, the breaker trips
+    OPEN when the worst error-budget burn rate reaches the threshold,
+    reacting to latency violations that never raise.  Burn trips go
+    through the same OPEN, HALF_OPEN, probe cycle.
     """
 
-    def __init__(self, *, threshold: int = 3, cooldown: int = 8):
+    def __init__(self, *, threshold: int = 3, cooldown: int = 8,
+                 burn_threshold: Optional[float] = None):
         if threshold < 1 or cooldown < 1:
             raise ValueError("threshold and cooldown must be >= 1")
+        if burn_threshold is not None and burn_threshold <= 0.0:
+            raise ValueError("burn_threshold must be > 0")
         self.threshold = int(threshold)
         self.cooldown = int(cooldown)
+        self.burn_threshold = burn_threshold
         self.state = CLOSED
         self.failures = 0          # consecutive failures while closed
         self.trips = 0
+        self.burn_trips = 0        # trips driven by note_health
         self.shed_count = 0        # update groups shed in all
         self._shed_since_trip = 0
+        self.last_burn = 0.0
 
     def allow(self) -> bool:
         """May the next update group run?  Call ``shed`` when it may not."""
@@ -217,14 +232,36 @@ class CircuitBreaker:
     def record_failure(self) -> None:
         self.failures += 1
         if self.state == HALF_OPEN or self.failures >= self.threshold:
-            if self.state != OPEN:
-                self.trips += 1
-                obs.emit_event("breaker_open", failures=self.failures)
-                obs.inc("breaker.trips")
-                _flight.record(_FL_TRIP, self.failures)
-            self.state = OPEN
-            self._shed_since_trip = 0
+            self._trip(obs_event="breaker_open")
+
+    def _trip(self, *, obs_event: str) -> None:
+        if self.state != OPEN:
+            self.trips += 1
+            obs.emit_event(obs_event, failures=self.failures)
+            obs.inc("breaker.trips")
+            _flight.record(_FL_TRIP, self.failures)
+        self.state = OPEN
+        self._shed_since_trip = 0
+
+    def note_health(self, report) -> bool:
+        """Fold one ``obs.health.HealthReport`` in; True when it tripped
+        the breaker.  A no-op without ``burn_threshold``.  An OPEN breaker
+        stays open (the cooldown cycle re-closes it); a burning window
+        while HALF_OPEN re-opens it like a failed probe."""
+        if self.burn_threshold is None:
+            return False
+        self.last_burn = float(report.worst_burn)
+        if self.state == OPEN or self.last_burn < self.burn_threshold:
+            return False
+        self.burn_trips += 1
+        _flight.record(_FL_BURN_TRIP, int(1e3 * self.last_burn))
+        obs.inc("breaker.burn_trips")
+        self._trip(obs_event="breaker_burn_open")
+        return True
 
     def status(self) -> dict:
         return {"state": self.state, "failures": self.failures,
-                "trips": self.trips, "shed": self.shed_count}
+                "trips": self.trips, "shed": self.shed_count,
+                "burn_trips": self.burn_trips,
+                "burn_threshold": self.burn_threshold,
+                "last_burn": self.last_burn}

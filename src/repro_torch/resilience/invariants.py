@@ -102,13 +102,23 @@ def _live_lanes(g) -> torch.Tensor:
     return (g.slab_vertex >= 0)[:, None] & is_valid_vertex(g.keys)
 
 
-def live_edges(g) -> Tuple[np.ndarray, np.ndarray]:
-    """(src, dst) of every live lane, as host uint64 (dst the uint32 key)."""
+def _live_edges_dev(g, *, shard: int = 0, n_shards: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(src, dst) int64 on the graph's device: every live lane, src made
+    global (local owner ``v`` on shard ``k`` is ``v * n_shards + k``), dst
+    the uint32 key."""
     rows, lanes = torch.nonzero(_live_lanes(g), as_tuple=True)
-    src = g.slab_vertex[rows].long()
-    dst = g.keys[rows, lanes].long() & 0xFFFFFFFF
-    return (src.cpu().numpy().astype(np.uint64),
-            dst.cpu().numpy().astype(np.uint64))
+    return (g.slab_vertex[rows].long() * n_shards + shard,
+            g.keys[rows, lanes].long() & 0xFFFFFFFF)
+
+
+def live_edges(g, *, shard: int = 0, n_shards: int = 1
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(src, dst) of every live lane, as host uint64 (dst the uint32 key);
+    a shard's local owner ``v`` on shard ``k`` is global
+    ``v * n_shards + k``."""
+    return tuple(a.cpu().numpy().astype(np.uint64)
+                 for a in _live_edges_dev(g, shard=shard, n_shards=n_shards))
 
 
 def edge_multiset_hash(src, dst, *, swap: bool = False) -> int:
@@ -213,26 +223,60 @@ def audit_graph(g, *, view: str = "forward") -> List[Violation]:
     return out
 
 
-def _pair_keys(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
-    return (src << np.uint64(32)) | dst
+def _store_edges(store, view: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global live (src, dst) of one view of either store kind, int64 on
+    the store's device."""
+    g = store.views[view]
+    if hasattr(g, "n_shards"):           # ShardedSlabGraph
+        from ..distributed.sharded_graph import shard_slice
+        parts = [_live_edges_dev(shard_slice(g, k), shard=k,
+                                 n_shards=g.n_shards)
+                 for k in range(g.n_shards)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    return _live_edges_dev(g)
+
+
+def _union_mismatch(f_src, f_dst, s_src, s_dst):
+    """``(symmetric edges, union edges, size of their symmetric
+    difference)``, or None when the symmetric view holds exactly the union
+    of both directions of the forward one.  Sets of ``src << 32 | dst``
+    keys, deduplicated and compared on the device."""
+    union = torch.unique(torch.cat([(f_src << 32) | f_dst,
+                                    (f_dst << 32) | f_src]))
+    sym = torch.unique((s_src << 32) | s_dst)
+    if union.numel() == sym.numel() and torch.equal(union, sym):
+        return None
+    _, counts = torch.unique(torch.cat([union, sym]), return_counts=True)
+    return sym.numel(), union.numel(), int((counts == 1).sum())
 
 
 def audit_store(store, *, views: Optional[Sequence[str]] = None,
                 cross_view: bool = True) -> InvariantReport:
     """Run every invariant over ``views`` (default: every live view) of a
-    GraphStore.  (The sharded store is not ported.)"""
+    GraphStore or a ShardedGraphStore (each shard audited on its own, its
+    violations tagged ``view[k]``)."""
     t0 = time.perf_counter()
     names = tuple(views) if views else tuple(store.views)
     violations: List[Violation] = []
     checks = 0
     for name in names:
-        violations += audit_graph(store.views[name], view=name)
-        checks += 6
+        g = store.views[name]
+        if hasattr(g, "n_shards"):
+            from ..distributed.sharded_graph import shard_slice
+            for k in range(g.n_shards):
+                violations += [dataclasses.replace(v, view=f"{name}[{k}]")
+                               for v in audit_graph(shard_slice(g, k),
+                                                    view=name)]
+                checks += 6
+        else:
+            violations += audit_graph(g, view=name)
+            checks += 6
 
     if cross_view and "forward" in names:
-        f_src, f_dst = live_edges(store.views["forward"])
+        f_src, f_dst = _store_edges(store, "forward")
         if "transpose" in names:
-            t_src, t_dst = live_edges(store.views["transpose"])
+            t_src, t_dst = _store_edges(store, "transpose")
             checks += 1
             if edge_multiset_hash(t_src, t_dst, swap=True) != \
                     edge_multiset_hash(f_src, f_dst):
@@ -240,17 +284,15 @@ def audit_store(store, *, views: Optional[Sequence[str]] = None,
                     "transpose", "edge_multiset",
                     "transpose edge multiset != swapped forward multiset"))
         if "symmetric" in names:
-            s_src, s_dst = live_edges(store.views["symmetric"])
+            s_src, s_dst = _store_edges(store, "symmetric")
             checks += 1
-            union = np.union1d(_pair_keys(f_src, f_dst),
-                               _pair_keys(f_dst, f_src))
-            sym = np.unique(_pair_keys(s_src, s_dst))
-            if not np.array_equal(sym, union):
+            bad = _union_mismatch(f_src, f_dst, s_src, s_dst)
+            if bad is not None:
+                n_sym, n_union, n_xor = bad
                 violations.append(Violation(
                     "symmetric", "union_mismatch",
-                    f"symmetric view has {len(sym)} edges vs the "
-                    f"{len(union)}-edge union of both directions",
-                    len(np.setxor1d(sym, union))))
+                    f"symmetric view has {n_sym} edges vs the "
+                    f"{n_union}-edge union of both directions", n_xor))
 
     report = InvariantReport(
         version=store.version, views=names, checks_run=checks,

@@ -15,7 +15,11 @@ the sequence; an ``InjectedCrash`` (a simulated kill) unwinds.  An
 optional ``CircuitBreaker`` sheds update groups after K consecutive apply
 failures; while it is open a ``PropertyRead`` serves the registry's
 ``peek``, a version-tagged and possibly stale state, instead of forcing a
-catch-up through a failing store.
+catch-up through a failing store.  An optional ``obs.health.HealthEngine``
+is fed every served request; every ``health_every`` dispatches the
+pipeline samples the store and the registry, builds a report and hands it
+to the breaker, which sheds updates once the worst burn rate reaches its
+``burn_threshold``.
 """
 from __future__ import annotations
 
@@ -134,7 +138,8 @@ class RequestPipeline:
     def __init__(self, store: GraphStore,
                  registry: Optional[PropertyRegistry] = None, *,
                  coalesce: bool = True, batch_membership: bool = True,
-                 breaker: Optional[CircuitBreaker] = None):
+                 breaker: Optional[CircuitBreaker] = None,
+                 health=None, health_every: int = 16):
         self.store = store
         self.registry = registry
         self.coalesce = coalesce
@@ -142,6 +147,12 @@ class RequestPipeline:
         #: optional overload valve: updates shed while it is open, reads
         #: serve version-tagged stale states
         self.breaker = breaker
+        #: optional obs.health.HealthEngine: fed every served request, and
+        #: every ``health_every`` dispatches it reports (to the breaker,
+        #: when one is armed)
+        self.health = health
+        self.health_every = int(health_every)
+        self._since_health = 0
         if breaker is not None:
             # post-mortem bundles carry the breaker's state
             _postmortem.register_breaker(breaker)
@@ -170,10 +181,24 @@ class RequestPipeline:
             at += n
         return out
 
-    def _observe(self, kind: str, dt: float, group: int = 1) -> None:
-        """The flight record of one served request (always), and its
-        latency and counts (with metrics on)."""
+    def _observe(self, kind: str, dt: float, group: int = 1, *,
+                 cls: Optional[str] = None, ok: bool = True) -> None:
+        """The flight record and the health sample of one served request
+        (always), and its latency and counts (with metrics on).  ``cls``
+        names the SLO class where ``kind`` is an outcome (``error``,
+        ``shed``)."""
         _flight.record(_FL_REQ[kind], int(1e9 * dt), group)
+        if self.health is not None:
+            self.health.observe_request(cls or kind, dt, ok=ok)
+            self._since_health += 1
+            if self._since_health >= self.health_every:
+                self._since_health = 0
+                self.health.observe_store(self.store)
+                if self.registry is not None:
+                    self.health.observe_staleness(self.registry)
+                report = self.health.report()
+                if self.breaker is not None:
+                    self.breaker.note_health(report)
         if not obs.metrics.enabled():
             return
         obs.observe(f"pipeline.latency.{kind}", dt)
@@ -196,7 +221,7 @@ class RequestPipeline:
         if self.breaker is not None and not self.breaker.allow():
             self.breaker.shed()
             dt = time.perf_counter() - t0
-            self._observe("shed", dt, len(group))
+            self._observe("shed", dt, len(group), cls="update", ok=False)
             payload = {"error": "circuit_open", "shed": True,
                        "breaker": self.breaker.status()}
             return [Response("error", self.store.version, payload, dt)
@@ -211,7 +236,7 @@ class RequestPipeline:
             if self.breaker is not None:
                 self.breaker.record_failure()
             dt = time.perf_counter() - t0
-            self._observe("error", dt, len(group))
+            self._observe("error", dt, len(group), cls="update", ok=False)
             return [self._fail(e, dt)] * len(group)
         if self.breaker is not None:
             self.breaker.record_success()

@@ -163,6 +163,9 @@ class VersionedStoreBase:
         #: maintenance clears them
         self._tombstone_base = 0
         self._deletes_since_maint = 0
+        #: live edges on the host, primed by one read and then kept by the
+        #: batch log, so ``_cheap_stats`` never waits for the device
+        self._n_edges_host: Optional[int] = None
         #: one event per maintenance pass, bounded like the batch log
         self.maintenance_events: List[dict] = []
         #: optional WriteAheadLog: every apply journals its canonical batch
@@ -273,6 +276,8 @@ class VersionedStoreBase:
             self._log_floor = self._log[0].version - 1
         if not batch.maintenance:
             self._deletes_since_maint += batch.n_deleted
+            if self._n_edges_host is not None:
+                self._n_edges_host += batch.n_inserted - batch.n_deleted
         for fn in self._listeners:
             fn(batch)
         return batch
@@ -287,11 +292,11 @@ class VersionedStoreBase:
             for name in list(self._views):
                 slack = max(policy.slack_slabs,
                             self._last_reserve.get(name, 0))
-                self._views[name], reports[name] = compact(
+                self._views[name], reports[name] = self._compact_view(
                     self._views[name], shrink=shrink, slack_slabs=slack)
         elif action == "reclaim":
             for name in list(self._views):
-                self._views[name], reclaimed[name] = reclaim_free_slabs(
+                self._views[name], reclaimed[name] = self._reclaim_view(
                     self._views[name])
         else:
             raise ValueError(f"unknown maintenance action {action!r}")
@@ -302,7 +307,9 @@ class VersionedStoreBase:
         tombstone count is exact; the fields only a scan gives hold values
         that never trigger (a policy arming those triggers scans)."""
         tombs = self._tombstone_base + self._deletes_since_maint
-        live = int(self.n_edges)
+        if self._n_edges_host is None:
+            self._n_edges_host = int(self.n_edges)
+        live = self._n_edges_host
         return {"tombstone_ratio": tombs / max(1, tombs + live),
                 "tombstone_lanes": tombs,
                 "mean_chain": 0.0, "occupancy": 1.0, "dead_slabs": 0}
@@ -571,6 +578,9 @@ class GraphStore(VersionedStoreBase):
                 raise
             epoch_span.annotate(inserted=n_inserted, deleted=n_deleted)
         except BaseException as e:
+            # a failed apply may have moved the pools before it failed:
+            # re-read the live edge count rather than trust the log's
+            self._n_edges_host = None
             self._dump_postmortem(e)
             raise
         finally:
@@ -584,11 +594,19 @@ class GraphStore(VersionedStoreBase):
         self._auto_audit()
         return batch
 
-    # --------------------------------------------------------------- queries
+    # ----------------------------------------------------- maintenance plane
     def pool_stats(self, view: str = FORWARD, *, chains: bool = True
                    ) -> dict:
         """Pool-health snapshot of one view (``core.pool_stats``)."""
         return pool_stats(self._views[view], chains=chains)
+
+    def _compact_view(self, g: SlabGraph, *, shrink: bool, slack_slabs: int):
+        return compact(g, shrink=shrink, slack_slabs=slack_slabs)
+
+    def _reclaim_view(self, g: SlabGraph):
+        return reclaim_free_slabs(g)
+
+    # --------------------------------------------------------------- queries
 
     def query(self, src, dst) -> np.ndarray:
         """Batched edge membership against the forward view (host arrays in,

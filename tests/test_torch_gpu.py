@@ -9,8 +9,11 @@ count, the membership probe and the min family must match exactly; the float
 ``sum`` sweep adds lanes in another order, so it is held to
 ``rtol=1e-6`` of the row totals.  Flash attention and EmbeddingBag are
 held to the reference tests' tolerances (attention 2e-5 in float32, 2e-2
-in bfloat16; the bag 1e-5 and 3e-2).  This module imports no JAX (the card's
-machine has none): ``ATTN_CASES`` is shared with the CPU parity test.
+in bfloat16; the bag 1e-5 and 3e-2).  The sharded store on the card is
+held to the same store on CPU tensors leaf for leaf, its WCC, BFS and
+triangle count bit for bit and its PageRank within 2e-5.  This module
+imports no JAX (the card's machine has none): ``ATTN_CASES`` is shared with
+the CPU parity test.
 """
 import numpy as np
 import pytest
@@ -1128,4 +1131,160 @@ def test_recover_onto_card_matches_twin(cuda, site, tmp_path):
     for b in batches[vers.index(rec.version) + 1:]:
         rec.apply(*b)
     _assert_views_equal(rec, twin)
+    assert rz.audit_store(rec).ok
+
+
+# ----------------------------------------------------------------------------
+# the sharded plane on the card: the same store on CPU tensors is the oracle
+# ----------------------------------------------------------------------------
+
+SHARD_V, SHARDS = 2003, 4
+
+
+def _sharded_store(device, *, weighted=False):
+    from repro_torch.stream import MaintenancePolicy, ShardedGraphStore
+    rng = np.random.default_rng(31)
+    src = rng.integers(0, SHARD_V, 12000).astype(np.uint32)
+    dst = (rng.zipf(1.5, 12000) % SHARD_V).astype(np.uint32)
+    src[:600] = 6                       # a hub: a long chain on shard 2
+    w = rng.uniform(0.5, 2.0, 12000).astype(np.float32) if weighted \
+        else None
+    return ShardedGraphStore.from_edges(
+        SHARD_V, SHARDS, src, dst, w,
+        maintenance=MaintenancePolicy(tombstone_ratio=0.05), device=device)
+
+
+def _shard_stream(n, seed=32, *, weighted=False):
+    rng = np.random.default_rng(seed)
+    out = []
+    for e in range(n):
+        k = 2000 if e == 1 else 600     # epoch 1 grows the pools
+        s = rng.integers(0, SHARD_V, k).astype(np.uint32)
+        if e == 1:
+            s[:1500] = 6
+        d = rng.integers(0, SHARD_V, k).astype(np.uint32)
+        w = rng.uniform(0.5, 2.0, k).astype(np.float32) if weighted \
+            else None
+        ds = rng.integers(0, SHARD_V, 400).astype(np.uint32)
+        dd = (rng.zipf(1.5, 400) % SHARD_V).astype(np.uint32)
+        out.append((s, d, w, ds, dd))
+    return out
+
+
+def _assert_sharded_views_equal(a, b):
+    assert a.version == b.version
+    for name in b.views:
+        ga, gb = a.views[name].graphs, b.views[name].graphs
+        for f in FIELDS:
+            x, y = getattr(ga, f), getattr(gb, f)
+            assert (x is None and y is None) or (
+                x.shape == y.shape and torch.equal(x.cpu(), y.cpu())), \
+                (name, f)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sharded_store_on_card_matches_cpu(cuda, weighted):
+    from repro_torch.distributed import sharded_graph as sgm
+    card = _sharded_store(cuda, weighted=weighted)
+    host = _sharded_store("cpu", weighted=weighted)
+    before = dict(runtime.LAUNCHES)
+    for b in _shard_stream(4, weighted=weighted):
+        bc, bh = card.apply(*b), host.apply(*b)
+        assert (bc.n_inserted, bc.n_deleted) == (bh.n_inserted,
+                                                 bh.n_deleted)
+        _assert_sharded_views_equal(card, host)
+    assert card.maintenance_count == host.maintenance_count >= 1
+    for name in ("slab_probe", "slab_commit", "slab_live",
+                 "slab_chain_rank"):
+        assert runtime.LAUNCHES[name] > before[name], name
+    if not weighted:
+        for fn, view in ((sgm.wcc_sharded, "symmetric"),):
+            got, _ = fn(card.views[view], rows=card.sweep_rows(view))
+            want, _ = fn(host.views[view], rows=host.sweep_rows(view))
+            assert torch.equal(got.cpu(), want)
+        got, _ = sgm.bfs_sharded(card.transpose, src=0)
+        want, _ = sgm.bfs_sharded(host.transpose, src=0)
+        assert torch.equal(got.cpu(), want)
+    pr, _ = sgm.pagerank_sharded(card.transpose, card.out_degree)
+    pr_h, _ = sgm.pagerank_sharded(host.transpose, host.out_degree)
+    assert torch.allclose(pr.cpu(), pr_h, atol=2e-5, rtol=0)
+    tri = sgm.triangles_sharded(card.symmetric)
+    assert tri.is_cuda and int(tri) == int(sgm.triangles_sharded(
+        host.symmetric))
+    q = np.random.default_rng(3).integers(0, SHARD_V, (4096, 2))
+    assert np.array_equal(card.query(q[:, 0], q[:, 1]),
+                          host.query(q[:, 0], q[:, 1]))
+    nc = card.neighbors([6, 0, 7, 2002], out_capacity=8192)
+    nh = host.neighbors([6, 0, 7, 2002], out_capacity=8192)
+    assert int(nc.size) == int(nh.size)
+    for a, b in zip(nc, nh):
+        assert torch.equal(a.cpu(), b)
+    from repro_torch.resilience import audit_store
+    assert audit_store(card).ok
+
+
+def test_kernel_summary_on_card(cuda):
+    from repro_torch import obs
+    from repro_torch.core.slab_graph import shard_view
+    from repro_torch.kernels.slab_sweep import ops as sweep_ops
+    store = _sharded_store(cuda)
+    obs.reset()
+    obs.enable()
+    try:
+        for b in _shard_stream(3):
+            store.apply(*b)
+        g = shard_view(store.transpose.graphs, 0)
+        for _ in range(3):
+            sweep_ops.sweep_vertices(g, torch.ones(SHARD_V, device=cuda),
+                                     semiring="sum", n_keys=SHARD_V)
+        summary = obs.kernel_summary()
+    finally:
+        obs.disable()
+        obs.reset()
+    upd = [k for k in summary.values() if k["op"] == "update_shards"]
+    assert sum(k["calls"] for k in upd) == 3
+    sweep = [k for k in summary.values() if k["op"] == "sweep_vertices"]
+    assert len(sweep) == 1 and sweep[0]["calls"] == 3
+    assert sweep[0]["steady_calls"] == 2 and sweep[0]["steady_s"] > 0
+    assert sweep[0]["bytes"] > 0
+
+
+def test_sharded_restore_and_recover_onto_card(cuda, tmp_path):
+    from repro_torch import resilience as rz
+    from repro_torch.resilience import faults
+    from repro_torch.stream import (MaintenancePolicy, PropertyRegistry,
+                                    ShardedGraphStore, sharded_wcc_property)
+    batches = _shard_stream(6)
+    twin = _sharded_store(cuda)
+    vers = []
+    for b in batches:
+        twin.apply(*b)
+        vers.append(twin.version)
+    store = _sharded_store(cuda).attach_wal(rz.WriteAheadLog(
+        tmp_path / "wal"))
+    registry = PropertyRegistry(store)
+    registry.register(sharded_wcc_property())
+    with pytest.raises(rz.InjectedCrash):
+        for t, b in enumerate(batches):
+            if t == 2:
+                store.save(tmp_path / "ck", registry=registry)
+                got, reg2 = ShardedGraphStore.restore(
+                    tmp_path / "ck", specs=[sharded_wcc_property()])
+                assert got.device.type == "cuda"
+                _assert_sharded_views_equal(got, store)
+                assert torch.equal(reg2.read("wcc"), registry.read("wcc"))
+            if t == 4:
+                with faults.inject(rz.FaultSpec("apply.post_wal", at=1)):
+                    store.apply(*b)
+            else:
+                store.apply(*b)
+    store.wal.close()
+    rec, _, report = rz.recover(
+        tmp_path / "ck", tmp_path / "wal", store_cls=ShardedGraphStore,
+        specs=[sharded_wcc_property()],
+        maintenance=MaintenancePolicy(tombstone_ratio=0.05))
+    assert rec.device.type == "cuda" and not report.anomalies
+    for b in batches[vers.index(rec.version) + 1:]:
+        rec.apply(*b)
+    _assert_sharded_views_equal(rec, twin)
     assert rz.audit_store(rec).ok
