@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Six phases, each printing JSON lines (the third with the iterators, the
-durability and the sharded phases after it):
+durability, the sharded and the mesh phases after it):
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -98,7 +98,29 @@ durability and the sharded phases after it):
    first report.  One ``sharded`` line prints each request's ms beside
    phase 3's, the route imbalance per update, the fixpoints' host reads
    and instrumented waits per iteration, peak memory, the health report
-   and the kernel summary.
+   and the kernel summary.  Its boot hook also saves the booted store.
+   Then **mesh**: the sharded store's multi-process rendering.  A stacked
+   store restored from that checkpoint replays the stream, recording the
+   sha256 of every pool leaf of every shard after each update (its
+   answers must equal the sharded phase's); then SHARDS gloo ranks
+   sharing the card (``spawn``ed, a ``FileStore`` rendezvous, a 120 s
+   group timeout, a parent deadline that kills them) each restore the
+   checkpoint, keep their shard (``place_on_mesh``), count the booted
+   triangles and serve the stream through ``RequestPipeline`` with the
+   three sharded properties, with the launch counts zeroed after the
+   placement: every rank's leaf digests after every update must equal the
+   stacked shard's, the answers the sharded phase's (BFS, WCC and
+   membership bit for bit, PageRank within ``MESH_PR_REL / V``) and agree on
+   every rank with equal fixpoint counts, the triangle count the sharded
+   phase's, and every rank must launch kernels 1–3 and 5–7.  One NCCL
+   rank then serves a 1-shard store at RMAT scale 16 (three compacting
+   updates, three reads, 1,024 queries) against a 1-shard stacked store.
+   The ``mesh`` line prints per request the max over ranks of its ms,
+   collective ms and bytes and all-to-all bytes, the fixpoints'
+   iterations and host reads, each rank's restore and placement seconds,
+   peak memory and launches; the ranks time-slice one card and gloo
+   stages through host memory, so these times say nothing of NCCL across
+   cards.
 4. **triangles** - a second store on the same RMAT scale-20 graph, hashed,
    with the forward and symmetric views and a maintenance policy that
    compacts at a tombstone ratio of 0.0015, serves a live triangle count
@@ -213,6 +235,24 @@ SHARD_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
 SHARD_FAULT_SEED = 5
 #: BFS levels of an unreached vertex (``algorithms.bfs.UNREACHED``)
 SHARD_UNREACHED = 2 ** 30
+#: the mesh phase: the sharded phase's store as one process a shard, its
+#: ranks sharing the card over gloo (NCCL refuses two ranks on one card),
+#: a deadline after which the parent kills them, and the kernels they must
+#: launch; then one NCCL rank at RMAT scale 16 (a 1-shard mesh), its
+#: update batches, deletes and maintenance trigger
+MESH_BACKEND, MESH_DEVICE = "gloo", "cuda"
+MESH_DEADLINE_S = 480
+MESH_KERNELS = SHARD_KERNELS
+MESH_NCCL_BACKEND = "nccl"
+MESH_NCCL_VERTICES, MESH_NCCL_EDGES = 1 << 16, 1 << 20
+MESH_NCCL_BATCH, MESH_NCCL_DELETES, MESH_NCCL_RATIO = 8192, 2048, 0.002
+#: a mesh job's PageRank against the stacked store's, max abs, as a share
+#: of the mean value 1 / V: the same kernel sweeps the same shard and the
+#: gathers are exact, but the sweep's sum (``index_add_`` in
+#: ``kernels/slab_sweep/ops.py``) adds a vertex's rows with float atomics,
+#: so two runs need not agree in the last bits (on an H100: at most
+#: 1.2e-9 at V = 2^20, where the limit is 9.5e-9)
+MESH_PR_REL = 1e-2
 #: the serve phase's kernels; the triangles phase adds the other two
 SERVE_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
                  "slab_chain_rank")
@@ -1572,11 +1612,14 @@ def sweep_floor_ms(torch, store, shape: str) -> dict:
                        f"shape {shape}")
 
 
-def sharded_phase(torch, np, ref3: dict) -> dict:
+def sharded_phase(torch, np, ref3: dict, mesh_dir: Path) -> dict:
     """Serve the sharded configuration (SHARDS shards on the card) with the
     health engine and the kernel instrumentation armed, hold it to phase
     3's answers, plant an SLO fault, and count the booted symmetric view's
-    triangles; returns the launch counts and the triangle count."""
+    triangles; returns the launch counts, the triangle count and what the
+    mesh phase serves again: the booted store (saved under ``mesh_dir``),
+    the request stream and host copies of its answers."""
+    import shutil
     import tempfile
 
     import repro_torch.stream as stream_mod
@@ -1599,6 +1642,14 @@ def sharded_phase(torch, np, ref3: dict) -> dict:
         tri["triangles"] = int(sharded_graph.triangles_sharded(
             store.symmetric))
         tri["triangles_s"] = time.perf_counter() - t0
+        # the mesh phase restores this store on every rank
+        need = sum(sg.graphs.nbytes() for sg in store.views.values())
+        free = shutil.disk_usage(mesh_dir).free
+        check(free > 1.2 * need, f"{free} bytes free under {mesh_dir}, "
+              f"the booted sharded store takes {need}")
+        t0 = time.perf_counter()
+        store.save(mesh_dir)
+        tri["save_s"] = time.perf_counter() - t0
 
     args = SERVE_ARGS + ["--shards", str(SHARDS), "--health",
                          "--slo-update-ms", str(SHARD_SLO_UPDATE_MS),
@@ -1748,8 +1799,422 @@ def sharded_phase(torch, np, ref3: dict) -> dict:
           "triangles_at_boot": tri["triangles"],
           "triangles_s": tri["triangles_s"],
           "kernels": launches,
+          "boot_save_s": tri["save_s"],
           "seconds": time.perf_counter() - t_phase})
-    return {"launches": launches, "triangles": tri["triangles"]}
+    answers = {}
+    for i, (kind, _, resp, _) in enumerate(out["responses"]):
+        if kind.startswith("read:"):
+            answers[i] = resp.payload["value"].cpu()
+        elif kind == "member":
+            answers[i] = np.asarray(resp.payload["found"]).copy()
+    mesh = {"ckpt_dir": str(mesh_dir),
+            "requests": [(kind, req) for kind, req, _, _ in out["responses"]],
+            "answers": answers,
+            "request_ms": [1e3 * resp.latency_s
+                           for _, _, resp, _ in out["responses"]],
+            "policy": serve_mod.parse_args(SERVE_ARGS).policy,
+            "tombstone_ratio":
+                serve_mod.parse_args(SERVE_ARGS).tombstone_ratio}
+    return {"launches": launches, "triangles": tri["triangles"],
+            "mesh": mesh}
+
+
+# ----------------------------------------------------------------------------
+# the mesh phase: the sharded store as one process a shard, held to the
+# sharded phase leaf for leaf
+# ----------------------------------------------------------------------------
+
+def leaf_digests(np, g) -> dict:
+    """sha256 of every tensor field of one shard's SlabGraph (its bytes as
+    laid out on the device), hashed on host threads."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.slab_graph import FIELDS
+
+    def one(f):
+        t = getattr(g, f)
+        if t is None:
+            return f, None
+        return f, hashlib.sha256(np.ascontiguousarray(
+            t.cpu().numpy())).hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(one, FIELDS))
+
+
+def shard_digests(np, store, k: int) -> dict:
+    """``leaf_digests`` of shard ``k`` of every view of a sharded store."""
+    from repro_torch.distributed.sharded_graph import shard_slice
+    return {name: leaf_digests(np, shard_slice(sg, k))
+            for name, sg in store.views.items()}
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _read_value(np, resp):
+    """A read's or a membership query's answer, on the host."""
+    if "value" in resp.payload:
+        return resp.payload["value"].cpu().numpy()
+    return np.asarray(resp.payload["found"])
+
+
+def _registry(stream_mod, store, policy: str):
+    registry = stream_mod.PropertyRegistry(store)
+    registry.register(stream_mod.sharded_pagerank_property(), policy=policy)
+    registry.register(stream_mod.sharded_bfs_property(0), policy=policy)
+    registry.register(stream_mod.sharded_wcc_property(), policy=policy)
+    return registry
+
+
+def stacked_serve(torch, np, job: dict) -> dict:
+    """The stacked rendering of a mesh job: its checkpoint restored on the
+    card as one stacked store, the same requests served, every shard's
+    digests after each update and every answer kept."""
+    import repro_torch.stream as stream_mod
+
+    dev = torch.device(job["device"])
+    store, _ = stream_mod.ShardedGraphStore.restore(
+        job["ckpt_dir"], device=dev,
+        maintenance=stream_mod.MaintenancePolicy(
+            tombstone_ratio=job["tombstone_ratio"]))
+    pipe = stream_mod.RequestPipeline(
+        store, _registry(stream_mod, store, job["policy"]))
+    S = store.n_shards
+    digests = [[shard_digests(np, store, k) for k in range(S)]]
+    answers = {}
+    for i, (kind, req) in enumerate(job["requests"]):
+        resp = pipe.run([req])[0]
+        check(resp.kind != "error", f"stacked request {i}: {resp.payload}")
+        if kind == "update":
+            digests.append([shard_digests(np, store, k) for k in range(S)])
+        else:
+            answers[i] = _read_value(np, resp)
+    _sync(torch, dev)
+    out = {"digests": digests, "answers": answers,
+           "maintenance_count": store.maintenance_count}
+    del store, pipe
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank: int, world: int, run_dir: str) -> None:
+    """One rank of a mesh job (``run_dir/job.pkl``): join the mesh, restore
+    the stacked checkpoint and keep this rank's shard, count the
+    triangles when asked, serve the requests, and write what it measured
+    and answered to ``run_dir/rank{rank}.pkl``."""
+    import hashlib
+    import pickle
+    import traceback
+
+    import numpy as np
+    import torch
+
+    with open(Path(run_dir) / "job.pkl", "rb") as f:
+        job = pickle.load(f)
+    res = {"rank": rank}
+    code = 0
+    try:
+        import repro_torch.stream as stream_mod
+        from repro_torch.distributed import collectives, ranks
+        from repro_torch.distributed import sharded_graph as sgm
+        from repro_torch.kernels import runtime
+
+        dev = torch.device(job["device"])
+        mesh = ranks.init_shard_mesh(
+            rank, world, init_file=str(Path(run_dir) / "rdzv"),
+            backend=job["backend"], device=dev)
+        try:
+            t0 = time.perf_counter()
+            store, _ = stream_mod.ShardedGraphStore.restore(
+                job["ckpt_dir"], device="cpu",
+                maintenance=stream_mod.MaintenancePolicy(
+                    tombstone_ratio=job["tombstone_ratio"]))
+            res["restore_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            store.place_on_mesh(mesh)
+            _sync(torch, store.device)
+            res["place_s"] = time.perf_counter() - t0
+            check(store._mode() == "shard_map" and store.forward.graphs
+                  .keys.shape[0] == 1, "the store is not placed on the mesh")
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            runtime.reset_launches()
+            sgm.reset_fix_stats()
+            res["digests"] = [shard_digests(np, store, rank)]
+            if job["triangles"]:
+                collectives.reset_collective_stats()
+                t0 = time.perf_counter()
+                res["triangles"] = int(sgm.triangles_sharded(store.symmetric))
+                res["triangles_s"] = time.perf_counter() - t0
+                res["triangles_collective"] = dict(
+                    collectives.COLLECTIVE_STATS)
+            pipe = stream_mod.RequestPipeline(
+                store, _registry(stream_mod, store, job["policy"]))
+            rows = []
+            for kind, req in job["requests"]:
+                collectives.reset_collective_stats()
+                fix0 = dict(sgm.FIX_STATS)
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                resp = pipe.run([req])[0]
+                _sync(torch, dev)
+                row = {"kind": kind, "ms": 1e3 * (time.perf_counter() - t0),
+                       "version": resp.version,
+                       "collective": dict(collectives.COLLECTIVE_STATS),
+                       "fix": {k: v - fix0[k]
+                               for k, v in sgm.FIX_STATS.items()}}
+                check(resp.kind != "error", f"rank {rank}: {resp.payload}")
+                if kind == "update":
+                    row["n"] = (resp.payload["inserted"],
+                                resp.payload["deleted"])
+                    row["digests"] = shard_digests(np, store, rank)
+                else:
+                    value = _read_value(np, resp)
+                    row["sha"] = hashlib.sha256(value).hexdigest()
+                    if rank == 0:
+                        row["value"] = value
+                rows.append(row)
+            res["requests"] = rows
+            res["launches"] = dict(runtime.LAUNCHES)
+            res["fix"] = dict(sgm.FIX_STATS)
+            res["maintenance_count"] = store.maintenance_count
+            res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else None)
+        finally:
+            ranks.close_shard_mesh()
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        code = 1
+    res["jax_imported"] = "jax" in sys.modules
+    with open(Path(run_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    sys.exit(code)
+
+
+def run_mesh_job(job: dict, world: int, run_dir: Path) -> list:
+    """Start ``world`` ranks on ``job`` (spawned: this process has
+    initialised CUDA) under the parent's deadline; their results."""
+    import pickle
+
+    from repro_torch.distributed.ranks import RankGroup
+
+    with open(run_dir / "job.pkl", "wb") as f:
+        pickle.dump(job, f)
+    group = RankGroup(mesh_rank, world, (str(run_dir),),
+                      deadline_s=MESH_DEADLINE_S)
+    try:
+        group.wait()
+    except RuntimeError as e:
+        errors = []
+        for r in range(world):
+            path = run_dir / f"rank{r}.pkl"
+            if path.is_file():
+                with open(path, "rb") as f:
+                    errors.append(pickle.load(f).get("error") or "")
+        raise SmokeFailure(f"mesh ranks: {e}\n" + "\n".join(errors))
+    out = []
+    for r in range(world):
+        with open(run_dir / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def check_mesh_ranks(np, got: list, want: dict, what: str) -> dict:
+    """Hold a mesh job's ranks to the stacked serve of the same job: every
+    shard's digests after every update, every answer (bit for bit, or
+    PageRank within MESH_PR_REL / V), replicated answers and equal fixpoint
+    counts on every rank, no JAX; returns the PageRank reading."""
+    world = len(got)
+    check(not any(r["jax_imported"] for r in got), f"{what}: a rank "
+          "imported JAX")
+    n_epochs = len(want["digests"])
+    for r, res in enumerate(got):
+        digests = [res["digests"][0]] + [row["digests"]
+                                         for row in res["requests"]
+                                         if row["kind"] == "update"]
+        check(len(digests) == n_epochs, f"{what}: rank {r} served "
+              f"{len(digests) - 1} updates, the stacked store "
+              f"{n_epochs - 1}")
+        for e, (d_rank, d_stacked) in enumerate(zip(digests,
+                                                    want["digests"])):
+            for view, leaves in d_stacked[r].items():
+                for f, h in leaves.items():
+                    check(d_rank[view][f] == h, f"{what}: epoch {e} "
+                          f"rank {r} {view}.{f} differs from the stacked "
+                          "shard")
+        check(res["maintenance_count"] == want["maintenance_count"],
+              f"{what}: rank {r} maintained {res['maintenance_count']} "
+              f"times, the stacked store {want['maintenance_count']}")
+        check(res["fix"] == got[0]["fix"], f"{what}: fixpoint counts "
+              f"differ between ranks: {res['fix']} {got[0]['fix']}")
+    pr_err, pr_equal = 0.0, True
+    for i, row in enumerate(got[0]["requests"]):
+        if row["kind"] == "update":
+            continue
+        for r in range(1, world):
+            check(got[r]["requests"][i]["sha"] == row["sha"],
+                  f"{what}: request {i} differs between rank 0 and {r}")
+        ans, ref = row["value"], want["answers"][i]
+        if row["kind"] == "read:pagerank":
+            err = float(np.abs(ans - ref).max())
+            pr_err = max(pr_err, err)
+            pr_equal = pr_equal and np.array_equal(ans, ref)
+            check(err <= MESH_PR_REL / ref.size, f"{what}: PageRank at "
+                  f"request {i} {err} from the stacked store's, over "
+                  f"{MESH_PR_REL / ref.size}")
+        else:
+            check(ans.dtype == ref.dtype and np.array_equal(ans, ref),
+                  f"{what}: {row['kind']} at request {i} differs from "
+                  "the stacked store's")
+    return {"pagerank_max_abs_err": pr_err, "pagerank_bit_equal": pr_equal}
+
+
+def mesh_lines(got: list) -> dict:
+    """What a mesh job measured: per request the max over ranks of its
+    latency, collective time, bytes and all-to-all bytes, with the
+    fixpoints' iterations and host reads; per rank restore and placement
+    seconds, peak memory and kernel launches."""
+    reqs = []
+    for i, row in enumerate(got[0]["requests"]):
+        rows = [r["requests"][i] for r in got]
+        reqs.append({
+            "i": i, "kind": row["kind"],
+            "ms": max(x["ms"] for x in rows),
+            "ms_per_rank": [x["ms"] for x in rows],
+            "collective_ms": max(1e3 * x["collective"]["seconds"]
+                                 for x in rows),
+            "collective_calls": row["collective"]["calls"],
+            "all_to_all_bytes": max(x["collective"]["all_to_all_bytes"]
+                                    for x in rows),
+            "collective_bytes": max(x["collective"]["bytes"] for x in rows),
+            "iterations": row["fix"]["iterations"],
+            "host_reads": row["fix"]["host_reads"]})
+    return {"requests": reqs,
+            "restore_s": [r["restore_s"] for r in got],
+            "place_s": [r["place_s"] for r in got],
+            "peak_bytes": [r["peak_bytes"] for r in got],
+            "launches": [r["launches"] for r in got],
+            "fixpoint": got[0]["fix"]}
+
+
+def nccl_job(torch, np, run_dir: Path) -> dict:
+    """The one-rank NCCL job: a 1-shard sharded store at RMAT scale 16 on
+    the card, saved, and a stream of three mixed updates (the deletes
+    reach the maintenance trigger), a read of each property between them
+    and a membership query."""
+    import repro_torch.stream as stream_mod
+    from repro_torch.data.synth import rmat_edges
+
+    V = MESH_NCCL_VERTICES
+    src, dst = rmat_edges(V, MESH_NCCL_EDGES, seed=3)
+    src, dst, _ = stream_mod.dedup_pairs(src, dst)
+    store = stream_mod.ShardedGraphStore.from_edges(V, 1, src, dst,
+                                                    device=MESH_DEVICE)
+    store.save(run_dir / "ckpt")
+    del store
+    rng = np.random.default_rng(3)
+    requests = []
+    for prop in ("wcc", "pagerank", "bfs_0"):
+        pick = rng.choice(len(src), MESH_NCCL_DELETES, replace=False)
+        ins = rng.integers(0, V, (2, MESH_NCCL_BATCH)).astype(np.uint32)
+        requests.append(("update", stream_mod.UpdateBatch(
+            ins_src=ins[0], ins_dst=ins[1], del_src=src[pick],
+            del_dst=dst[pick])))
+        requests.append((f"read:{prop}", stream_mod.PropertyRead(prop)))
+    q = rng.integers(0, len(src), 1024)
+    requests.append(("member", stream_mod.MembershipQuery(src=src[q],
+                                                          dst=dst[q])))
+    return {"ckpt_dir": str(run_dir / "ckpt"), "requests": requests,
+            "policy": "lazy", "tombstone_ratio": MESH_NCCL_RATIO,
+            "triangles": False, "backend": MESH_NCCL_BACKEND,
+            "device": MESH_DEVICE}
+
+
+def mesh_phase(torch, np, sharded: dict) -> dict:
+    """Serve the sharded phase's stream again on a mesh of SHARDS gloo
+    ranks sharing the card, each restoring the sharded phase's booted
+    store and keeping its shard: every shard's pool leaves (sha256) after
+    every update must equal those of the stacked store replaying the
+    stream, the answers the sharded phase's (BFS, WCC and membership bit
+    for bit, PageRank within MESH_PR_REL / V) and the booted triangle count
+    its count.  Then one NCCL rank on a 1-shard mesh against a 1-shard
+    stacked store.  Returns every rank's launch counts."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    mesh_in = sharded["mesh"]
+    job = {"ckpt_dir": mesh_in["ckpt_dir"],
+           "requests": mesh_in["requests"], "policy": mesh_in["policy"],
+           "tombstone_ratio": mesh_in["tombstone_ratio"],
+           "triangles": True, "backend": MESH_BACKEND,
+           "device": MESH_DEVICE}
+    t0 = time.perf_counter()
+    want = stacked_serve(torch, np, job)
+    replay_s = time.perf_counter() - t0
+    answers = {i: (a.numpy() if hasattr(a, "numpy") else a)
+               for i, a in mesh_in["answers"].items()}
+    for i, ref in answers.items():
+        kind = mesh_in["requests"][i][0]
+        if kind == "read:pagerank":
+            check(float(np.abs(want["answers"][i] - ref).max())
+                  <= MESH_PR_REL / ref.size, f"the stacked replay's "
+                  f"PageRank at request {i} differs from the sharded "
+                  "phase's")
+        else:
+            check(np.array_equal(want["answers"][i], ref),
+                  f"the stacked replay's {kind} at request {i} differs "
+                  "from the sharded phase's")
+    # the mesh's answers are held to the sharded phase's own
+    want["answers"] = answers
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got = run_mesh_job(job, SHARDS, Path(tmp))
+        ranks_s = time.perf_counter() - t0
+    reading = check_mesh_ranks(np, got, want, "mesh")
+    for r, res in enumerate(got):
+        check(res["triangles"] == sharded["triangles"],
+              f"rank {r} counted {res['triangles']} triangles on the mesh, "
+              f"the sharded phase {sharded['triangles']}")
+        for name in MESH_KERNELS:
+            check(res["launches"][name] > 0,
+                  f"{name} was never launched on mesh rank {r}")
+    lines = mesh_lines(got)
+    for row in lines["requests"]:
+        row["sharded_ms"] = mesh_in["request_ms"][row["i"]]
+    emit({"phase": "mesh", "card": gpu_line(), "ranks": SHARDS,
+          "backend": MESH_BACKEND,
+          "note": "the ranks time-slice one card and gloo stages their "
+                  "collectives through host memory: these times say "
+                  "nothing about NCCL across cards",
+          "triangles": got[0]["triangles"],
+          "triangles_s": [r["triangles_s"] for r in got],
+          "triangles_collective": [r["triangles_collective"] for r in got],
+          **lines, **reading, "stacked_replay_s": replay_s,
+          "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase})
+
+    # one NCCL rank: a 1-shard mesh against a 1-shard stacked store
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = nccl_job(torch, np, Path(tmp))
+        want = stacked_serve(torch, np, job)
+        got1 = run_mesh_job(job, 1, Path(tmp))
+    reading1 = check_mesh_ranks(np, got1, want, "nccl")
+    check(got1[0]["maintenance_count"] >= 1,
+          "the NCCL rank's store never compacted")
+    check(got1[0]["requests"][0]["collective"]["all_to_all_bytes"] > 0,
+          "the NCCL rank's update exchanged nothing")
+    emit({"phase": "mesh_nccl", "card": gpu_line(), "ranks": 1,
+          "backend": MESH_NCCL_BACKEND, **mesh_lines(got1), **reading1,
+          "maintenance_count": got1[0]["maintenance_count"],
+          "seconds": time.perf_counter() - t0})
+    return {"launches": [r["launches"] for r in got],
+            "nccl_launches": got1[0]["launches"]}
 
 
 # ----------------------------------------------------------------------------
@@ -2973,12 +3438,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- sharded
-    t0 = time.perf_counter()
-    sharded = sharded_phase(torch, np, ref3)
-    emit({"phase": "sharded", "seconds": time.perf_counter() - t0})
-    del ref3
-    gc.collect()
-    torch.cuda.empty_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        t0 = time.perf_counter()
+        sharded = sharded_phase(torch, np, ref3, Path(mesh_dir))
+        emit({"phase": "sharded", "seconds": time.perf_counter() - t0})
+        del ref3
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------- mesh
+        t0 = time.perf_counter()
+        mesh_phase(torch, np, sharded)
+        emit({"phase": "mesh", "seconds": time.perf_counter() - t0})
+        del sharded["mesh"]
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ triangles
     t0 = time.perf_counter()

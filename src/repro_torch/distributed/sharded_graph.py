@@ -9,11 +9,22 @@ axis, and every per-shard operation runs the per-graph engines (the update
 engine, the sweep, the compaction, the intersection count) on each shard's
 views in turn, so the in-place commits land in the stack.
 
-This is the one-device rendering of the reference's sharded plane (its
-``vmap`` dispatch, which runs anywhere): the cross-shard exchanges are
-reshapes over the shard axis (``collectives``).  The rendering with one
-process per card (``dispatch="shard_map"``, ``place_on_mesh``) is not
-ported yet and raises.
+Two renderings, as the reference's two dispatches, with equal pools leaf
+for leaf:
+
+* the one-device rendering (the reference's ``vmap`` dispatch, which runs
+  anywhere): every shard stacked on one device, the cross-shard exchanges
+  reshapes over the shard axis (``collectives``' stacked forms);
+* the multi-process rendering (the reference's ``shard_map`` dispatch):
+  ``place_on_mesh`` pins shard ``r`` to rank ``r`` of a ``("shard",)``
+  ``DeviceMesh`` (``ranks.init_shard_mesh``), one process a shard, SPMD.
+  The rank keeps its shard's pools with a leading shard axis of 1, so the
+  per-shard engine loop runs unchanged on it; an update routes the rank's
+  contiguous block of the batch and exchanges the buckets all-to-all
+  (``route_exchange``), the fixpoints sweep the rank's shard and
+  all-gather the global vector a super-step, and every result the
+  reference returns as a global array comes back replicated on every
+  rank.  ``dispatch="auto"`` picks the rendering from the graph.
 
 Ids stay int32 bit patterns (``INVALID_VERTEX`` is -1): owner and local id
 are computed on the unsigned value.
@@ -46,7 +57,10 @@ from ..core.worklist import pool_edges
 from ..kernels.slab_intersect.ops import count_edges_local
 from ..kernels.slab_sweep.ops import sweep_vertices
 from ..kernels.slab_update.ops import query_shards, update_shards
-from .collectives import gather_interleaved
+from .collectives import (exchange_buckets, gather_interleaved,
+                          max_across_shards, or_across_shards, ring_shift,
+                          sum_across_shards)
+from .ranks import SHARD_AXIS
 
 UNREACHED = 2 ** 30              # as algorithms.bfs.UNREACHED
 
@@ -63,33 +77,80 @@ def reset_fix_stats() -> None:
 
 @dataclasses.dataclass
 class ShardedSlabGraph:
-    graphs: SlabGraph             # every tensor field leads with n_shards
+    # every tensor field leads with n_shards, or with 1 (this rank's
+    # shard) on a mesh
+    graphs: SlabGraph
     n_shards: int
     n_vertices_global: int
+    #: the ("shard",) DeviceMesh the pools are placed on, or None for the
+    #: stacked one-device rendering
+    mesh: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
         return self.graphs.keys.device
 
+    @property
+    def group(self):
+        """The mesh's ``"shard"`` process group (None when stacked)."""
+        return None if self.mesh is None else self.mesh.get_group(SHARD_AXIS)
+
+    @property
+    def rank(self) -> Optional[int]:
+        """The shard this rank holds (None when stacked)."""
+        return (None if self.mesh is None
+                else self.mesh.get_local_rank(SHARD_AXIS))
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
 
 def place_on_mesh(sg: ShardedSlabGraph, mesh) -> ShardedSlabGraph:
-    """The multi-process rendering (one shard per card) is not ported yet:
-    ROADMAP.md, queue 1, item 4."""
-    raise NotImplementedError(
-        "place_on_mesh: the multi-process sharded rendering is not ported "
-        "yet (ROADMAP.md, queue 1, item 4); the one-device stacked "
-        "rendering needs no mesh")
+    """Pin the stacked pools to a ``("shard",)`` mesh of one rank a shard:
+    rank ``r`` keeps shard ``r``'s pools (a leading shard axis of 1) on
+    its device and drops the rest.  Every rank calls it with the same
+    stacked graph.  The mesh must be 1-D, named ``("shard",)``, with
+    exactly one rank per shard (``ValueError`` otherwise, as the
+    reference's)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if names != (SHARD_AXIS,):
+        raise ValueError(f"expected a ('{SHARD_AXIS}',) mesh, got axes "
+                         f"{names}")
+    if mesh.size() != sg.n_shards:
+        raise ValueError(f"mesh has {mesh.size()} ranks for {sg.n_shards} "
+                         "shards (need exactly one each)")
+    if sg.mesh is not None:
+        if sg.mesh is mesh:
+            return sg
+        raise ValueError("the pools are placed on another mesh already; "
+                         "restore the stacked pools and place them again")
+    r = mesh.get_local_rank(SHARD_AXIS)
+    dev = _mesh_device(mesh)
+    graphs = dataclasses.replace(sg.graphs, **{
+        f: None if getattr(sg.graphs, f) is None
+        else getattr(sg.graphs, f)[r:r + 1].to(dev, copy=True)
+        for f in FIELDS})
+    return dataclasses.replace(sg, graphs=graphs, mesh=mesh)
 
 
-def _resolve_dispatch(dispatch: str) -> str:
-    if dispatch in ("auto", "vmap"):
-        return "vmap"
-    if dispatch == "shard_map":
-        raise NotImplementedError(
-            "dispatch='shard_map' is the multi-process sharded rendering, "
-            "not ported yet (ROADMAP.md, queue 1, item 4); use 'vmap' or "
-            "'auto'")
-    raise ValueError(f"unknown dispatch {dispatch!r}")
+def _resolve_dispatch(dispatch: str, mesh=None) -> str:
+    """``"vmap"`` (stacked) or ``"shard_map"`` (mesh) for ``dispatch``;
+    ``"auto"`` follows the pools."""
+    if dispatch not in ("auto", "vmap", "shard_map"):
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+    if dispatch == "auto":
+        return "vmap" if mesh is None else "shard_map"
+    if dispatch == "shard_map" and mesh is None:
+        raise ValueError("dispatch='shard_map' needs mesh-placed pools; "
+                         "call place_on_mesh(sg, mesh) first")
+    if dispatch == "vmap" and mesh is not None:
+        raise ValueError("dispatch='vmap' runs the stacked pools, and a "
+                         "mesh-placed graph holds one shard a rank; use "
+                         "'shard_map' or 'auto'")
+    return dispatch
 
 
 def shard_empty(n_vertices_global: int, n_shards: int, *,
@@ -106,8 +167,29 @@ def shard_empty(n_vertices_global: int, n_shards: int, *,
 
 
 def shard_slice(sg: ShardedSlabGraph, k: int) -> SlabGraph:
-    """Shard ``k``'s local SlabGraph (views into the stacked pools)."""
+    """Shard ``k``'s local SlabGraph (views into the stacked pools).  On a
+    mesh a rank holds its own shard only; any other ``k`` raises
+    ``ValueError``."""
+    if sg.mesh is not None:
+        if k != sg.rank:
+            raise ValueError(f"rank {sg.rank} holds shard {sg.rank} only, "
+                             f"not shard {k}")
+        return shard_view(sg.graphs, 0)
     return shard_view(sg.graphs, k)
+
+
+def worst_next_free(sg: ShardedSlabGraph) -> int:
+    """The largest ``next_free`` over the shards (over the ranks on a
+    mesh, so every rank reads the same bound): one host read."""
+    return int(max_across_shards(sg.graphs.next_free.max(), sg.group))
+
+
+def global_vector(sg: ShardedSlabGraph, x: torch.Tensor) -> torch.Tensor:
+    """A per-shard vertex field of ``sg`` (its leading shard axis) as the
+    ``(V,)`` global vector, gathered over the ranks on a mesh."""
+    if sg.mesh is None:
+        return reassemble_global(x, sg.n_vertices_global)
+    return gather_interleaved(x[0], sg.n_vertices_global, sg.group)
 
 
 def _grow_rows(fields: dict, capacity: int) -> dict:
@@ -207,13 +289,15 @@ def ensure_capacity_sharded(sg: ShardedSlabGraph, extra_slabs: int, *,
 
     ``high`` is a host bound on the worst shard's allocated rows; without
     it the device is read once (the headroom ``next_free - free_top``,
-    crediting recyclable slabs).  Growth happens here, on the stacked
-    tensors, never inside a per-shard engine call: the engine writes
-    through views of the stack."""
+    crediting recyclable slabs; the worst over the ranks on a mesh, so
+    every rank grows to one row count).  Growth happens here, on the
+    stacked tensors, never inside a per-shard engine call: the engine
+    writes through views of the stack."""
     g = sg.graphs
     cap = g.keys.shape[1]
     if high is None:
-        high = int((g.next_free - g.free_top).max())
+        high = int(max_across_shards((g.next_free - g.free_top).max(),
+                                     sg.group))
     if cap - high >= extra_slabs:
         return sg
     target = max(high + extra_slabs, cap + cap // 2)
@@ -300,6 +384,39 @@ def route_edges(src: torch.Tensor, dst: torch.Tensor,
     return _route_body(src, dst, w, n_shards=n_shards, cap=cap)
 
 
+def route_exchange(src: torch.Tensor, dst: torch.Tensor,
+                   w: Optional[torch.Tensor], *, n_shards: int, cap: int,
+                   mesh):
+    """Owner routing on a mesh: this rank's ``(B_l,)`` contiguous block of
+    the batch (block ``r`` of rank ``r``) routed into ``(n_shards, cap)``
+    per-owner buckets (``_route_body``'s plan at 1/S the size), then the
+    buckets exchanged all-to-all, so row ``i`` holds what rank ``i``
+    routed here.
+
+    Returns ``(bsrc, bdst, bw, origin, overflow)`` flattened to
+    ``(n_shards * cap,)``: this rank's edges in global batch order with
+    INVALID padding at each source segment's tail (interior padding,
+    where the stacked routing pads only the tail: the update engine sorts
+    pads last, so its pools do not depend on where they sit).  ``origin``
+    holds global batch positions; ``overflow`` is the largest witness over
+    the ranks, the same on every rank.  One all-to-all carries src, dst,
+    origin and the weights' bits together."""
+    me = mesh.get_local_rank(SHARD_AXIS)
+    group = mesh.get_group(SHARD_AXIS)
+    n_local = src.shape[0]
+    bsrc, bdst, bw, origin, over = _route_body(src, dst, w,
+                                               n_shards=n_shards, cap=cap)
+    origin = torch.where(origin >= 0, origin + me * n_local, -1)
+    cols = [bsrc, bdst, origin]
+    if bw is not None:
+        cols.append(bw.view(torch.int32))
+    got = exchange_buckets(torch.stack(cols, dim=-1), group)
+    flat = got.reshape(-1, len(cols))
+    bw = None if bw is None else flat[:, 3].contiguous().view(torch.float32)
+    return (flat[:, 0].contiguous(), flat[:, 1].contiguous(), bw,
+            flat[:, 2].contiguous(), max_across_shards(over, group))
+
+
 def _pow2ceil(n: int) -> int:
     """Smallest power of two >= n, with a floor of 1."""
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
@@ -347,23 +464,52 @@ def routing_cap_blocks(src, n_shards: int, block: int) -> int:
     return _pow2ceil(int(counts.max(initial=0)))
 
 
+def _shard_blocks(sg: ShardedSlabGraph, src, dst, w):
+    """A mesh rank's contiguous block of a ``(B,)`` batch that every rank
+    holds, padded with INVALID to a multiple of the shard count."""
+    S, me = sg.n_shards, sg.rank
+    p = -(-src.shape[0] // S) * S
+    if p != src.shape[0]:
+        pad = p - src.shape[0]
+
+        def padded(x, fill):
+            return torch.cat([x, x.new_full((pad,), fill)])
+
+        src, dst = padded(src, INVALID_VERTEX), padded(dst, INVALID_VERTEX)
+        w = None if w is None else padded(w, 0.0)
+    n = p // S
+    blk = slice(me * n, (me + 1) * n)
+    return src[blk], dst[blk], None if w is None else w[blk]
+
+
 def _resolve_routing(sg: ShardedSlabGraph, src, dst, w, cap: Optional[int]):
-    """Route with a cap that places every edge.
+    """Route with a cap that places every edge; buckets ``(n_shards,
+    cap)`` stacked, ``(1, n_shards * cap)`` on a mesh (this rank's engine
+    batch, ``route_exchange``).
 
     ``cap=None`` (only None: ``cap=0`` is an explicit, growable size) is
-    the full batch length, which no owner bucket can exceed.  A smaller
-    cap is checked against the overflow witness on the host (one read)
-    and grown (power of two) until every edge lands; a retry budget turns
-    an overflow storm (a fault plan's ``route.resolve`` site) into
+    the routed length (the batch, or a mesh rank's block of it), which no
+    owner bucket can exceed.  A smaller cap is checked against the
+    overflow witness on the host (one read; the same on every rank) and
+    grown (power of two) until every edge lands; a retry budget turns an
+    overflow storm (a fault plan's ``route.resolve`` site) into
     ``RetryExhausted`` instead of a spin."""
+    if sg.mesh is not None:
+        src, dst, w = _shard_blocks(sg, src, dst, w)
     n = src.shape[0]
     if cap is None:
         cap = n
     attempts = 0
     max_attempts = max(4, n.bit_length() + 2)
     while True:
-        bsrc, bdst, bw, origin, overflow = route_edges(
-            src, dst, w, n_shards=sg.n_shards, cap=cap)
+        if sg.mesh is None:
+            bsrc, bdst, bw, origin, overflow = route_edges(
+                src, dst, w, n_shards=sg.n_shards, cap=cap)
+        else:
+            bsrc, bdst, bw, origin, overflow = route_exchange(
+                src, dst, w, n_shards=sg.n_shards, cap=cap, mesh=sg.mesh)
+            bsrc, bdst = bsrc[None], bdst[None]
+            bw = None if bw is None else bw[None]
         if cap >= n:          # no bucket can overflow: no host read
             return bsrc, bdst, bw, origin
         from ..resilience import faults
@@ -397,6 +543,17 @@ def _scatter_back(mask: torch.Tensor, origin: torch.Tensor,
     return out[:n]
 
 
+def _batch_mask(sg: ShardedSlabGraph, mask: torch.Tensor,
+                origin: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-slot engine results to the ``(n,)`` mask over the caller's
+    batch; on a mesh each rank holds the slots it owns, so the partial
+    masks are ORed over the ranks (the same mask on every rank)."""
+    if sg.mesh is None:
+        return _scatter_back(mask, origin, n)
+    p = -(-n // sg.n_shards) * sg.n_shards
+    return or_across_shards(_scatter_back(mask, origin, p), sg.group)[:n]
+
+
 # ----------------------------------------------------------------------------
 # batched mutation through the update engine
 # ----------------------------------------------------------------------------
@@ -412,13 +569,15 @@ def insert_edges_sharded(sg: ShardedSlabGraph, src: torch.Tensor,
     """Batched insert across shards: owner routing, then one
     ``update_shards``.  ``cap`` bounds the per-shard batch (None: the
     whole batch, always safe; a smaller cap grows on overflow).  Consumes
-    ``sg`` (in-place commit); returns the inserted mask over the batch."""
+    ``sg`` (in-place commit); returns the inserted mask over the batch.
+    On a mesh every rank passes the same batch and gets the same mask,
+    and ``cap`` bounds a (source rank, owner) bucket."""
     if src.shape[0] == 0:
         return sg, _empty_mask(sg)
     bsrc, bdst, bw, origin = _resolve_routing(sg, src, dst, w, cap)
     graphs, ins, _ = update_shards(sg.graphs, ins=(bsrc, bdst, bw))
     return (dataclasses.replace(sg, graphs=graphs),
-            _scatter_back(ins, origin, src.shape[0]))
+            _batch_mask(sg, ins, origin, src.shape[0]))
 
 
 def delete_edges_sharded(sg: ShardedSlabGraph, src: torch.Tensor,
@@ -429,7 +588,7 @@ def delete_edges_sharded(sg: ShardedSlabGraph, src: torch.Tensor,
     bsrc, bdst, _, origin = _resolve_routing(sg, src, dst, None, cap)
     graphs, _, dele = update_shards(sg.graphs, dels=(bsrc, bdst))
     return (dataclasses.replace(sg, graphs=graphs),
-            _scatter_back(dele, origin, src.shape[0]))
+            _batch_mask(sg, dele, origin, src.shape[0]))
 
 
 def query_edges_sharded(sg: ShardedSlabGraph, src: torch.Tensor,
@@ -439,7 +598,7 @@ def query_edges_sharded(sg: ShardedSlabGraph, src: torch.Tensor,
         return _empty_mask(sg)
     bsrc, bdst, _, origin = _resolve_routing(sg, src, dst, None, cap)
     found = query_shards(sg.graphs, bsrc, bdst)
-    return _scatter_back(found, origin, src.shape[0])
+    return _batch_mask(sg, found, origin, src.shape[0])
 
 
 def apply_update_sharded(sg: ShardedSlabGraph, ins_src=None, ins_dst=None,
@@ -463,9 +622,9 @@ def apply_update_sharded(sg: ShardedSlabGraph, ins_src=None, ins_dst=None,
     graphs, ins_m, del_m = update_shards(sg.graphs, ins=ins, dels=dels)
     sg = dataclasses.replace(sg, graphs=graphs)
     ins_mask = (None if ins_m is None
-                else _scatter_back(ins_m, ins_origin, ins_src.shape[0]))
+                else _batch_mask(sg, ins_m, ins_origin, ins_src.shape[0]))
     del_mask = (None if del_m is None
-                else _scatter_back(del_m, del_origin, del_src.shape[0]))
+                else _batch_mask(sg, del_m, del_origin, del_src.shape[0]))
     return sg, ins_mask, del_mask
 
 
@@ -500,9 +659,26 @@ def _run_sharded_fix(sg: ShardedSlabGraph, dispatch: str,
     slice_local)`` returns ``(result (V,), iterations)``: ``sweep(values,
     frontier, semiring)`` is the per-shard sweep, stacked
     ``(n_shards, n_local)``; ``exchange`` lifts that to ``(V,)``;
-    ``slice_local`` takes a ``(V,)`` vector's owned slices, stacked."""
-    _resolve_dispatch(dispatch)
+    ``slice_local`` takes a ``(V,)`` vector's owned slices, stacked.
+
+    On a mesh (``shard_map``) the sweep is this rank's shard alone,
+    ``(n_local,)``, the exchange an all-gather over the ranks and
+    ``slice_local`` the rank's strided slice: every rank holds the same
+    global vectors, so the loop's host reads, and with them the iteration
+    counts, agree on every rank, and each returns the full result."""
+    mode = _resolve_dispatch(dispatch, sg.mesh)
     V, S = sg.n_vertices_global, sg.n_shards
+    if mode == "shard_map":
+        g, group = shard_view(sg.graphs, 0), sg.group
+        idx = _local_slice_idx(V, S, sg.rank, sg.device)
+
+        def sweep_local(values, frontier, semiring):
+            return sweep_vertices(g, values, semiring=semiring,
+                                  frontier=frontier, n_keys=V, rows=rows)
+
+        return fix_of(sweep_local,
+                      lambda x: gather_interleaved(x, V, group),
+                      lambda x_glob: x_glob[idx])
     idx_all = torch.stack([_local_slice_idx(V, S, s, sg.device)
                            for s in range(S)])
 
@@ -672,25 +848,57 @@ def triangle_counts_sharded(graphs: SlabGraph, *, impl: str = "auto",
     return torch.stack(totals)
 
 
+def _triangle_share_mesh(sg: ShardedSlabGraph, *, impl: str,
+                         max_bpv: int) -> torch.Tensor:
+    """This rank's share of 6T on a mesh: its shard ``k`` is G2, and G1
+    walks the ring, shard ``(k + r) % S`` at rotation ``r`` (the fields
+    kernel 7 reads of it passed one rank on a rotation, as the
+    reference's S rotations of the stacked G1)."""
+    S, k = sg.n_shards, sg.rank
+    g2 = shard_view(sg.graphs, 0)
+    es, ed = _shard_edges(g2)
+    owner = owner_of(ed, S)
+    u_local = local_id(ed, S)
+    g1 = (g2.keys, g2.next_slab, g2.bucket_offset, g2.bucket_count)
+    total = torch.zeros((), dtype=torch.int64, device=sg.device)
+    for r in range(S):
+        if r:
+            g1 = tuple(ring_shift(g1, sg.group))
+        g1_graph = dataclasses.replace(
+            g2, keys=g1[0], next_slab=g1[1], bucket_offset=g1[2],
+            bucket_count=g1[3])
+        total = total + count_edges_local(
+            g1_graph, g2, u_local, es, owner == (k + r) % S, impl=impl,
+            max_bpv=max_bpv)
+    return total
+
+
 def triangles_sharded(sg_sym: ShardedSlabGraph, *, impl: str = "auto",
                       max_bpv: Optional[int] = None) -> torch.Tensor:
     """Global triangle count over the symmetric sharded view, a 0-d int64
     tensor (the sum of 6T fits where the reference's int32 sum wraps).
     Equal to ``algorithms.triangles_static`` on the unsharded union.
     ``max_bpv`` defaults to the power of two at or above the largest
-    bucket count over the shards."""
+    bucket count over the shards.  On a mesh each rank counts its shard's
+    share and the shares are summed in int64 over the ranks (the same
+    count on every rank)."""
     graphs = sg_sym.graphs
     if max_bpv is None:
-        max_bpv = next_pow2(int(graphs.bucket_count.max()), lo=1)
-    return triangle_counts_sharded(graphs, impl=impl,
-                                   max_bpv=max_bpv).sum() // 6
+        max_bpv = next_pow2(int(max_across_shards(graphs.bucket_count.max(),
+                                                  sg_sym.group)), lo=1)
+    if sg_sym.mesh is None:
+        return triangle_counts_sharded(graphs, impl=impl,
+                                       max_bpv=max_bpv).sum() // 6
+    share = _triangle_share_mesh(sg_sym, impl=impl, max_bpv=max_bpv)
+    return sum_across_shards(share, sg_sym.group) // 6
 
 
 __all__ = [
-    "UNREACHED", "FIX_STATS", "reset_fix_stats",
+    "UNREACHED", "FIX_STATS", "reset_fix_stats", "SHARD_AXIS",
     "ShardedSlabGraph", "place_on_mesh", "shard_empty", "shard_slice",
     "shard_from_edges_host", "owner_of", "local_id", "global_id",
-    "reassemble_global", "ensure_capacity_sharded", "route_edges",
+    "reassemble_global", "global_vector", "worst_next_free",
+    "ensure_capacity_sharded", "route_edges", "route_exchange",
     "routing_cap", "max_owner_count", "routing_cap_blocks",
     "insert_edges_sharded", "delete_edges_sharded", "query_edges_sharded",
     "apply_update_sharded", "pagerank_sharded", "wcc_sharded",

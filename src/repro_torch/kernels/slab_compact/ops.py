@@ -31,7 +31,7 @@ rectangular.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -237,13 +237,19 @@ def reclaim_free_slabs(g: SlabGraph) -> Tuple[SlabGraph, int]:
 @timed_dispatch("slab_compact")
 def compact_shards(graphs: SlabGraph, *, impl: str = "auto",
                    capacity_slabs: Optional[int] = None,
-                   slack_slabs: int = 64, shrink: bool = True
+                   slack_slabs: int = 64, shrink: bool = True,
+                   agree_need: Optional[Callable[[int], int]] = None
                    ) -> Tuple[SlabGraph, CompactionReport]:
     """Compact a shard-stacked graph (a leading shard axis on every tensor
     field).  Every shard lands on one power-of-two capacity, sized from
     the largest survivor need over the shards, so the stack stays
     rectangular.  The report sums over the shards; ``perm`` is
-    ``(n_shards, S_old)``.  Consumes ``graphs``."""
+    ``(n_shards, S_old)``.  Consumes ``graphs``.
+
+    Where the plane's other shards lie in other processes, ``agree_need``
+    turns this stack's need (rows) into the one they all size from (the
+    sharded store's mesh passes a max over its ranks); the report's
+    counts stay this stack's."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     if impl != "oracle":
@@ -254,6 +260,8 @@ def compact_shards(graphs: SlabGraph, *, impl: str = "auto",
     extra = ((counts_h + SLAB_WIDTH - 1) // SLAB_WIDTH - 1).clamp_min(0)
     nb, old_cap = graphs.n_buckets, graphs.keys.shape[1]
     needed = nb + int(extra.sum(dim=1).max())
+    if agree_need is not None:
+        needed = agree_need(needed)
     cap = _pick_capacity(needed, old_cap, nb, capacity_slabs=capacity_slabs,
                          slack_slabs=slack_slabs, shrink=shrink)
     outs = [compact_ref(g, capacity_slabs=cap) if impl == "oracle"

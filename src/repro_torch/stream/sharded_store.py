@@ -1,5 +1,5 @@
 """ShardedGraphStore: the versioned multi-view update plane, vertex-
-partitioned into shards on one device.
+partitioned into shards: stacked on one device, or one shard a process.
 
 The sharded rendering of ``GraphStore``: the forward, transpose and
 symmetric views are each a ``ShardedSlabGraph`` (stacked shard-local
@@ -21,20 +21,28 @@ plus the distribution rules:
      commit kernels on the card), shard by shard on views of the stacked
      pools; growth happens on the stacked pools before the engine runs
      (``ensure_capacity_sharded``), so the engine never reallocates a
-     pool it writes through;
+     pool it writes through.  Two renderings with equal pools leaf for
+     leaf, as the reference's two dispatches: the stacked one
+     (``vmap``), and the multi-process one (``shard_map``, after
+     ``place_on_mesh``): each rank routes its contiguous block of the
+     batch, exchanges the buckets all-to-all (``route_exchange``) and
+     mutates its own shard (``_apply_epoch_mesh``);
   5. the epoch closes with ``update_slab_pointers`` on the stacked pools;
      the version, the bounded batch log and the listeners are
      ``GraphStore``'s, so ``PropertyRegistry`` and ``RequestPipeline``
      work unchanged;
   6. capacity headroom and the analytics' sweep bounds come from host
      accounting (``_high``, ``sweep_rows``): steady epochs never read the
-     device for them.
+     device for them.  On a mesh every host decision (caps, growth,
+     maintenance, fixpoint lengths) is taken from values that are equal
+     on every rank (the canonical batch every rank holds, maxima and sums
+     over the ranks), so the ranks' collectives never diverge.
 
 The whole fused epoch records as one ``slab_update.update_shards``
-dispatch in the kernel statistics (``obs.instrument``).  The sharded
-``stream_property`` hooks (PageRank, WCC, BFS, triangles) live here too.
-The multi-process rendering (``dispatch="shard_map"``, ``place_on_mesh``)
-is not ported yet and raises.
+dispatch in the kernel statistics (``obs.instrument``), one a rank on a
+mesh.  The sharded ``stream_property`` hooks (PageRank, WCC, BFS,
+triangles) live here too, and on a mesh return the same result on every
+rank.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs
 from ..core.device import resolve_device
@@ -52,14 +61,19 @@ from ..core.hashing import INVALID_VERTEX, SLAB_WIDTH
 from ..core.slab_graph import (FIELDS, SlabGraph, next_pow2, pool_stats,
                                update_slab_pointers)
 from ..core.worklist import EdgeFrontier, expand_vertices
+from ..distributed.collectives import (gather_objects, gather_stacked,
+                                      max_across_shards, or_across_shards,
+                                      sum_across_shards)
 from ..distributed.sharded_graph import (ShardedSlabGraph, _resolve_dispatch,
                                          _route_body, _scatter_back,
                                          bfs_sharded, ensure_capacity_sharded,
-                                         max_owner_count, pagerank_sharded,
-                                         place_on_mesh, reassemble_global,
-                                         routing_cap, shard_from_edges_host,
-                                         shard_slice, triangles_sharded,
-                                         wcc_sharded)
+                                         global_vector, max_owner_count,
+                                         pagerank_sharded, place_on_mesh,
+                                         route_exchange, routing_cap,
+                                         routing_cap_blocks,
+                                         shard_from_edges_host, shard_slice,
+                                         triangles_sharded, wcc_sharded,
+                                         worst_next_free)
 from ..kernels.slab_compact import compact_shards, reclaim_shards
 from ..kernels.slab_update.ops import query_shards, update_shards
 from ..obs.instrument import timed_dispatch
@@ -141,6 +155,126 @@ def _apply_epoch(views, ins, dels, *, roles, caps):
     return tuple(views), ins_mask, del_mask
 
 
+def _engine(sg: ShardedSlabGraph, s, d, w=None, *, dels: bool):
+    """One routed ``(W,)`` engine batch on a mesh rank's shard; ``(sg,
+    mask (1, W))``."""
+    if dels:
+        graphs, _, m = update_shards(sg.graphs, dels=(s[None], d[None]))
+    else:
+        graphs, m, _ = update_shards(
+            sg.graphs, ins=(s[None], d[None], None if w is None else w[None]))
+    return dataclasses.replace(sg, graphs=graphs), m
+
+
+def _valid_first(n: int, invalid: torch.Tensor) -> torch.Tensor:
+    """The first ``n`` positions of a stable valid-first order: the
+    compaction that keeps a bucket's edges in global batch order."""
+    return torch.sort(invalid.to(torch.uint8), stable=True).indices[:n]
+
+
+@timed_dispatch("slab_update", op="update_shards")
+def _apply_epoch_mesh(views, ins, dels, *, roles, caps):
+    """The reference's ``shard_map`` epoch (``_sharded_apply_sm``) on this
+    rank's shard of every view: ``(views, inserted_mask | None,
+    deleted_mask | None)``, the masks over the whole batch and the same on
+    every rank.  ``ins``/``dels`` are the padded canonical batch every
+    rank holds (a multiple of S long); the rank routes its contiguous
+    block.  ``caps`` holds (pair, total) caps for the forward and reverse
+    routes and plain totals for the symmetric view, which routes nothing
+    of its own: its candidates ride the forward and reverse exchanges.
+    Consumes the views."""
+    fwd_del, tr_del, sym_del, fwd_ins, tr_ins, sym_ins = caps
+    views = list(views)
+    fidx = roles.index(FORWARD)
+    mesh, group = views[fidx].mesh, views[fidx].group
+    S, me = views[fidx].n_shards, views[fidx].rank
+    need_rev = len(roles) > 1
+    ins_mask = del_mask = None
+
+    def block(x):
+        if x is None:
+            return None
+        n = x.shape[0] // S
+        return x[me * n:(me + 1) * n]
+
+    def route(s, d, w, cap):
+        # pair buckets of (source block, owner), exchanged, then the
+        # (S * cap_pair,) interior-padded flatten compacted valid first to
+        # the total cap: the stacked rendering's bucket row
+        cap_pair, cap_tot = cap
+        bs, bd, bw, orig, _ = route_exchange(block(s), block(d), block(w),
+                                             n_shards=S, cap=cap_pair,
+                                             mesh=mesh)
+        if cap_tot < bs.shape[0]:
+            keep = _valid_first(cap_tot, orig < 0)
+            bs, bd, orig = bs[keep], bd[keep], orig[keep]
+            bw = None if bw is None else bw[keep]
+        return bs, bd, bw, orig
+
+    def compact(cap_tot, s, d, w=None):
+        # the symmetric ride-along is compacted to its total cap only on a
+        # 2x width cut (the engine's pools do not depend on the padding)
+        if cap_tot * 2 > s.shape[0]:
+            return s, d, w
+        keep = _valid_first(cap_tot, s == INVALID_VERTEX)
+        return s[keep], d[keep], None if w is None else w[keep]
+
+    def kept(mask, s, d, orig):
+        on = (orig >= 0) & mask[orig.clamp_min(0).long()]
+        return (torch.where(on, s, INVALID_VERTEX),
+                torch.where(on, d, INVALID_VERTEX))
+
+    if dels is not None:
+        ds, dd = dels
+        n_del = ds.shape[0]
+        bs, bd, _, orig = route(ds, dd, None, fwd_del)
+        views[fidx], m = _engine(views[fidx], bs, bd, dels=True)
+        del_part = _scatter_back(m, orig, n_del)
+        if need_rev:
+            # one reverse exchange feeds the transpose delete, the
+            # reverse-existence query and the symmetric delete's reverse
+            # half
+            rbs, rbd, _, rorig = route(dd, ds, None, tr_del)
+        for i, role in enumerate(roles):
+            if role == TRANSPOSE:
+                views[i], _ = _engine(views[i], rbs, rbd, dels=True)
+            elif role == SYMMETRIC:
+                found = query_shards(views[fidx].graphs, rbs[None], rbd[None])
+                gone = ~or_across_shards(_scatter_back(found, rorig, n_del),
+                                         group)
+                fs, fd = kept(gone, bs, bd, orig)
+                rs, rd = kept(gone, rbs, rbd, rorig)
+                cs, cd, _ = compact(sym_del, torch.cat([fs, rs]),
+                                    torch.cat([fd, rd]))
+                views[i], _ = _engine(views[i], cs, cd, dels=True)
+        del_mask = or_across_shards(del_part, group)
+
+    if ins is not None:
+        s, d, w = ins
+        n_ins = s.shape[0]
+        bs, bd, bw, orig = route(s, d, w, fwd_ins)
+        views[fidx], m = _engine(views[fidx], bs, bd, bw, dels=False)
+        ins_part = _scatter_back(m, orig, n_ins)
+        if need_rev:
+            tbs, tbd, tbw, _ = route(d, s, w, tr_ins)
+        for i, role in enumerate(roles):
+            if role == TRANSPOSE:
+                views[i], _ = _engine(views[i], tbs, tbd, tbw, dels=False)
+            elif role == SYMMETRIC:
+                # the forward bucket holds this rank's (s, d) half and the
+                # transpose bucket its (d, s) half: their concat is the
+                # stacked rendering's symmetric bucket
+                cs, cd, cw = compact(
+                    sym_ins, torch.cat([bs, tbs]), torch.cat([bd, tbd]),
+                    None if bw is None else torch.cat([bw, tbw]))
+                views[i], _ = _engine(views[i], cs, cd, cw, dels=False)
+        ins_mask = or_across_shards(ins_part, group)
+
+    views = [dataclasses.replace(v, graphs=update_slab_pointers(v.graphs))
+             for v in views]
+    return tuple(views), ins_mask, del_mask
+
+
 def _cap_rung(n: int) -> int:
     """Sticky-cap rungs: powers of two up to 256, multiples of 256 past
     that (a pure power-of-two ladder wastes up to 2x bucket width at
@@ -163,10 +297,16 @@ def _sym_concat_ids(a, b, p: int) -> np.ndarray:
 # the store
 # ----------------------------------------------------------------------------
 
+#: where the store methods that a mesh store does not run are listed
+_MESH_TODO = "ROADMAP.md, queue 1, item 4.1"
+
+
 class ShardedGraphStore(VersionedStoreBase):
     """Forward, transpose and symmetric ShardedSlabGraph views as one
-    versioned unit on one device (``VersionedStoreBase``'s version, log,
-    listener and maintenance protocol)."""
+    versioned unit (``VersionedStoreBase``'s version, log, listener and
+    maintenance protocol): stacked on one device, or, after
+    ``place_on_mesh``, one shard a rank, every rank calling the same
+    methods with the same arguments."""
 
     def __init__(self, views: Dict[str, ShardedSlabGraph], *, weighted: bool,
                  version: int = 0, log_capacity: int = 64,
@@ -176,7 +316,8 @@ class ShardedGraphStore(VersionedStoreBase):
         unknown = set(views) - set(ALL_VIEWS)
         if unknown:
             raise ValueError(f"unknown views {unknown}")
-        _resolve_dispatch(dispatch)
+        if dispatch not in ("auto", "vmap", "shard_map"):
+            raise ValueError(f"unknown dispatch {dispatch!r}")
         super().__init__(version=version, log_capacity=log_capacity,
                          maintenance=maintenance)
         self._views = dict(views)
@@ -186,20 +327,63 @@ class ShardedGraphStore(VersionedStoreBase):
         # host accounting: _high_water[name] bounds the view's worst-shard
         # next_free (one read to prime, then per-epoch routed-insert
         # counts); _sticky_caps[(mode, slot)] only ratchet up (reset at
-        # maintenance), keyed as the reference's checkpoints key them
+        # maintenance), keyed as the reference's checkpoints key them;
+        # recompile_count counts the distinct dispatch keys (mode, views,
+        # caps, batch rungs, weights), the reference's jit
+        # specialisations
         self._high_water: Dict[str, int] = {}
         self._sticky_caps: Dict[tuple, int] = {}
+        self._dispatch_keys: set = set()
+        self.recompile_count = 0
 
+    # ------------------------------------------------------ mesh, dispatch
     def place_on_mesh(self, mesh) -> "ShardedGraphStore":
-        return place_on_mesh(self.forward, mesh)
+        """Pin every view's shards to the ``("shard",)`` mesh, one rank a
+        shard (``distributed.sharded_graph.place_on_mesh``; every rank
+        calls it on the same stacked store).  From then on
+        ``dispatch="auto"`` runs epochs, queries and analytics as the
+        multi-process rendering.  Returns self."""
+        if self.wal is not None or self.audits is not None:
+            raise NotImplementedError(
+                "a mesh store runs no WAL and no audits yet "
+                f"({_MESH_TODO}); detach them before place_on_mesh")
+        for name in list(self._views):
+            self._views[name] = place_on_mesh(self._views[name], mesh)
+        self.device = self.forward.device
+        return self
+
+    @property
+    def mesh(self):
+        return self.forward.mesh
+
+    def _mode(self) -> str:
+        """``"vmap"`` (stacked) or ``"shard_map"`` (mesh)."""
+        return _resolve_dispatch(self.dispatch, self.mesh)
+
+    def _mesh_only_stacked(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh-placed ShardedGraphStore is not ported "
+                f"({_MESH_TODO}); save, restore and recover it stacked")
+
+    def attach_wal(self, wal) -> "ShardedGraphStore":
+        self._mesh_only_stacked("attach_wal")
+        return super().attach_wal(wal)
+
+    def attach_audits(self, policy) -> "ShardedGraphStore":
+        self._mesh_only_stacked("attach_audits")
+        return super().attach_audits(policy)
+
+    def audit(self, *, views=None, cross_view: bool = True):
+        self._mesh_only_stacked("audit")
+        return super().audit(views=views, cross_view=cross_view)
 
     # ------------------------------------------------------- host accounting
     def _high(self, name: str) -> int:
         """Host bound on the view's worst-shard ``next_free`` (one read to
         prime, exact insert accounting afterwards)."""
         if name not in self._high_water:
-            self._high_water[name] = int(
-                self._views[name].graphs.next_free.max())
+            self._high_water[name] = worst_next_free(self._views[name])
         return self._high_water[name]
 
     def sweep_rows(self, view: str = FORWARD) -> int:
@@ -283,20 +467,20 @@ class ShardedGraphStore(VersionedStoreBase):
 
     @property
     def n_edges(self) -> int:
-        return int(self.forward.graphs.n_edges.sum())
+        return int(sum_across_shards(self.forward.graphs.n_edges.sum(),
+                                     self.forward.group))
 
     @property
     def out_degree(self) -> torch.Tensor:
         """Global out-degrees, reassembled from the forward shards."""
-        return reassemble_global(self.forward.graphs.degree, self.n_vertices)
+        return global_vector(self.forward, self.forward.graphs.degree)
 
     @property
     def in_degree(self) -> torch.Tensor:
         if self.transpose is None:
             raise ValueError("in-degrees live on the transpose view; build "
                              "the store with with_transpose=True")
-        return reassemble_global(self.transpose.graphs.degree,
-                                 self.n_vertices)
+        return global_vector(self.transpose, self.transpose.graphs.degree)
 
     # ----------------------------------------------------------------- apply
     def apply(self, ins_src=None, ins_dst=None, ins_w=None,
@@ -346,7 +530,7 @@ class ShardedGraphStore(VersionedStoreBase):
         _flight.record(_FL_ADMIT, self.version, len(i_s), len(d_s))
         roles = tuple(v for v in ALL_VIEWS if v in self._views)
         S = self.n_shards
-        mode = "vmap"
+        mode = self._mode()
         if obs.metrics.enabled():
             self._route_metrics(i_s, d_s, S)
 
@@ -357,20 +541,30 @@ class ShardedGraphStore(VersionedStoreBase):
         p_del = padded(len(d_s)) if len(d_s) else 0
         p_ins = padded(len(i_s)) if len(i_s) else 0
 
-        def cap_of(slot, arr):
-            return (1 if not len(arr) else
-                    self._cap(mode, slot,
-                              _cap_rung(max_owner_count(arr, S))))
+        def cap_of(slot, arr, block=None):
+            # the total cap (the stacked bucket width); on a mesh the
+            # forward and reverse routes also carry the (source block,
+            # owner) pair cap their all-to-all buckets route through
+            tot = (1 if not len(arr) else
+                   self._cap(mode, slot, _cap_rung(max_owner_count(arr, S))))
+            if mode != "shard_map" or block is None:
+                return tot
+            pair = (1 if not len(arr) else
+                    self._cap(mode, slot + "_pair",
+                              routing_cap_blocks(arr, S, block)))
+            return (pair, tot)
 
         with obs.span("store.apply.route", mode=mode):
-            fwd_ins = tr_ins = fwd_del = tr_del = sym_ins = sym_del = 1
+            one = (1, 1) if mode == "shard_map" else 1
+            fwd_ins = tr_ins = fwd_del = tr_del = one
+            sym_ins = sym_del = 1
             if len(d_s):
-                fwd_del = cap_of("fwd_del", d_s)
-                tr_del = cap_of("tr_del", d_d)
+                fwd_del = cap_of("fwd_del", d_s, p_del // S)
+                tr_del = cap_of("tr_del", d_d, p_del // S)
                 sym_del = cap_of("sym_del", _sym_concat_ids(d_s, d_d, p_del))
             if len(i_s):
-                fwd_ins = cap_of("fwd_ins", i_s)
-                tr_ins = cap_of("tr_ins", i_d)
+                fwd_ins = cap_of("fwd_ins", i_s, p_ins // S)
+                tr_ins = cap_of("tr_ins", i_d, p_ins // S)
                 sym_ins = cap_of("sym_ins", _sym_concat_ids(i_s, i_d, p_ins))
                 per_view = {
                     FORWARD: max_owner_count(i_s, S),
@@ -388,8 +582,7 @@ class ShardedGraphStore(VersionedStoreBase):
                         # paying for growth
                         faults.fault_point("store.capacity_grow",
                                            view=name, version=self.version)
-                        self._high_water[name] = int(
-                            sg.graphs.next_free.max())
+                        self._high_water[name] = worst_next_free(sg)
                         self._views[name] = ensure_capacity_sharded(
                             sg, reserve, high=self._high_water[name])
                         cap_after = int(
@@ -435,9 +628,17 @@ class ShardedGraphStore(VersionedStoreBase):
             n_inserted = n_deleted = 0
             ins_mask = del_mask = None
             if ins is not None or dels is not None:
+                key = (mode, roles, caps, p_del, p_ins, i_w is not None)
+                if key not in self._dispatch_keys:
+                    self._dispatch_keys.add(key)
+                    self.recompile_count += 1
+                    obs.inc("store.sharded.recompiles")
+                    obs.instant("sharded_recompile", mode=mode)
+                epoch = (_apply_epoch_mesh if mode == "shard_map"
+                         else _apply_epoch)
                 with obs.span("store.apply.dispatch", mode=mode,
                               version=self.version, views=len(roles)):
-                    new_views, ins_mask, del_mask = _apply_epoch(
+                    new_views, ins_mask, del_mask = epoch(
                         tuple(self._views[r] for r in roles), ins, dels,
                         roles=roles, caps=caps)
                     for r, v in zip(roles, new_views):
@@ -486,10 +687,17 @@ class ShardedGraphStore(VersionedStoreBase):
                    ) -> dict:
         """Pool health over the view's shards (per-shard
         ``core.pool_stats`` summed or maxed, so the policy's thresholds
-        read as on the unsharded store; the capacity is per shard)."""
+        read as on the unsharded store; the capacity is per shard).  On a
+        mesh the ranks' shard stats are gathered first, so every rank
+        reads the same numbers and takes the same maintenance decision."""
         sg = self._views[view]
-        per = [pool_stats(shard_slice(sg, k), chains=chains)
-               for k in range(self.n_shards)]
+        if sg.mesh is None:
+            per = [pool_stats(shard_slice(sg, k), chains=chains)
+                   for k in range(self.n_shards)]
+        else:
+            per = gather_objects(
+                pool_stats(shard_slice(sg, sg.rank), chains=chains),
+                sg.group)
         live = sum(p["live_lanes"] for p in per)
         tomb = sum(p["tombstone_lanes"] for p in per)
         alloc = sum(p["allocated_slabs"] for p in per)
@@ -516,12 +724,31 @@ class ShardedGraphStore(VersionedStoreBase):
 
     def _compact_view(self, sg: ShardedSlabGraph, *, shrink: bool,
                       slack_slabs: int):
+        if sg.mesh is None:
+            graphs, rep = compact_shards(sg.graphs, shrink=shrink,
+                                         slack_slabs=slack_slabs)
+            return dataclasses.replace(sg, graphs=graphs), rep
+        # every rank lands on one capacity and reads one report
+
+        def across(x, reduce=max_across_shards) -> int:
+            return int(reduce(torch.as_tensor(x, device=sg.device),
+                              sg.group))
+
+        old_next_free = across(sg.graphs.next_free.max())
         graphs, rep = compact_shards(sg.graphs, shrink=shrink,
-                                     slack_slabs=slack_slabs)
+                                     slack_slabs=slack_slabs,
+                                     agree_need=across)
+        rep = dataclasses.replace(
+            rep, live_lanes=across(rep.live_lanes, sum_across_shards),
+            old_next_free=old_next_free,
+            new_next_free=across(graphs.next_free.max()))
         return dataclasses.replace(sg, graphs=graphs), rep
 
     def _reclaim_view(self, sg: ShardedSlabGraph):
         graphs, n = reclaim_shards(sg.graphs)
+        if sg.mesh is not None:
+            n = int(sum_across_shards(torch.tensor(n, device=sg.device),
+                                      sg.group))
         return dataclasses.replace(sg, graphs=graphs), n
 
     def _maintain_views(self, action: str, policy, *, shrink: bool):
@@ -535,30 +762,39 @@ class ShardedGraphStore(VersionedStoreBase):
     # --------------------------------------------------------------- queries
     def query(self, src, dst) -> np.ndarray:
         """Batched membership against the sharded forward view (host
-        arrays in, host bool array out, trimmed to the query length)."""
+        arrays in, host bool array out, trimmed to the query length).  On
+        a mesh the queries route through ``route_exchange`` (buckets of
+        the exact largest (source block, owner) count) and every rank
+        gets every answer."""
         from ..distributed.sharded_graph import query_edges_sharded
         src = np.asarray(src, np.uint32)
         dst = np.asarray(dst, np.uint32)
+        S = self.n_shards
         p = next_pow2(max(len(src), 1))
+        if self.mesh is None:
+            cap = routing_cap(src, S)
+        else:
+            p = -(-p // S) * S
+            cap = routing_cap_blocks(src, S, p // S)
         found = query_edges_sharded(
             self.forward, _pad_ids(src, p, self.device),
-            _pad_ids(dst, p, self.device),
-            cap=routing_cap(src, self.n_shards))
+            _pad_ids(dst, p, self.device), cap=cap)
         return found.cpu().numpy()[:len(src)]
 
     def neighbors(self, vertices, *, out_capacity: int = 4096
                   ) -> EdgeFrontier:
         """Current out-edges of ``vertices`` as one EdgeFrontier: chain
-        walks on each owner shard, src ids made global again, merged."""
+        walks on each owner shard, src ids made global again, merged in
+        shard order (on a mesh each rank walks its own shard and the
+        walks are gathered, so every rank returns the same frontier)."""
         vertices = np.asarray(vertices, np.uint32)
         S = self.n_shards
         cap = next_pow2(out_capacity)
-        srcs, dsts, ws = [], [], []
-        overflow = False
-        for k in range(S):
+
+        def walk(k):
             m = (vertices % np.uint32(S)) == k
             if not m.any():
-                continue
+                return None
             g = shard_slice(self.forward, k)
             loc = (vertices[m] // np.uint32(S)).astype(np.uint32)
             p = next_pow2(max(len(loc), 1))
@@ -567,10 +803,18 @@ class ShardedGraphStore(VersionedStoreBase):
             ef = expand_vertices(g, _pad_ids(loc, p, self.device), vmask,
                                  out_capacity=cap, max_bpv=1)
             n = int(ef.size)
-            overflow = overflow or bool(ef.overflow)
-            srcs.append(ef.src[:n].cpu().numpy().astype(np.int64) * S + k)
-            dsts.append(ef.dst[:n].cpu().numpy())
-            ws.append(ef.weight[:n].cpu().numpy())
+            return (ef.src[:n].cpu().numpy().astype(np.int64) * S + k,
+                    ef.dst[:n].cpu().numpy(), ef.weight[:n].cpu().numpy(),
+                    bool(ef.overflow))
+
+        fwd = self.forward
+        parts = ([walk(k) for k in range(S)] if fwd.mesh is None
+                 else gather_objects(walk(fwd.rank), fwd.group))
+        parts = [x for x in parts if x is not None]
+        srcs = [x[0] for x in parts]
+        dsts = [x[1] for x in parts]
+        ws = [x[2] for x in parts]
+        overflow = any(x[3] for x in parts)
         src = np.concatenate(srcs) if srcs else np.zeros(0, np.int64)
         n = min(len(src), cap)
         overflow = overflow or len(src) > cap
@@ -611,8 +855,11 @@ class ShardedGraphStore(VersionedStoreBase):
     def save(self, ckpt_dir, step: Optional[int] = None, *, registry=None,
              extra: Optional[dict] = None, keep_last: int = 3):
         """Persist every view's stacked pools and the property states
-        atomically, in the reference's sharded-store format."""
+        atomically, in the reference's sharded-store format.  On a mesh
+        every rank calls it: the shards are gathered and rank 0 writes
+        what the stacked store writes (every rank returns its path)."""
         from ..checkpoint import ckpt
+        mesh = self.mesh
         step = self.version if step is None else int(step)
         props = {} if registry is None else registry.states()
         prop_versions = {} if registry is None else registry.versions()
@@ -630,11 +877,22 @@ class ShardedGraphStore(VersionedStoreBase):
         }
         if extra:
             meta.update(extra)
-        path = ckpt.save(
-            ckpt_dir, step,
-            {"views": {name: sg.graphs for name, sg in self._views.items()},
-             "props": props},
-            extra=meta, keep_last=keep_last)
+        views = {name: sg.graphs for name, sg in self._views.items()}
+        if mesh is not None:
+            group = self.forward.group
+            views = {name: dataclasses.replace(g, **{
+                f: None if getattr(g, f) is None
+                else gather_stacked(getattr(g, f)[0], group).cpu()
+                for f in FIELDS}) for name, g in views.items()}
+            path = None
+            if self.forward.rank == 0:
+                path = ckpt.save(ckpt_dir, step,
+                                 {"views": views, "props": props},
+                                 extra=meta, keep_last=keep_last)
+            dist.barrier(group=group)
+            return gather_objects(path, group)[0]
+        path = ckpt.save(ckpt_dir, step, {"views": views, "props": props},
+                         extra=meta, keep_last=keep_last)
         if self.wal is not None and step == self.version:
             self.wal.truncate(self.version)
         return path

@@ -11,7 +11,9 @@ count, the membership probe and the min family must match exactly; the float
 held to the reference tests' tolerances (attention 2e-5 in float32, 2e-2
 in bfloat16; the bag 1e-5 and 3e-2).  The sharded store on the card is
 held to the same store on CPU tensors leaf for leaf, its WCC, BFS and
-triangle count bit for bit and its PageRank within 2e-5.  This module
+triangle count bit for bit and its PageRank within 2e-5; so are the
+multi-process rendering's ranks on the card (two gloo ranks sharing it,
+one NCCL rank), against the stacked store on the card.  This module
 imports no JAX (the card's machine has none): ``ATTN_CASES`` is shared with
 the CPU parity test.
 """
@@ -1288,3 +1290,65 @@ def test_sharded_restore_and_recover_onto_card(cuda, tmp_path):
         rec.apply(*b)
     _assert_sharded_views_equal(rec, twin)
     assert rz.audit_store(rec).ok
+
+
+# ----------------------------------------------------------------------------
+# the sharded plane's multi-process rendering on the card
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_mesh_ranks_on_card_match_the_stacked_store(cuda, backend, world,
+                                                    tmp_path):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    card) and one NCCL rank: every pool leaf after every epoch equals the
+    stacked store's on the card, WCC, BFS and the triangle count bit for
+    bit, PageRank within 2e-5; the ranks launch the kernels."""
+    import _torch_mesh_ranks as M
+    from repro_torch.distributed import sharded_graph as sgm
+    from repro_torch.distributed.ranks import RankGroup
+    from repro_torch.stream import MaintenancePolicy, ShardedGraphStore
+
+    cfg = f"card{world}"
+    V, S, _ = M.CONFIGS[cfg]
+    src, dst, _ = M.boot_edges(cfg)
+    stacked = ShardedGraphStore.from_edges(
+        V, S, src, dst, maintenance=MaintenancePolicy(
+            tombstone_ratio=M.RATIO), device=cuda)
+    stacked.save(tmp_path / "boot_u")
+    group = RankGroup(M.card_rank, S, (backend, cfg, str(tmp_path)),
+                      deadline_s=300)
+    try:
+        group.wait()
+    finally:
+        errors = [r.get("error") for r in M.load_results(str(tmp_path), S)
+                  if r.get("error")] if all(
+            (tmp_path / f"rank{r}.pkl").is_file() for r in range(S)) else []
+        assert not errors, "\n".join(errors)
+    ranks = M.load_results(str(tmp_path), S)
+    want = [M.store_leaves(stacked)]
+    for kind, s, d, w, ds, dd in M.epochs(cfg):
+        stacked.apply(s, d, w, ds, dd)
+        want.append(M.store_leaves(stacked))
+    assert stacked.maintenance_count >= 1
+    for e, leaves in enumerate(want):
+        for view, fields in leaves.items():
+            for f, a in fields.items():
+                if a is None:
+                    continue
+                got = np.concatenate([r["epochs"][e][view][f]
+                                      for r in ranks])
+                assert got.shape == a.shape and np.array_equal(got, a), \
+                    (e, view, f)
+    wcc, _ = sgm.wcc_sharded(stacked.symmetric)
+    bfs, _ = sgm.bfs_sharded(stacked.transpose, src=0)
+    pr, _ = sgm.pagerank_sharded(stacked.transpose, stacked.out_degree)
+    tri = int(sgm.triangles_sharded(stacked.symmetric))
+    for r in ranks:
+        assert r["device"] == "cuda:0"
+        assert np.array_equal(r["wcc"], wcc.cpu().numpy())
+        assert np.array_equal(r["bfs"], bfs.cpu().numpy())
+        assert np.abs(r["pagerank"] - pr.cpu().numpy()).max() <= 2e-5
+        assert r["triangles"] == tri
+        for name in ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
+                     "slab_chain_rank", "slab_count"):
+            assert r["launches"][name] > 0, name

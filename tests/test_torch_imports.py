@@ -3,7 +3,10 @@
 repro``, ``import msgpack`` and ``import ml_dtypes`` fail (the card's
 machine has none of them).  The walk over the package must reach the
 modules of the health engine, the kernel instrumentation and the sharded
-plane."""
+plane, and in the same process the sharded plane's multi-process
+rendering runs on a one-rank gloo mesh (placement, an epoch, a query, the
+fixpoints, the triangle count, a checkpoint) with ``torch.distributed``
+and nothing of JAX."""
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +26,27 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+
+import os, tempfile
+import numpy as np
+from repro_torch.distributed import ranks, sharded_graph as tsg
+from repro_torch.stream import ShardedGraphStore
+tmp = tempfile.mkdtemp()
+mesh = ranks.init_shard_mesh(0, 1, init_file=os.path.join(tmp, "rdzv"),
+                             backend="gloo", device="cpu")
+rng = np.random.default_rng(0)
+src, dst = rng.integers(0, 40, (2, 200)).astype(np.uint32)
+store = ShardedGraphStore.from_edges(40, 1, src, dst,
+                                     device="cpu").place_on_mesh(mesh)
+assert store._mode() == "shard_map"
+store.apply(dst[:20], src[:20], None, src[20:30], dst[20:30])
+store.query(src[:5], dst[:5])
+tsg.wcc_sharded(store.symmetric)
+tsg.pagerank_sharded(store.transpose, store.out_degree)
+tsg.triangles_sharded(store.symmetric)
+store.save(os.path.join(tmp, "ckpt"))
+ranks.close_shard_mesh()
+assert "torch.distributed" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
                                     "ml_dtypes")
@@ -30,6 +54,7 @@ bad = sorted(m for m in sys.modules
 missing = sorted({"repro_torch.obs.health", "repro_torch.obs.instrument",
                   "repro_torch.distributed.collectives",
                   "repro_torch.distributed.sharded_graph",
+                  "repro_torch.distributed.ranks",
                   "repro_torch.stream.sharded_store"} - set(names))
 print(len(names), missing, bad)
 """

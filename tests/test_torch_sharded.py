@@ -222,15 +222,22 @@ def test_overflow_storm_grows_the_cap_as_the_reference():
     assert_sharded_equal(tg, jg, "overflow storm")
 
 
-def test_shard_map_rendering_raises_naming_the_roadmap():
+def test_shard_map_rendering_raises_naming_the_roadmap(tmp_path):
+    """The multi-process rendering is ported (``test_torch_mesh.py``):
+    ``dispatch="shard_map"`` without a mesh raises ``ValueError`` as the
+    reference's does, and what a mesh store does not run yet (a WAL,
+    audits) raises ``NotImplementedError`` naming its ROADMAP item."""
     tg = tsg.shard_empty(V, S, capacity_slabs_per_shard=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tsg.place_on_mesh(tg, None)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(ValueError, match="place_on_mesh"):
         tsg.wcc_sharded(tg, dispatch="shard_map")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tstream.ShardedGraphStore({"forward": tg}, weighted=False,
-                                  dispatch="shard_map")
+    store = tstream.ShardedGraphStore({"forward": tg}, weighted=False,
+                                      dispatch="shard_map")
+    with pytest.raises(ValueError, match="place_on_mesh"):
+        store.apply([1], [2])
+    store.attach_wal(rz.WriteAheadLog(tmp_path))
+    with pytest.raises(NotImplementedError, match="queue 1, item 4.1"):
+        store.place_on_mesh(None)
+    store.wal.close()
 
 
 # ============================================================================

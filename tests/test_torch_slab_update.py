@@ -86,6 +86,68 @@ def test_engine_leaf_identical_over_mixed_epochs(jax_impl, weighted):
                 tsg.update_slab_pointers(gt)
 
 
+def _interior(a, seg: int, gap: int):
+    """``a`` with INVALID padding inside it: after every ``seg`` entries,
+    ``gap`` pad lanes (each source rank's segment of a mesh epoch ends in
+    its own padding); returns the padded ids and the entries' lanes."""
+    a = np.asarray(a, np.int64)
+    lanes = np.arange(len(a)) // seg * (seg + gap) + np.arange(len(a)) % seg
+    out = np.full(lanes[-1] + gap + 1, 0xFFFFFFFF, np.int64)
+    out[lanes] = a
+    return out, lanes
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_engine_pools_do_not_depend_on_where_the_padding_sits(weighted):
+    """The mesh epoch hands the engine batches with INVALID padding inside
+    them and wider than the stacked rendering's.  Inserts, deletes and
+    queries on such a batch give the packed batch's pools leaf for leaf
+    (the reference's on the packed batch) and its masks at the entries'
+    lanes, False on every pad."""
+    rng = np.random.default_rng(31 + weighted)
+    V, B = 300, 64
+    gj = jsg.empty(V, np.full(V, 2, np.int32), 512, weighted=weighted)
+    packed, inner = to_port(gj), to_port(gj)
+    for step, (s, d, ds, dd) in enumerate(_epochs(rng, V, 4, B)):
+        w = rng.uniform(0, 4, B).astype(np.float32) if weighted else None
+        s_i, lanes = _interior(s, 16, 7)
+        d_i, _ = _interior(d, 16, 7)
+        w_i = None
+        if weighted:
+            w_i = np.zeros(len(s_i), np.float32)
+            w_i[lanes] = w
+        gj, mj = jbatch.insert_edges(
+            gj, jids(s), jids(d), None if w is None else jnp.asarray(w),
+            impl="jnp")
+        packed, mp = tbatch.insert_edges(
+            packed, ids(s), ids(d), None if w is None else torch.from_numpy(w))
+        inner, mi = tbatch.insert_edges(
+            inner, ids(s_i), ids(d_i),
+            None if w_i is None else torch.from_numpy(w_i))
+        assert np.array_equal(np_of(mp), np_of(mj))
+        assert np.array_equal(np_of(mi)[lanes], np_of(mp))
+        assert int(mi.sum()) == int(mp.sum())
+        assert_pools_equal(packed, gj, f"packed insert {step}")
+        assert_pools_equal(inner, gj, f"interior-padded insert {step}")
+
+        ds_i, dlanes = _interior(ds, 8, 5)
+        dd_i, _ = _interior(dd, 8, 5)
+        gj, mj = jbatch.delete_edges(gj, jids(ds), jids(dd), impl="jnp")
+        packed, mp = tbatch.delete_edges(packed, ids(ds), ids(dd))
+        inner, mi = tbatch.delete_edges(inner, ids(ds_i), ids(dd_i))
+        assert np.array_equal(np_of(mi)[dlanes], np_of(mj))
+        assert int(mi.sum()) == int(mj.sum())
+        assert_pools_equal(inner, gj, f"interior-padded delete {step}")
+        q = tbatch.query_edges(inner, ids(s_i), ids(d_i))
+        assert np.array_equal(np_of(q)[lanes], np_of(
+            tbatch.query_edges(packed, ids(s), ids(d))))
+        assert int(q.sum()) == int(q[lanes].sum())
+        if step % 2:
+            gj = jsg.update_slab_pointers(gj)
+            packed = tsg.update_slab_pointers(packed)
+            inner = tsg.update_slab_pointers(inner)
+
+
 def test_free_list_drains_before_bump():
     """A pool whose free list the reference's maintenance filled: both
     engines place new slabs on recycled rows first."""

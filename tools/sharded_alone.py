@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s sharded phase alone on one CUDA card.
+"""Run ``chip_smoke.py``'s sharded and mesh phases alone on one CUDA card.
 
     python3 tools/sharded_alone.py
 
@@ -7,10 +7,13 @@ Builds the kernels, serves the serve phase's stream at RMAT scale 20 on
 the unsharded store (phase 3's answers are the reference), then runs
 ``chip_smoke.sharded_phase``: the same stream on a ``ShardedGraphStore``
 of four shards with ``--health`` and ``--metrics``, held to phase 3's
-answers, a planted SLO fault and the booted view's triangle count.
-Prints the card's name and power limit first, then phase 3's serve line
-and the phase's ``sharded`` line; exits 1 when a check failed and nonzero
-without a CUDA card.
+answers, a planted SLO fault and the booted view's triangle count; then
+``chip_smoke.mesh_phase``: the booted store on four gloo ranks sharing the
+card, one shard a rank, held to the sharded phase leaf for leaf, and one
+NCCL rank.  Prints the card's name and power limit first, then phase 3's
+serve line and the phases' lines; exits 1 when a check failed and
+nonzero without a CUDA card.  Needs about 4.5 GB free under ``$TMPDIR``
+(the booted store's checkpoint).
 """
 from __future__ import annotations
 
@@ -45,8 +48,13 @@ def main() -> int:
     del out
     gc.collect()
     torch.cuda.empty_cache()
+    import tempfile
     try:
-        res = cs.sharded_phase(torch, np, ref3)
+        with tempfile.TemporaryDirectory() as mesh_dir:
+            res = cs.sharded_phase(torch, np, ref3, Path(mesh_dir))
+            gc.collect()
+            torch.cuda.empty_cache()
+            cs.mesh_phase(torch, np, res)
     except cs.SmokeFailure as e:
         print(f"sharded_alone: check failed: {e}", file=sys.stderr)
         return 1
