@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Six phases, each printing JSON lines (the third with the iterators, the
-durability, the sharded and the mesh phases after it):
+Six phases, each printing JSON lines (the third with the iterators, MIND,
+the durability, the sharded and the mesh phases after it, the fifth with
+the MoE LM after it):
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -112,9 +113,20 @@ durability, the sharded and the mesh phases after it):
    stacked shard's, the answers the sharded phase's (BFS, WCC and
    membership bit for bit, PageRank within ``MESH_PR_REL / V``) and agree on
    every rank with equal fixpoint counts, the triangle count the sharded
-   phase's, and every rank must launch kernels 1–3 and 5–7.  One NCCL
-   rank then serves a 1-shard store at RMAT scale 16 (three compacting
-   updates, three reads, 1,024 queries) against a 1-shard stacked store.
+   phase's, and every rank must launch kernels 1–3 and 5–7.  The ranks
+   journal to a ``WriteAheadLog`` (rank 0 writes) and audit every epoch
+   (``AuditPolicy(every=1)``), both attached before the placement; before
+   the stream's last update every rank saves (a mesh checkpoint, rank 0
+   writes), the update is killed after its WAL append
+   (``apply.post_wal``), and ``recover(store_cls=ShardedGraphStore,
+   device=...)`` onto the card and ``place_on_mesh`` stand in for it: the
+   recovered shards' digests must equal the uninterrupted stacked replay's
+   after that update, the reads after it the sharded phase's answers,
+   every audit (the recovered store's too) be clean and the same on
+   every rank, and rank 0's WAL byte-equal to the stacked replay's.  One
+   NCCL rank then serves a 1-shard store at RMAT scale 16 (three compacting
+   updates, three reads, 1,024 queries) against a 1-shard stacked store,
+   with the same WAL, audits, kill and recovery.
    The ``mesh`` line prints per request the max over ranks of its ms,
    collective ms and bytes and all-to-all bytes, the fixpoints'
    iterations and host reads, each rank's restore and placement seconds,
@@ -170,6 +182,20 @@ durability, the sharded and the mesh phases after it):
    the layers of the float32 prefill within the reference test's float32
    tolerance, which the same two planted faults must fail, and timed
    likewise.
+   Then **moe**: qwen3-moe-30b-a3b at its full config (48 layers, d_model
+   2048, GQA 32/4, head_dim 128, QK norm, 128 experts top-8, d_ff 768,
+   vocab 151,936, bf16, 30.5 G parameters from a seeded generator, drawn a
+   layer at a time) serves the same two prompts of 8,192 tokens (one
+   ``flash_attention`` launch a layer in the prefill) and 128 greedy
+   decode steps through ``launch.steps``, printing per layer the share of
+   (token, expert) assignments dropped at capacity 1.25.  The prefill's
+   logits must equal ``forward``'s over the same prompts within
+   ``MOE_PREFILL_ATOL`` (the same T, so the same drops), which the second
+   expert dropped and the top-k renormalisation skipped must fail; decode
+   at capacity E / K (nothing drops) over the first 256 tokens of each
+   prompt and 16 steps must equal forward within ``MOE_DECODE_ATOL``,
+   which the position off by one and both MoE faults must fail; kernel
+   10 is held to ``attention_ref`` on the first layer's q/k/v.
 6. **embedding_bag** - kernel 9 through its op on MIND's table (2**21 x 64
    float32, and a bfloat16 copy) for 50-slot history bags from
    ``recsys_batches`` (B = 512 and 65,536), against its plain version and
@@ -273,6 +299,26 @@ LM_LOGIT_ATOL = 1.3
 #: decode steps rerun as served and with each planted fault (position off
 #: by one, ring slots off by one), in bf16 and in float32
 LM_FAULT_STEPS = 16
+#: the MoE phase: qwen3-moe-30b-a3b at its full config (48 layers,
+#: 128 experts top-8, bf16, random seeded weights) serving the LM phase's
+#: LM_BATCH prompts of LM_PROMPT tokens and LM_NEW greedy steps; the decode
+#: check runs on the first MOE_SHORT tokens of each prompt and
+#: LM_FAULT_STEPS steps at capacity E / K (C = T: nothing drops)
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_SHORT = 256
+#: prefill logits against forward's at the same T (the same assignments
+#: drop), bf16, max abs: the clean reading is 0 (the same kernels on the
+#: same shapes), the planted faults 0.492 (the second expert dropped) and
+#: 0.861 (no renormalisation) at seed 0 on an H100 (PERF.md, Findings);
+#: each run prints all three and shows both faults fail the gate
+MOE_PREFILL_ATOL = 0.125
+#: decode logits against forward's at capacity E / K, bf16, max abs over
+#: LM_FAULT_STEPS steps: clean 0.278 (decode's T = 2 products round
+#: otherwise than forward's), the position off by one 0.340 (rope_theta
+#: 1e6 turns a one-step shift by little), the second expert dropped 0.781,
+#: no renormalisation 1.059, at seed 0 on an H100: a thin margin, printed
+#: every run
+MOE_DECODE_ATOL = 0.31
 #: the float32 model's prefill and decode against its own forward: float32
 #: reordering alone moves them 3.7e-4 at most, the planted faults 0.0125
 #: (ring) and 0.147 (position); 2e-3 is about the geometric mean of the
@@ -312,6 +358,17 @@ BAG_ROWS, BAG_DIM, BAG_HIST = 2 ** 21, 64, 50
 BAG_BATCHES = (512, 65536)
 #: kernel 9 against its plain version (tests/test_kernels.py:176)
 BAG_TOL = {"f32": 1e-5, "bf16": 3e-2}
+#: the MIND phase: MIND's full config (repro/configs/mind.py) over
+#: histories read from the served forward view, its three serving shapes
+#: (repro/configs/common.py RECSYS_SHAPES), the users whose histories are
+#: held to the per-user ``slab_iterator``, and the users of serve_bulk
+#: whose scores are held to the CPU's
+MIND_SHAPES = ("serve_p99", "serve_bulk", "retrieval_cand")
+MIND_SAMPLE_USERS, MIND_CPU_ROWS = 64, 1024
+#: MIND's scores on the card against the same functions on CPU copies,
+#: float32 (no TF32): the scores are below 1 in magnitude, and the two
+#: devices' products differ by summation order alone
+MIND_ATOL, MIND_RTOL = 1e-5, 1e-4
 #: H100 SXM published rates (NVIDIA H100 datasheet): HBM3 bytes/s and
 #: float32 (non-tensor-core) operations/s, which counts a fused multiply-add
 #: as two over 128 float32 lanes per SM
@@ -1862,25 +1919,35 @@ def _read_value(np, resp):
     return np.asarray(resp.payload["found"])
 
 
+def _specs(stream_mod) -> list:
+    """The mesh jobs' properties, named as PROPS."""
+    return [stream_mod.sharded_pagerank_property(),
+            stream_mod.sharded_bfs_property(0),
+            stream_mod.sharded_wcc_property()]
+
+
 def _registry(stream_mod, store, policy: str):
     registry = stream_mod.PropertyRegistry(store)
-    registry.register(stream_mod.sharded_pagerank_property(), policy=policy)
-    registry.register(stream_mod.sharded_bfs_property(0), policy=policy)
-    registry.register(stream_mod.sharded_wcc_property(), policy=policy)
+    for spec in _specs(stream_mod):
+        registry.register(spec, policy=policy)
     return registry
 
 
 def stacked_serve(torch, np, job: dict) -> dict:
     """The stacked rendering of a mesh job: its checkpoint restored on the
-    card as one stacked store, the same requests served, every shard's
-    digests after each update and every answer kept."""
+    card as one stacked store journaling to a WAL, the same requests
+    served, every shard's digests after each update and every answer
+    kept."""
     import repro_torch.stream as stream_mod
+
+    from repro_torch import resilience
 
     dev = torch.device(job["device"])
     store, _ = stream_mod.ShardedGraphStore.restore(
         job["ckpt_dir"], device=dev,
         maintenance=stream_mod.MaintenancePolicy(
             tombstone_ratio=job["tombstone_ratio"]))
+    store.attach_wal(resilience.WriteAheadLog(job["stacked_wal_dir"]))
     pipe = stream_mod.RequestPipeline(
         store, _registry(stream_mod, store, job["policy"]))
     S = store.n_shards
@@ -1894,6 +1961,7 @@ def stacked_serve(torch, np, job: dict) -> dict:
         else:
             answers[i] = _read_value(np, resp)
     _sync(torch, dev)
+    store.wal.close()
     out = {"digests": digests, "answers": answers,
            "maintenance_count": store.maintenance_count}
     del store, pipe
@@ -1921,21 +1989,27 @@ def mesh_rank(rank: int, world: int, run_dir: str) -> None:
     code = 0
     try:
         import repro_torch.stream as stream_mod
+        from repro_torch import resilience
         from repro_torch.distributed import collectives, ranks
         from repro_torch.distributed import sharded_graph as sgm
         from repro_torch.kernels import runtime
+        from repro_torch.resilience import faults
 
         dev = torch.device(job["device"])
         mesh = ranks.init_shard_mesh(
             rank, world, init_file=str(Path(run_dir) / "rdzv"),
             backend=job["backend"], device=dev)
+        policy = stream_mod.MaintenancePolicy(
+            tombstone_ratio=job["tombstone_ratio"])
+        wal_dir, kill_ckpt = Path(run_dir) / "wal", Path(run_dir) / "kill"
         try:
             t0 = time.perf_counter()
             store, _ = stream_mod.ShardedGraphStore.restore(
-                job["ckpt_dir"], device="cpu",
-                maintenance=stream_mod.MaintenancePolicy(
-                    tombstone_ratio=job["tombstone_ratio"]))
+                job["ckpt_dir"], device="cpu", maintenance=policy)
             res["restore_s"] = time.perf_counter() - t0
+            # journal and audit every epoch: attached before the placement
+            store.attach_wal(resilience.WriteAheadLog(wal_dir))
+            store.attach_audits(resilience.AuditPolicy(every=1))
             t0 = time.perf_counter()
             store.place_on_mesh(mesh)
             _sync(torch, store.device)
@@ -1954,12 +2028,64 @@ def mesh_rank(rank: int, world: int, run_dir: str) -> None:
                 res["triangles_s"] = time.perf_counter() - t0
                 res["triangles_collective"] = dict(
                     collectives.COLLECTIVE_STATS)
-            pipe = stream_mod.RequestPipeline(
-                store, _registry(stream_mod, store, job["policy"]))
-            rows = []
-            for kind, req in job["requests"]:
+            registry = _registry(stream_mod, store, job["policy"])
+            pipe = stream_mod.RequestPipeline(store, registry)
+            rows, maint_base = [], 0
+            for i, (kind, req) in enumerate(job["requests"]):
                 collectives.reset_collective_stats()
                 fix0 = dict(sgm.FIX_STATS)
+                if i == job["kill_at"]:
+                    # a checkpoint, then a kill after this update's WAL
+                    # append; recovery (stacked, onto the card) and the
+                    # placement stand in for the update
+                    t0 = time.perf_counter()
+                    store.save(kill_ckpt, registry=registry)
+                    res["save_s"] = time.perf_counter() - t0
+                    try:
+                        with faults.inject(resilience.FaultSpec(
+                                "apply.post_wal", at=1)):
+                            pipe.run([req])
+                    except resilience.InjectedCrash:
+                        res["killed"] = True
+                    res["audits"] = [
+                        {k: v for k, v in ev.items() if k != "duration_s"}
+                        for ev in store.audit_events]
+                    maint_base = store.maintenance_count
+                    store.wal.close()
+                    del pipe, registry, store
+                    gc.collect()
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                    torch.distributed.barrier(group=mesh.get_group("shard"))
+                    t0 = time.perf_counter()
+                    store, registry, report = resilience.recover(
+                        kill_ckpt, wal_dir,
+                        store_cls=stream_mod.ShardedGraphStore,
+                        specs=_specs(stream_mod),
+                        policies={n: job["policy"] for n in PROPS},
+                        maintenance=policy,
+                        wal=resilience.WriteAheadLog(wal_dir), device=dev)
+                    _sync(torch, dev)
+                    res["recover_s"] = time.perf_counter() - t0
+                    res["replayed"] = report.replayed
+                    t0 = time.perf_counter()
+                    store.place_on_mesh(mesh)
+                    _sync(torch, dev)
+                    res["recover_place_s"] = time.perf_counter() - t0
+                    audit = store.audit()
+                    res["audits"].append({k: v for k, v in
+                                          audit.as_event().items()
+                                          if k != "duration_s"})
+                    res["recovered_audit_s"] = audit.duration_s
+                    pipe = stream_mod.RequestPipeline(store, registry)
+                    rows.append({
+                        "kind": kind, "ms": 1e3 * res["recover_s"],
+                        "recovered": True, "version": store.version,
+                        "collective": dict(collectives.COLLECTIVE_STATS),
+                        "fix": {k: v - fix0[k]
+                                for k, v in sgm.FIX_STATS.items()},
+                        "digests": shard_digests(np, store, rank)})
+                    continue
                 _sync(torch, dev)
                 t0 = time.perf_counter()
                 resp = pipe.run([req])[0]
@@ -1981,9 +2107,11 @@ def mesh_rank(rank: int, world: int, run_dir: str) -> None:
                         row["value"] = value
                 rows.append(row)
             res["requests"] = rows
+            res["wal_appended"] = store.wal.appended
+            store.wal.close()
             res["launches"] = dict(runtime.LAUNCHES)
             res["fix"] = dict(sgm.FIX_STATS)
-            res["maintenance_count"] = store.maintenance_count
+            res["maintenance_count"] = maint_base + store.maintenance_count
             res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None)
         finally:
@@ -2004,6 +2132,7 @@ def run_mesh_job(job: dict, world: int, run_dir: Path) -> list:
 
     from repro_torch.distributed.ranks import RankGroup
 
+    run_dir.mkdir(parents=True, exist_ok=True)
     with open(run_dir / "job.pkl", "wb") as f:
         pickle.dump(job, f)
     group = RankGroup(mesh_rank, world, (str(run_dir),),
@@ -2027,14 +2156,25 @@ def run_mesh_job(job: dict, world: int, run_dir: Path) -> list:
 
 def check_mesh_ranks(np, got: list, want: dict, what: str) -> dict:
     """Hold a mesh job's ranks to the stacked serve of the same job: every
-    shard's digests after every update, every answer (bit for bit, or
-    PageRank within MESH_PR_REL / V), replicated answers and equal fixpoint
-    counts on every rank, no JAX; returns the PageRank reading."""
+    shard's digests after every update (the killed one recovered), every
+    answer (bit for bit, or PageRank within MESH_PR_REL / V), replicated
+    answers, audits and equal fixpoint counts on every rank, no JAX;
+    returns the PageRank reading."""
     world = len(got)
     check(not any(r["jax_imported"] for r in got), f"{what}: a rank "
           "imported JAX")
     n_epochs = len(want["digests"])
     for r, res in enumerate(got):
+        # the kill, recovery and audits: every audit clean and the same
+        # report on every rank, one record replayed
+        check(res.get("killed") and res["replayed"] == 1,
+              f"{what}: rank {r} was not killed and recovered "
+              f"({res.get('killed')}, {res.get('replayed')})")
+        check(len(res["audits"]) == n_epochs - 1
+              and all(a["ok"] for a in res["audits"]),
+              f"{what}: rank {r}'s audits {res['audits']}")
+        check(res["audits"] == got[0]["audits"],
+              f"{what}: the audits of rank {r} differ from rank 0's")
         digests = [res["digests"][0]] + [row["digests"]
                                          for row in res["requests"]
                                          if row["kind"] == "update"]
@@ -2077,9 +2217,11 @@ def check_mesh_ranks(np, got: list, want: dict, what: str) -> dict:
 
 def mesh_lines(got: list) -> dict:
     """What a mesh job measured: per request the max over ranks of its
-    latency, collective time, bytes and all-to-all bytes, with the
-    fixpoints' iterations and host reads; per rank restore and placement
-    seconds, peak memory and kernel launches."""
+    latency (the killed update's: its recovery), collective time, bytes
+    and all-to-all bytes, with the fixpoints' iterations and host reads;
+    per rank restore, placement, save, recovery and re-placement seconds,
+    the recovered store's audit seconds, peak memory and kernel
+    launches."""
     reqs = []
     for i, row in enumerate(got[0]["requests"]):
         rows = [r["requests"][i] for r in got]
@@ -2098,6 +2240,10 @@ def mesh_lines(got: list) -> dict:
     return {"requests": reqs,
             "restore_s": [r["restore_s"] for r in got],
             "place_s": [r["place_s"] for r in got],
+            "save_s": [r["save_s"] for r in got],
+            "recover_s": [r["recover_s"] for r in got],
+            "recover_place_s": [r["recover_place_s"] for r in got],
+            "recovered_audit_s": [r["recovered_audit_s"] for r in got],
             "peak_bytes": [r["peak_bytes"] for r in got],
             "launches": [r["launches"] for r in got],
             "fixpoint": got[0]["fix"]}
@@ -2133,7 +2279,30 @@ def nccl_job(torch, np, run_dir: Path) -> dict:
     return {"ckpt_dir": str(run_dir / "ckpt"), "requests": requests,
             "policy": "lazy", "tombstone_ratio": MESH_NCCL_RATIO,
             "triangles": False, "backend": MESH_NCCL_BACKEND,
-            "device": MESH_DEVICE}
+            "device": MESH_DEVICE, "kill_at": last_update(requests),
+            "stacked_wal_dir": str(run_dir / "stacked_wal")}
+
+
+def last_update(requests) -> int:
+    """The index of a stream's last update: where a mesh job is killed."""
+    return max(i for i, (kind, _) in enumerate(requests) if kind == "update")
+
+
+def wal_bytes(wal_dir) -> dict:
+    """``{segment name: bytes}`` of a WAL directory."""
+    return {p.name: p.read_bytes() for p in sorted(Path(wal_dir).glob(
+        "wal-*.log"))}
+
+
+def check_mesh_wal(run_dir: Path, job: dict, what: str) -> dict:
+    """The WAL rank 0 wrote (the killed update's record kept) against the
+    stacked replay's: byte for byte."""
+    mine, want = wal_bytes(run_dir / "wal"), wal_bytes(job["stacked_wal_dir"])
+    check(mine and mine == want, f"{what}: the mesh WAL "
+          f"({ {k: len(v) for k, v in mine.items()} }) differs from the "
+          f"stacked replay's ({ {k: len(v) for k, v in want.items()} })")
+    return {"wal_segments": len(mine),
+            "wal_bytes": sum(len(v) for v in mine.values())}
 
 
 def mesh_phase(torch, np, sharded: dict) -> dict:
@@ -2147,13 +2316,23 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
     stacked store.  Returns every rank's launch counts."""
     import tempfile
 
+    import shutil
+
     t_phase = time.perf_counter()
     mesh_in = sharded["mesh"]
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_ctx.name)
+    need = sum(p.stat().st_size for p in Path(mesh_in["ckpt_dir"]).rglob("*")
+               if p.is_file())
+    free = shutil.disk_usage(tmp).free
+    check(free > 1.2 * need, f"{free} bytes free under {tmp}, the mesh's "
+          f"checkpoint before its kill takes {need}")
     job = {"ckpt_dir": mesh_in["ckpt_dir"],
            "requests": mesh_in["requests"], "policy": mesh_in["policy"],
            "tombstone_ratio": mesh_in["tombstone_ratio"],
            "triangles": True, "backend": MESH_BACKEND,
-           "device": MESH_DEVICE}
+           "device": MESH_DEVICE, "kill_at": last_update(mesh_in["requests"]),
+           "stacked_wal_dir": str(tmp / "stacked_wal")}
     t0 = time.perf_counter()
     want = stacked_serve(torch, np, job)
     replay_s = time.perf_counter() - t0
@@ -2172,10 +2351,11 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
                   "from the sharded phase's")
     # the mesh's answers are held to the sharded phase's own
     want["answers"] = answers
-    with tempfile.TemporaryDirectory() as tmp:
+    with tmp_ctx:
         t0 = time.perf_counter()
-        got = run_mesh_job(job, SHARDS, Path(tmp))
+        got = run_mesh_job(job, SHARDS, tmp / "ranks")
         ranks_s = time.perf_counter() - t0
+        wal = check_mesh_wal(tmp / "ranks", job, "mesh")
     reading = check_mesh_ranks(np, got, want, "mesh")
     for r, res in enumerate(got):
         check(res["triangles"] == sharded["triangles"],
@@ -2195,7 +2375,8 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
           "triangles": got[0]["triangles"],
           "triangles_s": [r["triangles_s"] for r in got],
           "triangles_collective": [r["triangles_collective"] for r in got],
-          **lines, **reading, "stacked_replay_s": replay_s,
+          **lines, **reading, **wal, "audits": got[0]["audits"],
+          "stacked_replay_s": replay_s,
           "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase})
 
     # one NCCL rank: a 1-shard mesh against a 1-shard stacked store
@@ -2203,7 +2384,8 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         job = nccl_job(torch, np, Path(tmp))
         want = stacked_serve(torch, np, job)
-        got1 = run_mesh_job(job, 1, Path(tmp))
+        got1 = run_mesh_job(job, 1, Path(tmp) / "ranks")
+        wal1 = check_mesh_wal(Path(tmp) / "ranks", job, "nccl")
     reading1 = check_mesh_ranks(np, got1, want, "nccl")
     check(got1[0]["maintenance_count"] >= 1,
           "the NCCL rank's store never compacted")
@@ -2211,6 +2393,7 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
           "the NCCL rank's update exchanged nothing")
     emit({"phase": "mesh_nccl", "card": gpu_line(), "ranks": 1,
           "backend": MESH_NCCL_BACKEND, **mesh_lines(got1), **reading1,
+          **wal1, "audits": got1[0]["audits"],
           "maintenance_count": got1[0]["maintenance_count"],
           "seconds": time.perf_counter() - t0})
     return {"launches": [r["launches"] for r in got],
@@ -2824,17 +3007,20 @@ def sdpa(torch, q, k, v, window: int):
         "SDPA, is_causal, no softcap")
 
 
-def compare_attention(torch, captured) -> list:
+def compare_attention(torch, captured, *, layers=None,
+                      model: str = "") -> list:
     """Kernel 10 against ``attention_ref`` on the captured local and global
-    layers, at bf16 with the reference test's tolerance; both timed on the
-    device alone.  Beside them the library call: SDPA (causal, GQA) on the
-    global shape against the kernel rerun with softcap 0, and SDPA with a
-    boolean band mask on the local shape, likewise without softcap (SDPA has
-    no softcap)."""
+    layers (``layers``: name -> layer index, gemma2-9b's first local and
+    global layers by default; ``model`` prefixes the variant), at bf16 with
+    the reference test's tolerance; both timed on the device alone.  Beside
+    them the library call: SDPA (causal, GQA) on the global shape against
+    the kernel rerun with softcap 0, and SDPA with a boolean band mask on
+    the local shape, likewise without softcap (SDPA has no softcap)."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    layers = layers or {"local": 0, "global": 1}
     results = []
-    for name in ("local", "global"):
+    for name, layer in layers.items():
         q, k, v, kw = captured[name]
         B, Hq, S, D = q.shape
         kern = flash_attention(q, k, v, **kw)
@@ -2847,7 +3033,7 @@ def compare_attention(torch, captured) -> list:
               f"layer by {err}")
         readings = attention_tolerance_readings(torch, q, k, v, kw, plain)
         del plain
-        emit({"phase": "lm_attention_tolerance", "layer": name,
+        emit({"phase": "lm_attention_tolerance", "layer": model + name,
               "atol": ATTN_ATOL, "rtol": ATTN_RTOL, **readings})
         check(readings["dense_rows_close"],
               f"the dense rows differ from attention_ref on the {name} "
@@ -2872,8 +3058,8 @@ def compare_attention(torch, captured) -> list:
         n_bytes = (q.numel() + k.numel() + v.numel() + kern.numel()) \
             * q.element_size()
         results.append(dict(
-            name="flash_attention", variant=f"{name} (layer "
-            f"{0 if name == 'local' else 1})", window=window,
+            name="flash_attention", variant=f"{model}{name} (layer "
+            f"{layer})", window=window,
             shape={"q": list(q.shape), "kv": list(k.shape)},
             max_abs_err=err,
             ms=device_ms(torch, lambda: flash_attention(q, k, v, **kw)),
@@ -3218,6 +3404,352 @@ def lm_phase(torch, np, attn_build: dict, *, seed: int = 0) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# MIND over histories from the served graph
+# ----------------------------------------------------------------------------
+
+def mind_phase(torch, np, graph, *, seed: int = 0) -> dict:
+    """MIND at its full config (a 2**21 x 64 item table, 4 interests, 3
+    routing iterations, 50-item histories, random weights from a seeded
+    generator) over histories read from ``graph``, the served forward view
+    after its updates (``history_from_slab``: user vertex -> its first slab
+    list's items): ``serve_p99`` (512 users, 4,096 candidates),
+    ``serve_bulk`` (262,144 users) and ``retrieval_cand`` (1 user, 10**6
+    pre-materialised candidate embeddings), users drawn from the vertices
+    with out-edges.  Histories are held bit for bit to the per-user
+    ``slab_iterator`` on a sample of users (the hub among them); scores to
+    the same functions on CPU copies (serve_bulk on its first
+    MIND_CPU_ROWS users) within MIND_ATOL / MIND_RTOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.iterators import slab_iterator
+    from repro_torch.models.recsys import mind
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("mind").full_config()
+    shapes = get_arch("mind").SHAPES
+    check(graph.n_vertices <= cfg.n_items, f"{graph.n_vertices} vertices "
+          f"hold item ids past the table's {cfg.n_items} rows")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = mind.init_params(cfg, gen)
+    host = {k: v.cpu() for k, v in params.items()}
+    rng = np.random.default_rng(seed)
+    active = torch.nonzero(graph.degree > 0)[:, 0].cpu().numpy()
+    out = {"phase": "mind", "model": cfg.name, "items": cfg.n_items,
+           "graph_vertices": graph.n_vertices,
+           "users_with_edges": int(active.size), "calls": {}}
+
+    # histories: the card's batched walk against slab_iterator per user
+    users = np.concatenate([[0], rng.choice(active, MIND_SAMPLE_USERS - 1)])
+    hist, mask = mind.history_from_slab(graph, torch.from_numpy(users)
+                                        .cuda(), hist_len=cfg.hist_len)
+    for i, u in enumerate(users.tolist()):
+        items, cnt = slab_iterator(graph, u, max_neighbors=cfg.hist_len)
+        keep = torch.arange(cfg.hist_len, device="cuda") < cnt
+        check(torch.equal(hist[i], torch.where(keep, items, -1))
+              and torch.equal(mask[i], keep.float()),
+              f"history of user {u} differs from slab_iterator's")
+    out["history_check_users"] = int(users.size)
+    out["hub_history_len"] = int(mask[0].sum())
+
+    for shape in MIND_SHAPES:
+        spec = shapes[shape]
+        B, Nc = spec["batch"], spec["n_candidates"]
+        users = torch.from_numpy(rng.choice(active, B)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist, mask = mind.history_from_slab(graph, users,
+                                            hist_len=cfg.hist_len)
+        torch.cuda.synchronize()
+        hist_ms = 1e3 * (time.perf_counter() - t0)
+        if spec["kind"] == "serve":
+            cand = torch.from_numpy(rng.integers(0, cfg.n_items, Nc)).cuda()
+
+            def call(p, h, m, c):
+                return mind.serve_scores(p, h, m, c, cfg)
+        else:
+            cand = params["item_embed"][:Nc]
+
+            def call(p, h, m, c):
+                return mind.retrieval_scores(p, h, m, c, cfg)
+        ms = []
+        for _ in range(2):                       # first call, then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = call(params, hist, mask, cand)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        check(scores.shape == (B, Nc) and bool(torch.isfinite(scores).all()),
+              f"MIND {shape}: scores {tuple(scores.shape)} not finite")
+        rows = min(B, MIND_CPU_ROWS)
+        want = call(host, hist[:rows].cpu(), mask[:rows].cpu(), cand.cpu())
+        got = scores[:rows].cpu()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=MIND_ATOL, rtol=MIND_RTOL),
+              f"MIND {shape}: scores differ from the CPU's by {err}")
+        out["calls"][shape] = {
+            "batch": B, "candidates": Nc, "history_ms": hist_ms,
+            "scores_ms": ms[0], "scores_warm_ms": ms[1],
+            "mean_history_len": float(mask.sum(dim=1).mean()),
+            "cpu_rows": rows, "max_abs_err": err,
+            "max_abs_score": float(want.abs().max())}
+        del scores, hist, mask, cand
+        torch.cuda.empty_cache()
+    emit(out)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------------
+# phase 5b: the MoE LM at full width
+# ----------------------------------------------------------------------------
+
+def moe_faults(torch, tfm) -> dict:
+    """Planted faults of the MoE FFN, each a stand-in for ``moe_ffn`` (one
+    dispatch group): the second-highest gate's expert dropped, and the
+    top-k gates left without their renormalisation."""
+    route_of, experts = tfm.moe_route, tfm.moe_experts
+
+    def faulty(edit):
+        def ffn(x, lw, cfg):
+            xg = x[None]
+            route = route_of(xg, lw["router"], cfg)
+            edit(route, xg, lw)
+            return experts(xg, lw, cfg, route)[0]
+        return ffn
+
+    def drop_second(route, xg, lw):
+        route.top_g = route.top_g.clone()
+        route.top_g[..., 1] = 0
+
+    def raw_gates(route, xg, lw):
+        gates = torch.softmax((xg @ lw["router"]).float(), dim=-1)
+        route.top_g = gates.gather(-1, route.top_e)
+
+    return {"second_expert_dropped": faulty(drop_second),
+            "renormalisation_skipped": faulty(raw_gates)}
+
+
+def moe_drop_recorder(torch, tfm, shares: list):
+    """Stands in for ``moe_ffn`` and appends, per call (one a layer), the
+    share of (token, expert) assignments past their expert's capacity (a
+    device scalar, read after the call)."""
+    real = tfm.moe_ffn
+
+    def ffn(x, lw, cfg):
+        route = tfm.moe_route(x[None], lw["router"], cfg)
+        shares.append(1 - route.keep.float().mean())
+        return real(x, lw, cfg)
+    return ffn
+
+
+def moe_decode_readings(torch, tfm, model, tokens, n: int) -> dict:
+    """The decode gate's readings at capacity E / K: a prefill of
+    ``tokens`` (B, MOE_SHORT), ``n`` greedy decode steps, and ``forward``
+    over prompt and generated tokens, which drops no assignment at that
+    capacity; then the same steps with a planted fault each (the position
+    off by one, an MoE fault).  Each run's max |difference| from
+    forward's logits at the same positions."""
+    B, S = tokens.shape
+    last, pc = model.prefill(tokens)
+    cache = tfm.init_cache(model.cfg, B, S + n + 1)
+    for name in ("k", "v"):
+        cache[name][:, :, :, :S].copy_(pc[name])
+    del pc
+    generated, steps = [], []
+    token = last.argmax(dim=-1)
+    for i in range(n):
+        generated.append(token)
+        lg, cache = model.decode_step(cache, token, S + i)
+        steps.append(lg)
+        token = lg.argmax(dim=-1)
+    seq = torch.cat([tokens, torch.stack(generated, dim=1)], dim=1)
+    shares = []
+    with swapped(tfm, moe_ffn=moe_drop_recorder(torch, tfm, shares)):
+        want = model(seq)[:, S - 1:S - 1 + n + 1].float()
+    dropped = max(float(x) for x in shares)
+    got = torch.cat([last[:, None], torch.stack(steps, dim=1)], dim=1)
+    out = {"prefill": float((got[:, 0] - want[:, 0]).abs().max()),
+           "decode": float((got[:, 1:] - want[:, 1:]).abs().max()),
+           "decode_mean": float((got[:, 1:] - want[:, 1:]).abs().mean()),
+           "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                     .float().mean()),
+           "forward_dropped_share": dropped, "faults": {},
+           "faults_mean": {}}
+    for fault, shift, ffn in (
+            [("position_plus_1", 1, None)]
+            + [(name, 0, f) for name, f in moe_faults(torch, tfm).items()]):
+        cache["k"][:, :, :, S:].zero_()
+        cache["v"][:, :, :, S:].zero_()
+        with swapped(tfm, **({} if ffn is None else {"moe_ffn": ffn})):
+            lg = torch.stack([model.decode_step(cache, generated[i],
+                                                S + i + shift)[0]
+                              for i in range(n)], dim=1)
+        d = (lg - want[:, 1:]).abs()
+        out["faults"][fault] = float(d.max())
+        out["faults_mean"][fault] = float(d.mean())
+    return out
+
+
+def moe_phase(torch, np, *, seed: int = 0) -> dict:
+    """Serve qwen3-moe-30b-a3b at its full config (48 layers, d_model 2048,
+    GQA 32/4, QK norm, 128 experts top-8, vocab 151,936, bf16, random
+    weights from a seeded generator, drawn a layer at a time): a prefill of
+    LM_BATCH prompts of LM_PROMPT tokens (one ``flash_attention`` launch a
+    layer) and LM_NEW greedy decode steps through ``launch.steps``, with
+    the launch counts zeroed just before the prefill and read after the
+    last step, and the share of assignments each layer drops at capacity
+    1.25.  Self-checks without the reference: the prefill's logits against
+    ``forward``'s over the same prompts (the same T, so the same
+    assignments drop), and decode against forward at capacity E / K over
+    a shorter prompt, each gate shown to fail planted faults; kernel 10
+    held to ``attention_ref`` on the first layer's captured q/k/v."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synth
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.steps import (build_lm_decode_step,
+                                          build_lm_prefill_step)
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_arch(MOE_ARCH).full_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = tfm.init_params(cfg, gen, dtype=torch.bfloat16)
+    model = tfm.TransformerLM(cfg, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    toks, _ = next(synth.lm_batches(cfg.vocab_size, LM_BATCH, LM_PROMPT,
+                                    seed=seed))
+    tokens = torch.from_numpy(toks).to("cuda")
+    prefill = build_lm_prefill_step(cfg)
+    decode = build_lm_decode_step(cfg)
+
+    captured, shares = {}, []
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    with swapped(tfm, flash_attention=capture_attention(torch, tfm,
+                                                        captured),
+                 moe_ffn=moe_drop_recorder(torch, tfm, shares)):
+        logits, pc = prefill(model, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = runtime.LAUNCHES["flash_attention"]
+    dropped = [float(x) for x in shares]
+
+    cache = tfm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+    for name in ("k", "v"):
+        cache[name][:, :, :, :LM_PROMPT].copy_(pc[name])
+    del pc
+    token = logits.argmax(dim=-1)
+    decode_ms = []
+    for i in range(LM_NEW):
+        t0 = time.perf_counter()
+        lg, cache = decode(model, cache, token, LM_PROMPT + i)
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        check(bool(torch.isfinite(lg).all()),
+              f"decode step {i} logits not finite")
+        token = lg.argmax(dim=-1)
+    launches = dict(runtime.LAUNCHES)
+    del cache, lg
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    warm, _ = prefill(model, tokens)
+    torch.cuda.synchronize()
+    prefill_warm_s = time.perf_counter() - t0
+    emit({"phase": "moe", "model": cfg.name, "seed": seed,
+          "n_params": cfg.n_params(), "param_bytes": param_bytes,
+          "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+          "capacity": tfm.moe_capacity(LM_BATCH * LM_PROMPT, cfg),
+          "init_s": init_s, "prefill_ms": 1e3 * prefill_s,
+          "prefill_warm_ms": 1e3 * prefill_warm_s,
+          "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_warm_s,
+          "prefill_bit_equal_warm": bool(torch.equal(warm, logits)),
+          "decode_ms_median": statistics.median(decode_ms),
+          "decode_ms_first": decode_ms[0], "decode_ms_max": max(decode_ms),
+          "decode_tokens_per_s": LM_BATCH * LM_NEW / (sum(decode_ms) / 1e3),
+          "dropped_share_per_layer": dropped,
+          "dropped_share_mean": statistics.mean(dropped),
+          "max_memory_allocated": peak,
+          "prefill_launches": prefill_launches, "kernels": launches})
+    del warm
+    emit({"phase": "moe", "request_ms": [1e3 * prefill_s] + decode_ms})
+    check(prefill_launches == cfg.n_layers,
+          f"the MoE prefill launched flash_attention {prefill_launches} "
+          f"times, not once per layer ({cfg.n_layers})")
+    check(launches["flash_attention"] == cfg.n_layers,
+          "the MoE decode should launch no flash_attention")
+    check(len(dropped) == cfg.n_layers
+          and all(0.0 <= x < 1.0 for x in dropped),
+          f"dropped shares {dropped}")
+    check(set(captured) == {"global"}, "the MoE prefill should run global "
+          "layers only")
+
+    # the prefill gate: forward over the same prompts at the same T, then
+    # the prefill again with each planted MoE fault
+    t0 = time.perf_counter()
+    full = model(tokens)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    check(full.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_size)
+          and bool(torch.isfinite(full[:, -1]).all()),
+          f"forward logits {tuple(full.shape)} not finite")
+    want = full[:, -1].float()
+    del full
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    err_prefill = float((logits - want).abs().max())
+    prefill_faults = {}
+    for fault, ffn in moe_faults(torch, tfm).items():
+        with swapped(tfm, moe_ffn=ffn):
+            bad, _ = model.prefill(tokens)
+        prefill_faults[fault] = float((bad - want).abs().max())
+        del bad
+    torch.cuda.empty_cache()
+
+    # the decode gate at capacity E / K, on the same weights
+    model_all = tfm.TransformerLM(
+        dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k),
+        params)
+    t0 = time.perf_counter()
+    dec = moe_decode_readings(torch, tfm, model_all, tokens[:, :MOE_SHORT],
+                              LM_FAULT_STEPS)
+    decode_check_s = time.perf_counter() - t0
+    del model_all
+    emit({"phase": "moe_check", "forward_ms": 1e3 * forward_s,
+          "prefill_vs_forward": err_prefill,
+          "prefill_atol": MOE_PREFILL_ATOL,
+          "prefill_faults": prefill_faults,
+          "max_abs_logit": float(want.abs().max()),
+          "short_prompt": MOE_SHORT, "fault_steps": LM_FAULT_STEPS,
+          "decode_atol": MOE_DECODE_ATOL, "decode_readings": dec,
+          "decode_check_s": decode_check_s})
+    check(err_prefill <= MOE_PREFILL_ATOL,
+          f"MoE prefill logits differ from forward's by {err_prefill}")
+    for fault, err in prefill_faults.items():
+        check(err > MOE_PREFILL_ATOL, f"the MoE prefill gate passes a "
+              f"planted fault ({fault}: {err})")
+    check(dec["forward_dropped_share"] == 0.0,
+          "forward at capacity E / K dropped assignments")
+    for what in ("prefill", "decode"):
+        check(dec[what] <= MOE_DECODE_ATOL,
+              f"MoE {what} at capacity E / K differs from forward's by "
+              f"{dec[what]}")
+    for fault, err in dec["faults"].items():
+        check(err > MOE_DECODE_ATOL, f"the MoE decode gate passes a planted "
+              f"fault ({fault}: {err})")
+    del model, params, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = compare_attention(torch, captured, layers={"global": 0},
+                                model="qwen3-moe ")
+    return {"launches": launches, "results": results}
+
+
+# ----------------------------------------------------------------------------
 # phase 6: EmbeddingBag at MIND's full table
 # ----------------------------------------------------------------------------
 
@@ -3419,6 +3951,11 @@ def main() -> int:
     t0 = time.perf_counter()
     results += iterators_phase(torch, np, out, want)["results"]
     emit({"phase": "iterators", "seconds": time.perf_counter() - t0})
+
+    # ----------------------------------------------------------------- mind
+    t0 = time.perf_counter()
+    mind_phase(torch, np, store.forward)
+    emit({"phase": "mind", "seconds": time.perf_counter() - t0})
     updates = [req for kind, req, _, _ in out["responses"]
                if kind == "update"][:3]
     ref3 = served_reference(torch, np, out)
@@ -3476,6 +4013,16 @@ def main() -> int:
     launches["flash_attention"] = lm["launches"]["flash_attention"]
     emit({"phase": "lm", "seconds": time.perf_counter() - t0})
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ moe
+    t0 = time.perf_counter()
+    moe = moe_phase(torch, np)
+    results += moe["results"]
+    launches["flash_attention"] += moe["launches"]["flash_attention"]
+    emit({"phase": "moe", "seconds": time.perf_counter() - t0})
+    del moe
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,12 +1,12 @@
 """Registry of the ported architectures: ``get_arch("<id>")`` -> config
 module (ARCH_ID, FAMILY, SHAPES, SKIP, full_config(), smoke_config()).
 
-The three dense LMs of ``repro.configs``; the MoE LMs wait for ``moe_ffn``
-and the GNN and recsys configs for their models (ROADMAP §1).
+The five LMs of ``repro.configs`` (two MoE, three dense) and MIND; the GNN
+configs wait for their models (ROADMAP §1).
 """
-from . import gemma2_9b, gemma_2b, qwen15_32b
+from . import gemma2_9b, gemma_2b, mind, phi35_moe, qwen15_32b, qwen3_moe
 
-_MODULES = [gemma_2b, gemma2_9b, qwen15_32b]
+_MODULES = [phi35_moe, qwen3_moe, gemma_2b, gemma2_9b, qwen15_32b, mind]
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 

@@ -1,7 +1,9 @@
-"""The LM shape table, from ``repro.configs.common.LM_SHAPES``.
+"""The LM and recsys shape tables, from ``repro.configs.common``.
 
 ``kind`` selects the step: ``train`` (not ported), ``prefill`` (logits and
-KV cache) and ``decode`` (one new token against the KV cache).
+KV cache), ``decode`` (one new token against the KV cache), ``serve``
+(recsys candidate scoring) and ``retrieval`` (scoring pre-materialised
+candidate embeddings).
 """
 from __future__ import annotations
 
@@ -10,4 +12,12 @@ LM_SHAPES = {
     "prefill_32k": {"kind": "prefill", "seq_len": 32768, "global_batch": 32},
     "decode_32k": {"kind": "decode", "seq_len": 32768, "global_batch": 128},
     "long_500k": {"kind": "decode", "seq_len": 524288, "global_batch": 1},
+}
+
+RECSYS_SHAPES = {
+    "train_batch": {"kind": "train", "batch": 65536},
+    "serve_p99": {"kind": "serve", "batch": 512, "n_candidates": 4096},
+    "serve_bulk": {"kind": "serve", "batch": 262144, "n_candidates": 4096},
+    "retrieval_cand": {"kind": "retrieval", "batch": 1,
+                       "n_candidates": 1000000},
 }

@@ -1,1 +1,2 @@
-"""Model surface of the port: the dense decoder-only LM (``transformer``)."""
+"""Model surface of the port: the decoder-only LM, dense and MoE
+(``transformer``), and MIND's serving path (``recsys.mind``)."""

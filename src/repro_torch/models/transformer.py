@@ -1,7 +1,8 @@
 """Decoder-only LM serving path, from ``repro.models.transformer``.
 
-One parameterised stack for the dense configs of the reference's pool
-(gemma-2b: MQA, GeGLU, embedding scaling; gemma2-9b: GQA, local(4096) and
+One parameterised stack for the reference's five LM configs (phi3.5-moe:
+GQA, 16 experts top-2; qwen3-moe: GQA, QK norm, 128 experts top-8;
+gemma-2b: MQA, GeGLU, embedding scaling; gemma2-9b: GQA, local(4096) and
 global layers alternating, attention and final softcaps; qwen1.5-32b: MHA,
 QKV bias).  ``TransformerLM`` holds the layer-stacked parameters under the
 reference's pytree names (``embed``, ``final_norm``, ``lm_head``,
@@ -22,14 +23,21 @@ Departures from the reference:
   returns the same dict.
 * The sharding constraints (``distributed.sharding.constrain``) are
   identities on one device and are dropped.
-* MoE configs (``moe_ffn``) and the one-layer alternating stack the
-  reference keeps for dry-run calibration raise ``NotImplementedError``.
+* ``moe_ffn`` sums a token's kept expert contributions in a fixed order
+  (its experts ascending, one rounding an addition in the buffers' dtype,
+  as the reference's ``segment_sum`` adds them), not with atomics, and
+  breaks top-k ties toward the lower expert, as ``jax.lax.top_k`` does.
+* ``init_params`` draws the expert-stacked leaves one layer at a time (a
+  float32 temporary of one layer, not of the whole stack).
+* The one-layer alternating stack the reference keeps for dry-run
+  calibration raises ``NotImplementedError``.
 * Training (``loss_fn``, remat, the scan-unroll and FSDP-cast knobs) is not
   ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -42,7 +50,8 @@ from ..kernels.flash_attention import flash_attention
 
 #: the layer-stacked parameter names a config may have
 LAYER_PARAMS = ("wq", "wk", "wv", "wo", "ln_attn", "ln_mlp", "bq", "bk",
-                "bv", "q_norm", "k_norm", "w_gate", "w_up", "w_down")
+                "bv", "q_norm", "k_norm", "router", "w_gate", "w_up",
+                "w_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +64,10 @@ class LMConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
-    # MoE (n_experts == 0 -> dense FFN); not ported: its top_k and
-    # capacity_factor come with moe_ffn
+    # MoE (n_experts == 0 -> dense FFN)
     n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # attention flavour
     qkv_bias: bool = False
     qk_norm: bool = False
@@ -72,6 +82,7 @@ class LMConfig:
     embed_scale: bool = False          # gemma: x *= sqrt(d_model)
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
+    dispatch_groups: int = 1  # shard-local MoE dispatch over G token groups
 
     @property
     def is_moe(self) -> bool:
@@ -110,9 +121,11 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32) -> Dict:
     """Layer-stacked parameters (leading dim = n_layers) on the generator's
     device: normal weights scaled by fan_in ** -0.5 (the embedding by 1,
-    ``w_down`` by d_ff ** -0.5), ones for the norms, zeros for the biases.
-    The reference's initialiser with a ``torch.Generator`` for its key: the
-    same distributions, not the same numbers."""
+    ``w_down`` by d_ff ** -0.5, the router by d_model ** -0.5), ones for the
+    norms, zeros for the biases.  The reference's initialiser with a
+    ``torch.Generator`` for its key: the same distributions, not the same
+    numbers.  The expert-stacked leaves (L, E, ...) are drawn one layer at a
+    time in float32 and cast, so the temporary is one layer's."""
     L, D, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
     Hq, Hkv, Fd, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
     dev = generator.device
@@ -123,11 +136,15 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
         return torch.randn(shape, generator=generator, device=dev,
                            dtype=torch.float32).mul_(s).to(dtype)
 
+    def per_layer(shape, scale=None):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for i in range(shape[0]):
+            out[i] = w(shape[1:], scale)
+        return out
+
     def const(value, shape):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    if cfg.is_moe:
-        _no_moe(cfg)
     layers = {
         "wq": w((L, D, Hq * hd)),
         "wk": w((L, D, Hkv * hd)),
@@ -143,9 +160,16 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     if cfg.qk_norm:
         layers["q_norm"] = const(1.0, (L, hd))
         layers["k_norm"] = const(1.0, (L, hd))
-    layers["w_gate"] = w((L, D, Fd))
-    layers["w_up"] = w((L, D, Fd))
-    layers["w_down"] = w((L, Fd, D), scale=Fd ** -0.5)
+    if cfg.is_moe:
+        E = cfg.n_experts
+        layers["router"] = w((L, D, E), scale=D ** -0.5)
+        layers["w_gate"] = per_layer((L, E, D, Fd))
+        layers["w_up"] = per_layer((L, E, D, Fd))
+        layers["w_down"] = per_layer((L, E, Fd, D), scale=Fd ** -0.5)
+    else:
+        layers["w_gate"] = w((L, D, Fd))
+        layers["w_up"] = w((L, D, Fd))
+        layers["w_down"] = w((L, Fd, D), scale=Fd ** -0.5)
 
     params = {"embed": w((V, D), scale=1.0),
               "final_norm": const(1.0, (D,)), "layers": layers}
@@ -178,12 +202,6 @@ def params_from_numpy(tree: Dict, cfg: LMConfig, device,
                          f"{'lacks' if 'lm_head' not in out else 'has'} "
                          "lm_head")
     return out
-
-
-def _no_moe(cfg: LMConfig):
-    raise NotImplementedError(
-        f"{cfg.name}: the MoE FFN (moe_ffn, {cfg.n_experts} experts) is not "
-        "ported yet; ROADMAP §1, model surface, queue item 1")
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +241,118 @@ def _activation(gate: torch.Tensor, up: torch.Tensor, kind: str
 def dense_ffn(x: torch.Tensor, lw: Dict, cfg: LMConfig) -> torch.Tensor:
     h = _activation(x @ lw["w_gate"], x @ lw["w_up"], cfg.activation)
     return h @ lw["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+def moe_capacity(n_tokens: int, cfg: LMConfig) -> int:
+    """Slots per expert for ``n_tokens`` tokens: ``ceil(T * K / E * cf)``,
+    at least 8 and at most T."""
+    C = int(math.ceil(n_tokens * cfg.top_k / cfg.n_experts
+                      * cfg.capacity_factor))
+    return max(8, min(C, n_tokens))
+
+
+@dataclasses.dataclass
+class MoERoute:
+    """Where each (token, choice) assignment of G token groups goes."""
+    top_e: torch.Tensor      # (G, Tg, K) int64: experts, highest gate first
+    top_g: torch.Tensor      # (G, Tg, K) float32: renormalised gates
+    slot: torch.Tensor       # (G, Tg, K) int64: e * C + rank, E * C dropped
+    capacity: int            # C, slots per expert
+    n_experts: int           # E
+
+    @property
+    def keep(self) -> torch.Tensor:
+        """(G, Tg, K) bool: the assignments within their expert's
+        capacity."""
+        return self.slot < self.n_experts * self.capacity
+
+
+def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg: LMConfig
+              ) -> MoERoute:
+    """Route tokens ``xg`` (G, Tg, D): float32 softmax gates over the
+    experts, the top K (ties to the lower expert) renormalised, then per
+    group a stable sort of the flattened (token, choice) expert ids, each
+    assignment's rank within its expert's run, and its buffer slot
+    ``e * C + rank``, or the out-of-range ``E * C`` past the capacity C."""
+    G, Tg, _ = xg.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(Tg, cfg)
+    gates = torch.softmax((xg @ router).float(), dim=-1)     # (G, Tg, E)
+    top_g, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_g, top_e = top_g[..., :K], top_e[..., :K]
+    top_g = top_g / top_g.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = top_e.reshape(G, Tg * K)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices
+    se = flat_e.gather(1, order)
+    idx = torch.arange(Tg * K, device=xg.device).expand(G, -1)
+    run_start = torch.ones_like(se, dtype=torch.bool)
+    run_start[:, 1:] = se[:, 1:] != se[:, :-1]
+    base = torch.cummax(torch.where(run_start, idx, -1), dim=1).values
+    rank = idx - base
+    slot = torch.where(rank < C, se * C + rank, E * C)
+    slot = torch.empty_like(slot).scatter_(1, order, slot)
+    return MoERoute(top_e=top_e, top_g=top_g, slot=slot.view(G, Tg, K),
+                    capacity=C, n_experts=E)
+
+
+def moe_experts(xg: torch.Tensor, lw: Dict, cfg: LMConfig, route: MoERoute
+                ) -> torch.Tensor:
+    """The experts of routed tokens ``xg`` (G, Tg, D): the kept assignments
+    gathered into (G, E, C, D) buffers, the three expert products, and each
+    token's kept outputs weighted by their gates and summed (its experts
+    ascending, in the buffers' dtype) -> (G, Tg, D) in xg's dtype."""
+    G, Tg, D = xg.shape
+    E, K, C = cfg.n_experts, cfg.top_k, route.capacity
+    gi = torch.arange(G, device=xg.device)[:, None]
+    slot = route.slot.reshape(G, Tg * K)
+    # one spare row takes every dropped assignment and is cut off
+    xe = xg.new_zeros((G, E * C + 1, D))
+    xe[gi, slot] = xg.repeat_interleave(K, dim=1)
+    xe = xe[:, :E * C].reshape(G, E, C, D)
+    h = _activation(torch.einsum("gecd,edf->gecf", xe, lw["w_gate"]),
+                    torch.einsum("gecd,edf->gecf", xe, lw["w_up"]),
+                    cfg.activation)
+    del xe
+    ye = torch.einsum("gecf,efd->gecd", h, lw["w_down"]).reshape(
+        G, E * C, D)
+    del h
+    contrib = ye[gi, slot.clamp(max=E * C - 1)].view(G, Tg, K, D)
+    contrib = contrib * route.top_g[..., None].to(ye.dtype)
+    contrib = torch.where(route.keep[..., None], contrib, 0)
+    # the reference's segment_sum adds a token's contributions in its
+    # experts' sorted order, one rounding an addition
+    by_expert = route.top_e.argsort(dim=-1)[..., None].expand(-1, -1, -1, D)
+    contrib = contrib.gather(2, by_expert)
+    y = contrib[:, :, 0]
+    for k in range(1, K):
+        y = y + contrib[:, :, k]
+    return y.to(xg.dtype)
+
+
+def moe_ffn(x: torch.Tensor, lw: Dict, cfg: LMConfig) -> torch.Tensor:
+    """Sort-based capacity-bucketed MoE dispatch of x (T, D): assignments
+    past an expert's capacity are dropped (GShard semantics).
+    ``cfg.dispatch_groups > 1`` dispatches each of G token groups on its
+    own (``_moe_ffn_grouped``)."""
+    if cfg.dispatch_groups > 1:
+        return _moe_ffn_grouped(x, lw, cfg)
+    xg = x[None]
+    return moe_experts(xg, lw, cfg, moe_route(xg, lw["router"], cfg))[0]
+
+
+def _moe_ffn_grouped(x: torch.Tensor, lw: Dict, cfg: LMConfig
+                     ) -> torch.Tensor:
+    """Shard-local MoE dispatch: x (T, D) viewed as (G, T / G) groups, the
+    capacity, sort and ranks per group."""
+    T, D = x.shape
+    xg = x.reshape(cfg.dispatch_groups, T // cfg.dispatch_groups, D)
+    y = moe_experts(xg, lw, cfg, moe_route(xg, lw["router"], cfg))
+    return y.reshape(T, D)
 
 
 def _qkv(x: torch.Tensor, lw: Dict, cfg: LMConfig, positions: torch.Tensor
@@ -319,13 +449,11 @@ def _decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class TransformerLM(nn.Module):
-    """A dense decoder-only LM over the parameters ``params`` (from
+    """A decoder-only LM over the parameters ``params`` (from
     ``init_params`` or ``params_from_numpy``), for serving: the parameters
     take no gradient."""
 
     def __init__(self, cfg: LMConfig, params: Dict):
-        if cfg.is_moe:
-            _no_moe(cfg)
         if cfg.has_local and cfg.n_layers == 1:
             raise NotImplementedError(
                 f"{cfg.name}: the one-layer alternating stack (the "
@@ -369,9 +497,14 @@ class TransformerLM(nn.Module):
         return x @ head.to(cfg.dtype)
 
     def _ffn(self, x: torch.Tensor, lw: Dict) -> torch.Tensor:
-        """The FFN half of a layer, residual included."""
-        h = rms_norm(x, lw["ln_mlp"], self.cfg.norm_eps)
-        return x + dense_ffn(h, lw, self.cfg)
+        """The FFN half of a layer, residual included: the experts over the
+        flattened tokens of x (B, S, D), or the dense FFN."""
+        cfg = self.cfg
+        h = rms_norm(x, lw["ln_mlp"], cfg.norm_eps)
+        if cfg.is_moe:
+            return x + moe_ffn(h.reshape(-1, h.shape[-1]), lw,
+                               cfg).view(h.shape)
+        return x + dense_ffn(h, lw, cfg)
 
     def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
         B, S = tokens.shape

@@ -91,7 +91,7 @@ def _describe_exception(exc: Optional[BaseException]) -> Dict[str, Any]:
     return d
 
 
-def _store_section(store) -> Dict[str, Any]:
+def store_section(store) -> Dict[str, Any]:
     if store is None:
         return {}
     sec: Dict[str, Any] = {"kind": type(store).__name__}
@@ -151,7 +151,7 @@ def dump(store=None, *, reason: str, exc: Optional[BaseException] = None,
             "pid": os.getpid(),
             "reason": reason,
             "exception": _describe_exception(exc),
-            "store": _store_section(store),
+            "store": store_section(store),
             "breakers": [],
             "fault_plan": _fault_section(),
             "flight": {"stats": flight.stats(),
@@ -205,6 +205,16 @@ def on_apply_failure(store, exc: BaseException) -> Optional[Path]:
     return dump(store, reason=reason, exc=exc)
 
 
+def reads_store(store, exc: BaseException) -> bool:
+    """Whether ``on_apply_failure(store, exc)`` reads the store's section:
+    a failure it dumps, with a bundle directory to dump into.  The ranks
+    of a mesh store that write no bundle read it too when this holds
+    (the statistics are gathered over the ranks)."""
+    from ..resilience.guard import PIPELINE_RECOVERABLE
+    return (not isinstance(exc, PIPELINE_RECOVERABLE)
+            and bundle_dir_for(store) is not None)
+
+
 def _bundles(bundle_dir) -> List[Path]:
     d = Path(bundle_dir)
     if not d.is_dir():
@@ -241,5 +251,5 @@ def consume_latest(bundle_dir) -> Optional[Dict[str, Any]]:
 
 
 __all__ = ["SCHEMA", "LAST_N_FLIGHT", "set_bundle_dir", "register_breaker",
-           "reset", "bundle_dir_for", "dump", "on_apply_failure",
-           "latest", "consume_latest"]
+           "reset", "bundle_dir_for", "store_section", "dump",
+           "on_apply_failure", "reads_store", "latest", "consume_latest"]

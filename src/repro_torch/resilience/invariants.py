@@ -237,67 +237,150 @@ def _store_edges(store, view: str) -> Tuple[torch.Tensor, torch.Tensor]:
     return _live_edges_dev(g)
 
 
-def _union_mismatch(f_src, f_dst, s_src, s_dst):
+def _union_mismatch(union_keys, sym_keys):
     """``(symmetric edges, union edges, size of their symmetric
-    difference)``, or None when the symmetric view holds exactly the union
-    of both directions of the forward one.  Sets of ``src << 32 | dst``
-    keys, deduplicated and compared on the device."""
-    union = torch.unique(torch.cat([(f_src << 32) | f_dst,
-                                    (f_dst << 32) | f_src]))
-    sym = torch.unique((s_src << 32) | s_dst)
+    difference)`` of two sets of ``src << 32 | dst`` keys (each may hold
+    repeats), deduplicated and compared on the device; the last count is
+    0 exactly when the symmetric view holds the union of both directions
+    of the forward one."""
+    union, sym = torch.unique(union_keys), torch.unique(sym_keys)
     if union.numel() == sym.numel() and torch.equal(union, sym):
-        return None
+        return sym.numel(), union.numel(), 0
     _, counts = torch.unique(torch.cat([union, sym]), return_counts=True)
     return sym.numel(), union.numel(), int((counts == 1).sum())
+
+
+def _keys(src, dst):
+    return (src << 32) | dst
+
+
+def _cross_view_violations(transpose_hashes, union_counts
+                           ) -> List[Violation]:
+    """The cross-view checks' violations from ``(transpose hash, swapped
+    forward hash)`` and ``(symmetric, union, difference)`` counts (None for
+    a check not run)."""
+    out: List[Violation] = []
+    if transpose_hashes is not None and \
+            transpose_hashes[0] != transpose_hashes[1]:
+        out.append(Violation(
+            "transpose", "edge_multiset",
+            "transpose edge multiset != swapped forward multiset"))
+    if union_counts is not None and union_counts[2]:
+        n_sym, n_union, n_xor = union_counts
+        out.append(Violation(
+            "symmetric", "union_mismatch",
+            f"symmetric view has {n_sym} edges vs the "
+            f"{n_union}-edge union of both directions", n_xor))
+    return out
+
+
+def _gather_keys(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's 1-D int64 ``x`` (lengths may differ), concatenated in
+    rank order on every rank."""
+    from ..distributed.collectives import gather_objects, gather_stacked
+    sizes = gather_objects(int(x.numel()), group)
+    padded = x.new_zeros(max(sizes))
+    padded[:x.numel()] = x
+    parts = gather_stacked(padded, group)
+    return torch.cat([parts[r, :n] for r, n in enumerate(sizes)])
+
+
+def _audit_mesh(store, names: Tuple[str, ...], cross_view: bool,
+                t0: float) -> Tuple[int, List[Violation], float]:
+    """A mesh store's audit, the same on every rank and the stacked
+    store's, violation for violation: each rank audits its own shard and
+    the violations are gathered in shard order; the transpose check sums
+    the ranks' wrapping hashes; the symmetric check compares on each rank
+    the union keys whose source it owns (its forward edges, and the
+    reversed forward edges of every rank, all-gathered) with its symmetric
+    shard, and sums the counts."""
+    from ..distributed.collectives import gather_objects
+    from ..distributed.sharded_graph import shard_slice
+    sg0 = store.views[names[0]]
+    group, me, S = sg0.group, sg0.rank, sg0.n_shards
+    mine = {name: [dataclasses.replace(v, view=f"{name}[{me}]")
+                   for v in audit_graph(shard_slice(store.views[name], me),
+                                        view=name)]
+            for name in names}
+    hashes = counts = None
+    if cross_view and "forward" in names:
+        def edges(view):
+            return _live_edges_dev(shard_slice(store.views[view], me),
+                                   shard=me, n_shards=S)
+        f_src, f_dst = edges("forward")
+        if "transpose" in names:
+            hashes = (edge_multiset_hash(*edges("transpose"), swap=True),
+                      edge_multiset_hash(f_src, f_dst))
+        if "symmetric" in names:
+            rev = _gather_keys(_keys(f_dst, f_src), group)
+            rev = rev[(rev >> 32) % S == me]
+            union = torch.cat([_keys(f_src, f_dst), rev])
+            del rev
+            counts = _union_mismatch(union, _keys(*edges("symmetric")))
+            del union
+    parts = gather_objects((mine, hashes, counts,
+                            time.perf_counter() - t0), group)
+    violations = [v for name in names for part in parts
+                  for v in part[0][name]]
+    summed = None
+    if hashes is not None:
+        summed = tuple(sum(p[1][i] for p in parts) % (1 << 64)
+                       for i in range(2))
+    total = None
+    if counts is not None:
+        total = tuple(sum(p[2][i] for p in parts) for i in range(3))
+    violations += _cross_view_violations(summed, total)
+    checks = 6 * S * len(names) + (hashes is not None) + (counts is not None)
+    return checks, violations, max(p[3] for p in parts)
 
 
 def audit_store(store, *, views: Optional[Sequence[str]] = None,
                 cross_view: bool = True) -> InvariantReport:
     """Run every invariant over ``views`` (default: every live view) of a
     GraphStore or a ShardedGraphStore (each shard audited on its own, its
-    violations tagged ``view[k]``)."""
+    violations tagged ``view[k]``).  On a mesh every rank calls it and
+    gets the same report, the stacked store's (its ``duration_s`` the
+    slowest rank's)."""
     t0 = time.perf_counter()
     names = tuple(views) if views else tuple(store.views)
-    violations: List[Violation] = []
-    checks = 0
-    for name in names:
-        g = store.views[name]
-        if hasattr(g, "n_shards"):
-            from ..distributed.sharded_graph import shard_slice
-            for k in range(g.n_shards):
-                violations += [dataclasses.replace(v, view=f"{name}[{k}]")
-                               for v in audit_graph(shard_slice(g, k),
-                                                    view=name)]
+    if getattr(store.views[names[0]], "mesh", None) is not None:
+        checks, violations, duration = _audit_mesh(store, names,
+                                                   cross_view, t0)
+    else:
+        violations: List[Violation] = []
+        checks = 0
+        for name in names:
+            g = store.views[name]
+            if hasattr(g, "n_shards"):
+                from ..distributed.sharded_graph import shard_slice
+                for k in range(g.n_shards):
+                    violations += [
+                        dataclasses.replace(v, view=f"{name}[{k}]")
+                        for v in audit_graph(shard_slice(g, k), view=name)]
+                    checks += 6
+            else:
+                violations += audit_graph(g, view=name)
                 checks += 6
-        else:
-            violations += audit_graph(g, view=name)
-            checks += 6
-
-    if cross_view and "forward" in names:
-        f_src, f_dst = _store_edges(store, "forward")
-        if "transpose" in names:
-            t_src, t_dst = _store_edges(store, "transpose")
-            checks += 1
-            if edge_multiset_hash(t_src, t_dst, swap=True) != \
-                    edge_multiset_hash(f_src, f_dst):
-                violations.append(Violation(
-                    "transpose", "edge_multiset",
-                    "transpose edge multiset != swapped forward multiset"))
-        if "symmetric" in names:
-            s_src, s_dst = _store_edges(store, "symmetric")
-            checks += 1
-            bad = _union_mismatch(f_src, f_dst, s_src, s_dst)
-            if bad is not None:
-                n_sym, n_union, n_xor = bad
-                violations.append(Violation(
-                    "symmetric", "union_mismatch",
-                    f"symmetric view has {n_sym} edges vs the "
-                    f"{n_union}-edge union of both directions", n_xor))
+        hashes = counts = None
+        if cross_view and "forward" in names:
+            f_src, f_dst = _store_edges(store, "forward")
+            if "transpose" in names:
+                checks += 1
+                hashes = (edge_multiset_hash(*_store_edges(store,
+                                                           "transpose"),
+                                             swap=True),
+                          edge_multiset_hash(f_src, f_dst))
+            if "symmetric" in names:
+                checks += 1
+                counts = _union_mismatch(
+                    torch.cat([_keys(f_src, f_dst), _keys(f_dst, f_src)]),
+                    _keys(*_store_edges(store, "symmetric")))
+        violations += _cross_view_violations(hashes, counts)
+        duration = time.perf_counter() - t0
 
     report = InvariantReport(
         version=store.version, views=names, checks_run=checks,
-        violations=tuple(violations),
-        duration_s=time.perf_counter() - t0)
+        violations=tuple(violations), duration_s=duration)
     for v in violations:
         obs.emit_event("invariant_violation", version=store.version,
                        **v.as_event())

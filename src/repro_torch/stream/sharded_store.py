@@ -297,8 +297,29 @@ def _sym_concat_ids(a, b, p: int) -> np.ndarray:
 # the store
 # ----------------------------------------------------------------------------
 
-#: where the store methods that a mesh store does not run are listed
-_MESH_TODO = "ROADMAP.md, queue 1, item 4.1"
+#: a rank's outcome of a stage of a mesh epoch, all-reduced with MAX: a
+#: simulated kill outranks an allocation failure, which outranks any other
+_OK, _FAILED, _OOM, _KILLED = 0, 1, 2, 3
+
+
+class MeshPeerFailure(RuntimeError):
+    """Raised on the ranks of a mesh epoch that did not fail themselves when
+    another rank did, so that every rank leaves the epoch together.
+    ``killed``: the failure was a simulated kill (the WAL record stays, as
+    after a kill of the whole job)."""
+
+    def __init__(self, stage: str, killed: bool):
+        super().__init__(f"another rank of the mesh failed in {stage}"
+                         + (" (a simulated kill)" if killed else ""))
+        self.stage = stage
+        self.killed = killed
+
+
+def _keeps_wal_record(exc: BaseException) -> bool:
+    """A simulated kill, here or on another rank: the journaled batch stays
+    in the WAL for recovery."""
+    return isinstance(exc, faults.InjectedCrash) or (
+        isinstance(exc, MeshPeerFailure) and exc.killed)
 
 
 class ShardedGraphStore(VersionedStoreBase):
@@ -342,11 +363,8 @@ class ShardedGraphStore(VersionedStoreBase):
         shard (``distributed.sharded_graph.place_on_mesh``; every rank
         calls it on the same stacked store).  From then on
         ``dispatch="auto"`` runs epochs, queries and analytics as the
-        multi-process rendering.  Returns self."""
-        if self.wal is not None or self.audits is not None:
-            raise NotImplementedError(
-                "a mesh store runs no WAL and no audits yet "
-                f"({_MESH_TODO}); detach them before place_on_mesh")
+        multi-process rendering.  An attached WAL and audit policy stay
+        attached: on the mesh rank 0 writes the WAL.  Returns self."""
         for name in list(self._views):
             self._views[name] = place_on_mesh(self._views[name], mesh)
         self.device = self.forward.device
@@ -360,23 +378,51 @@ class ShardedGraphStore(VersionedStoreBase):
         """``"vmap"`` (stacked) or ``"shard_map"`` (mesh)."""
         return _resolve_dispatch(self.dispatch, self.mesh)
 
-    def _mesh_only_stacked(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh-placed ShardedGraphStore is not ported "
-                f"({_MESH_TODO}); save, restore and recover it stacked")
+    def _agreed(self, stage: str, fn):
+        """Run ``fn`` (a stage of an epoch that can fail) and, on a mesh,
+        agree on the outcome with one all-reduce: when any rank failed,
+        every rank raises (its own exception, or ``MeshPeerFailure``; an
+        ``InjectedOOM`` as such, so that the retry budgets retry together),
+        and no rank is left inside a collective.  Returns ``fn()``."""
+        err, out = None, None
+        try:
+            out = fn()
+        except BaseException as e:               # agreed on below
+            err = e
+        if self.mesh is None:
+            if err is not None:
+                raise err
+            return out
+        code = (_OK if err is None
+                else _KILLED if isinstance(err, faults.InjectedCrash)
+                else _OOM if isinstance(err, faults.InjectedOOM)
+                else _FAILED)
+        worst = int(max_across_shards(
+            torch.tensor(code, device=self.device), self.forward.group))
+        if worst == _OK:
+            return out
+        if err is not None:
+            raise err
+        if worst == _OOM:
+            raise faults.InjectedOOM(stage, 0)
+        raise MeshPeerFailure(stage, killed=worst == _KILLED)
 
-    def attach_wal(self, wal) -> "ShardedGraphStore":
-        self._mesh_only_stacked("attach_wal")
-        return super().attach_wal(wal)
+    def _wal_append(self, i_s, i_d, i_w, d_s, d_d):
+        """On a mesh rank 0 journals the canonical batch, which every rank
+        holds; the other ranks hold no writer."""
+        if self.mesh is not None and self.forward.rank != 0:
+            return None
+        return super()._wal_append(i_s, i_d, i_w, d_s, d_d)
 
-    def attach_audits(self, policy) -> "ShardedGraphStore":
-        self._mesh_only_stacked("attach_audits")
-        return super().attach_audits(policy)
-
-    def audit(self, *, views=None, cross_view: bool = True):
-        self._mesh_only_stacked("audit")
-        return super().audit(views=views, cross_view=cross_view)
+    def _dump_postmortem(self, exc: BaseException) -> None:
+        """On a mesh every rank reads the bundle's pool statistics (a
+        gather), and rank 0 writes it."""
+        if self.mesh is not None and self.forward.rank != 0:
+            from ..obs import postmortem
+            if postmortem.reads_store(self, exc):
+                postmortem.store_section(self)
+            return
+        super()._dump_postmortem(exc)
 
     # ------------------------------------------------------- host accounting
     def _high(self, name: str) -> int:
@@ -522,11 +568,14 @@ class ShardedGraphStore(VersionedStoreBase):
 
     def _apply_inner(self, epoch_span, ins_src, ins_dst, ins_w, del_src,
                      del_dst) -> AppliedBatch:
-        with obs.span("store.apply.host_dedup"):
-            i_s, i_d, i_w, d_s, d_d = canonical_batch(
-                ins_src, ins_dst, ins_w, del_src, del_dst,
-                weighted=self.weighted)
-        faults.fault_point("apply.admitted", version=self.version)
+        def admit():
+            with obs.span("store.apply.host_dedup"):
+                batch = canonical_batch(ins_src, ins_dst, ins_w, del_src,
+                                        del_dst, weighted=self.weighted)
+            faults.fault_point("apply.admitted", version=self.version)
+            return batch
+
+        i_s, i_d, i_w, d_s, d_d = self._agreed("apply.admitted", admit)
         _flight.record(_FL_ADMIT, self.version, len(i_s), len(d_s))
         roles = tuple(v for v in ALL_VIEWS if v in self._views)
         S = self.n_shards
@@ -580,8 +629,9 @@ class ShardedGraphStore(VersionedStoreBase):
                         # the running bound charges a whole slab per routed
                         # insert; re-prime it with one exact read before
                         # paying for growth
-                        faults.fault_point("store.capacity_grow",
-                                           view=name, version=self.version)
+                        self._agreed("store.capacity_grow", partial(
+                            faults.fault_point, "store.capacity_grow",
+                            view=name, version=self.version))
                         self._high_water[name] = worst_next_free(sg)
                         self._views[name] = ensure_capacity_sharded(
                             sg, reserve, high=self._high_water[name])
@@ -618,13 +668,33 @@ class ShardedGraphStore(VersionedStoreBase):
             ins_wj = _pad_f32(i_w, p_ins, dev)
             ins = (ins_sj, ins_dj, ins_wj)
 
-        # durability: journal the canonical batch, then run the engine
-        wal_token = self._wal_append(i_s, i_d, i_w, d_s, d_d)
-        faults.fault_point("apply.post_wal", version=self.version)
+        # durability: journal the canonical batch, then run the engine (on
+        # a mesh rank 0 journals; a failure on any rank after the append
+        # rolls its record back unless it was a kill)
+        wal_token = None
+
+        def journal():
+            nonlocal wal_token
+            wal_token = self._wal_append(i_s, i_d, i_w, d_s, d_d)
+            faults.fault_point("apply.post_wal", version=self.version)
+
+        def rollback(e):
+            if wal_token is not None and not _keeps_wal_record(e):
+                self.wal.rollback(wal_token)
+
+        try:
+            self._agreed("apply.post_wal", journal)
+        except BaseException as e:
+            # on a mesh another rank's failure here must not leave rank 0's
+            # record behind; the stacked store keeps the reference's
+            # behaviour (a failure at this site keeps the record)
+            if self.mesh is not None:
+                rollback(e)
+            raise
         _flight.record(_FL_POST_WAL, self.version,
                        0 if wal_token is None else 1)
 
-        try:
+        def dispatch():
             n_inserted = n_deleted = 0
             ins_mask = del_mask = None
             if ins is not None or dels is not None:
@@ -654,9 +724,11 @@ class ShardedGraphStore(VersionedStoreBase):
                         self._high_water[name] = (self._high(name)
                                                   + per_view[name])
             faults.fault_point("apply.pre_close", version=self.version)
+            return n_inserted, n_deleted, ins_mask, del_mask
+
+        def close():
             _flight.record(_FL_DISPATCH, self.version,
                            n_inserted, n_deleted)
-
             with obs.span("store.apply.notify"):
                 batch = self._record_batch(
                     ins_src=ins_sj, ins_dst=ins_dj, ins_w=ins_wj,
@@ -673,11 +745,14 @@ class ShardedGraphStore(VersionedStoreBase):
             faults.fault_point("apply.post_close", version=self.version)
             _flight.record(_FL_CLOSE, batch.version,
                            n_inserted, n_deleted)
-        except faults.InjectedCrash:
-            raise              # a simulated kill: the WAL record survives
-        except BaseException:
-            if wal_token is not None:
-                self.wal.rollback(wal_token)
+            return batch
+
+        try:
+            n_inserted, n_deleted, ins_mask, del_mask = self._agreed(
+                "apply.pre_close", dispatch)
+            batch = self._agreed("apply.post_close", close)
+        except BaseException as e:
+            rollback(e)        # a simulated kill: the WAL record survives
             raise
         epoch_span.annotate(inserted=n_inserted, deleted=n_deleted)
         return batch
@@ -855,9 +930,11 @@ class ShardedGraphStore(VersionedStoreBase):
     def save(self, ckpt_dir, step: Optional[int] = None, *, registry=None,
              extra: Optional[dict] = None, keep_last: int = 3):
         """Persist every view's stacked pools and the property states
-        atomically, in the reference's sharded-store format.  On a mesh
-        every rank calls it: the shards are gathered and rank 0 writes
-        what the stacked store writes (every rank returns its path)."""
+        atomically, in the reference's sharded-store format, and drop the
+        WAL segments the checkpoint covers.  On a mesh every rank calls
+        it: the shards are gathered and rank 0 writes what the stacked
+        store writes and truncates the WAL (every rank returns its
+        path)."""
         from ..checkpoint import ckpt
         mesh = self.mesh
         step = self.version if step is None else int(step)
@@ -889,6 +966,8 @@ class ShardedGraphStore(VersionedStoreBase):
                 path = ckpt.save(ckpt_dir, step,
                                  {"views": views, "props": props},
                                  extra=meta, keep_last=keep_last)
+                if self.wal is not None and step == self.version:
+                    self.wal.truncate(self.version)
             dist.barrier(group=group)
             return gather_objects(path, group)[0]
         path = ckpt.save(ckpt_dir, step, {"views": views, "props": props},

@@ -26,6 +26,15 @@ RATIO = 0.05
 CONFIGS = {"s4": (203, 4, 700), "s3": (53, 3, 260),
            "card2": (2003, 2, 9000), "card1": (2003, 1, 9000)}
 CPU_CONFIGS = ("s3", "s4")
+#: the durability scenario: the reference's crash-recovery stream
+#: (tests/test_resilience.py: V = 96, seed 23, boot edges from seed 3) on
+#: S shards, a checkpoint before batch CKPT_AT, a kill in batch CRASH_AT
+APPLY_SITES = ("apply.admitted", "store.capacity_grow", "apply.post_wal",
+               "apply.pre_close", "apply.post_close")
+CRASH_V, CRASH_RATIO = 96, 0.15
+CKPT_AT, CRASH_AT, N_BATCHES = 2, 5, 8
+#: planted corruptions of the audit check (``plant``)
+PLANTS = ("clean", "degree", "cycle", "cross_view")
 
 
 # ----------------------------------------------------------------------------
@@ -139,6 +148,66 @@ def op_batches(cfg):
     q[:10] = pairs[:10]
     ms, md = rand_edges(rng, 30, V)
     return s, d, dels, q, (ms, md, pairs[10:16])
+
+
+def crash_stream():
+    """``(ins_src, ins_dst, del_src, del_dst)`` per batch: fixed shapes."""
+    rng = np.random.default_rng(23)
+    return [tuple(rng.integers(0, CRASH_V, n).astype(np.uint32)
+                  for n in (60, 60, 12, 12)) for _ in range(N_BATCHES)]
+
+
+def crash_store(stream_mod, n_shards, **kw):
+    rng = np.random.default_rng(3)
+    src = rng.integers(0, CRASH_V, 400).astype(np.uint32)
+    dst = rng.integers(0, CRASH_V, 400).astype(np.uint32)
+    return stream_mod.ShardedGraphStore.from_edges(
+        CRASH_V, n_shards, src, dst,
+        maintenance=stream_mod.MaintenancePolicy(tombstone_ratio=CRASH_RATIO),
+        **kw)
+
+
+def plant(kind, store):
+    """One corruption of a port stacked store's forward view (shard 2's
+    degree or chain, or a key of shard 1), as ``test_torch_sharded.py``
+    plants it; the audit arguments that find it."""
+    import dataclasses
+    sg = store.views["forward"]
+    g = sg.graphs
+    if kind == "clean":
+        return {}
+    if kind == "degree":
+        deg = g.degree.clone()
+        deg[2, 0] += 1
+        graphs = dataclasses.replace(g, degree=deg)
+        kw = dict(cross_view=False)
+    elif kind == "cycle":
+        nxt = g.next_slab.clone()
+        nxt[2, 3] = 3                         # a self-loop chain
+        graphs = dataclasses.replace(g, next_slab=nxt)
+        kw = dict(views=["forward"], cross_view=False)
+    else:
+        keys = g.keys.clone()
+        keys[1, 0, 0] = 7
+        graphs = dataclasses.replace(g, keys=keys)
+        kw = dict(views=["forward", "transpose", "symmetric"])
+    store._views["forward"] = dataclasses.replace(sg, graphs=graphs)
+    return kw
+
+
+def report_of(report) -> dict:
+    """An InvariantReport's contents but its wall-clock duration."""
+    return {"ok": report.ok, "checks_run": report.checks_run,
+            "views": tuple(report.views),
+            "violations": [(v.view, v.check, v.detail, v.count)
+                           for v in report.violations]}
+
+
+def wal_files(wal_dir) -> dict:
+    """``{segment name: bytes}`` of a WAL directory."""
+    return {name: open(os.path.join(wal_dir, name), "rb").read()
+            for name in sorted(os.listdir(wal_dir))
+            if name.startswith("wal-")}
 
 
 def pipeline_requests(stream_mod, cfg):
@@ -341,9 +410,9 @@ def _store(res, cfg, mesh, run_dir, weighted):
         out["pipeline"] = [(p.kind, p.version, payload_of(p))
                            for p in resps]
         out["errors"] = {
-            "audit": _raises(store.audit, NotImplementedError),
-            "attach_wal": _raises(lambda: store.attach_wal(None),
-                                  NotImplementedError),
+            "audit": _raises(lambda: out.setdefault(
+                "audit", report_of(store.audit())), Exception),
+            "attach_wal": _raises(lambda: store.attach_wal(None), Exception),
             "vmap": _raises(lambda: tsg.wcc_sharded(store.symmetric,
                                                     dispatch="vmap")),
             "other_shard": _raises(lambda: tsg.shard_slice(
@@ -370,6 +439,127 @@ def _elastic(res, cfg, mesh, run_dir):
     b = store.apply(s, d, w, ds, dd)
     res["elastic"] = {"restored": restored, "after": store_leaves(store),
                       "n": (b.n_inserted, b.n_deleted)}
+
+
+def _durability(res, cfg, mesh, run_dir):
+    """The WAL and audits on the mesh: the unweighted scenario journaled
+    (rank 0 writes, one segment a record) and audited every epoch, then a
+    save that truncates the WAL; recovery from a kill at each apply site;
+    audits of clean and planted pools; a failure on one rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import resilience as rz
+    from repro_torch import stream as tstream
+    from repro_torch.resilience import faults
+    from repro_torch.stream import sharded_store as tss
+    V, S, _ = CONFIGS[cfg]
+    me = mesh.get_local_rank("shard")
+    group = mesh.get_group("shard")
+    policy = tstream.MaintenancePolicy(tombstone_ratio=RATIO)
+    out = {}
+
+    # -- WAL and audits over the scenario, then the save's truncation
+    store, _ = tstream.ShardedGraphStore.restore(
+        os.path.join(run_dir, "boot_u"), device="cpu", maintenance=policy)
+    wal_dir = os.path.join(run_dir, "mesh_wal")
+    store.attach_wal(rz.WriteAheadLog(wal_dir, segment_records=1))
+    store.attach_audits(rz.AuditPolicy(every=1))
+    store.place_on_mesh(mesh)
+    for kind, s, d, w, ds, dd in epochs(cfg):
+        store.apply(s, d, w, ds, dd)
+    out["audit_events"] = [{k: v for k, v in ev.items() if k != "duration_s"}
+                           for ev in store.audit_events]
+    dist.barrier(group=group)
+    out["wal"] = wal_files(wal_dir)
+    store.save(os.path.join(run_dir, "mesh_wal_ckpt"))
+    out["wal_after_save"] = wal_files(wal_dir)
+    out["appended"] = store.wal.appended
+    store.wal.close()
+
+    # -- a kill at each apply site, recovered and placed again
+    batches = crash_stream()
+    spec = [tss.sharded_pagerank_property()]
+    for site in APPLY_SITES:
+        base = os.path.join(run_dir, "crash_" + site)
+        ck, wd = os.path.join(base, "ck"), os.path.join(base, "wal")
+        store = crash_store(tstream, S, device="cpu").place_on_mesh(mesh)
+        store.attach_wal(rz.WriteAheadLog(wd))
+        reg = tstream.PropertyRegistry(store)
+        reg.register(spec[0])
+        crashed, versions = "", []
+        try:
+            for t, (i_s, i_d, d_s, d_d) in enumerate(batches):
+                if t == CKPT_AT:
+                    store.save(ck, registry=reg)
+                if t == CRASH_AT:
+                    with faults.inject(rz.FaultSpec(site, at=1)):
+                        store.apply(i_s, i_d, None, d_s, d_d)
+                else:
+                    store.apply(i_s, i_d, None, d_s, d_d)
+                versions.append(store.version)
+        except rz.InjectedCrash as e:
+            crashed = str(e)
+        store.wal.close()
+        dist.barrier(group=group)      # rank 0's bundle is on disk
+        store2, reg2, report = rz.recover(
+            ck, wd, store_cls=tstream.ShardedGraphStore, specs=spec,
+            maintenance=tstream.MaintenancePolicy(
+                tombstone_ratio=CRASH_RATIO),
+            wal=rz.WriteAheadLog(wd), device="cpu")
+        replay_version = store2.version
+        store2.place_on_mesh(mesh)
+        # the WAL replayed the killed batch when recovery passed the version
+        # before it; else the batch is fed again
+        resume = CRASH_AT + int(store2.version > versions[CRASH_AT - 1])
+        for i_s, i_d, d_s, d_d in batches[resume:]:
+            store2.apply(i_s, i_d, None, d_s, d_d)
+        pr = reg2.read("pagerank")
+        out[site] = {"crashed": crashed, "resume": resume,
+                     "checkpoint_version": report.checkpoint_version,
+                     "replayed": report.replayed,
+                     "replay_version": replay_version,
+                     "anomalies": report.anomalies,
+                     "crash_reason": report.crash_reason,
+                     "version": store2.version,
+                     "pools": store_leaves(store2),
+                     "meta": store2._resilience_meta(),
+                     "maintenance_count": store2.maintenance_count,
+                     "pagerank_finite": bool(torch.isfinite(pr).all()),
+                     "wal_appended": store2.wal.appended}
+        store2.wal.close()
+
+    # -- audits: clean pools and one corruption in one rank's shard
+    audits = {}
+    for kind in PLANTS:
+        store, _ = tstream.ShardedGraphStore.restore(
+            os.path.join(run_dir, "boot_u"), device="cpu")
+        kw = plant(kind, store)
+        store.place_on_mesh(mesh)
+        audits[kind] = report_of(rz.audit_store(store, **kw))
+    out["audits"] = audits
+
+    # -- a failure on rank 1 alone: every rank raises; an allocation
+    # failure rolls rank 0's record back, a kill keeps it
+    wd = os.path.join(run_dir, "failure_wal")
+    store = crash_store(tstream, S, device="cpu").place_on_mesh(mesh)
+    store.attach_wal(rz.WriteAheadLog(wd))
+    store.apply(*batches[0][:2], None, *batches[0][2:])
+    raised = {}
+    for name, spec_ in (("oom", rz.FaultSpec("apply.pre_close",
+                                             kind=faults.OOM, at=1)),
+                        ("kill", rz.FaultSpec("apply.post_close", at=1))):
+        i_s, i_d, d_s, d_d = batches[1 if name == "oom" else 2]
+        try:
+            with faults.inject(*([spec_] if me == 1 else [])):
+                store.apply(i_s, i_d, None, d_s, d_d)
+            raised[name] = ""
+        except BaseException as e:      # every rank must raise
+            raised[name] = type(e).__name__
+        raised[name + "_appended"] = store.wal.appended
+    store.wal.close()
+    out["one_rank"] = raised
+    res["durability"] = out
 
 
 def _dispatch_errors(res, cfg, mesh):
@@ -405,6 +595,7 @@ def mesh_rank(rank: int, world: int, cfg: str, run_dir: str) -> None:
             _store(res, cfg, mesh, run_dir, weighted=False)
             _store(res, cfg, mesh, run_dir, weighted=True)
             _elastic(res, cfg, mesh, run_dir)
+            _durability(res, cfg, mesh, run_dir)
             _dispatch_errors(res, cfg, mesh)
         finally:
             close_shard_mesh()
@@ -461,6 +652,74 @@ def card_rank(rank: int, world: int, backend: str, cfg: str,
     with open(os.path.join(run_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     sys.exit(code)
+
+
+def card_durable_rank(rank: int, world: int, backend: str, cfg: str,
+                      run_dir: str) -> None:
+    """One rank of the card's durability test: the unweighted scenario's
+    store restored, a WAL and audits every epoch attached, placed on card
+    0; the first epoch, a save, a kill at ``apply.post_wal`` in the
+    second, ``recover`` onto the card and ``place_on_mesh`` again, the
+    last epoch.  Results to ``rank{rank}.pkl``."""
+    import torch
+    res = {"rank": rank}
+    code = 0
+    try:
+        from repro_torch import resilience as rz
+        from repro_torch import stream as tstream
+        from repro_torch.distributed.ranks import (close_shard_mesh,
+                                                   init_shard_mesh)
+        from repro_torch.resilience import faults
+        mesh = init_shard_mesh(rank, world,
+                               init_file=os.path.join(run_dir, "rdzv"),
+                               backend=backend, device="cuda:0")
+        policy = tstream.MaintenancePolicy(tombstone_ratio=RATIO)
+        wd, ck = os.path.join(run_dir, "wal"), os.path.join(run_dir, "ck")
+        try:
+            store, _ = tstream.ShardedGraphStore.restore(
+                os.path.join(run_dir, "boot_u"), device="cpu",
+                maintenance=policy)
+            store.attach_wal(rz.WriteAheadLog(wd))
+            store.attach_audits(rz.AuditPolicy(every=1))
+            store.place_on_mesh(mesh)
+            (_, s0, d0, w0, ds0, dd0), (_, s1, d1, w1, ds1, dd1), \
+                (_, s2, d2, w2, ds2, dd2) = epochs(cfg)
+            store.apply(s0, d0, w0, ds0, dd0)
+            store.save(ck)
+            try:
+                with faults.inject(rz.FaultSpec("apply.post_wal", at=1)):
+                    store.apply(s1, d1, w1, ds1, dd1)
+            except rz.InjectedCrash:
+                res["killed"] = True
+            res["audits"] = [report_of_event(ev) for ev in store.audit_events]
+            store.wal.close()
+            del store
+            back, _, report = rz.recover(
+                ck, wd, store_cls=tstream.ShardedGraphStore,
+                maintenance=policy, wal=rz.WriteAheadLog(wd), device="cuda")
+            res["replayed"] = report.replayed
+            back.attach_audits(rz.AuditPolicy(every=1))
+            back.place_on_mesh(mesh)
+            res["device"] = str(back.device)
+            back.apply(s2, d2, w2, ds2, dd2)
+            res["audits"] += [report_of_event(ev)
+                              for ev in back.audit_events]
+            res["leaves"] = store_leaves(back)
+            res["version"] = back.version
+            back.wal.close()
+        finally:
+            close_shard_mesh()
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        code = 1
+    with open(os.path.join(run_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    sys.exit(code)
+
+
+def report_of_event(ev: dict) -> dict:
+    """An audit event but its wall-clock duration."""
+    return {k: v for k, v in ev.items() if k != "duration_s"}
 
 
 def diverging_rank(rank: int, world: int, run_dir: str) -> None:

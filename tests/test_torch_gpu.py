@@ -13,7 +13,10 @@ in bfloat16; the bag 1e-5 and 3e-2).  The sharded store on the card is
 held to the same store on CPU tensors leaf for leaf, its WCC, BFS and
 triangle count bit for bit and its PageRank within 2e-5; so are the
 multi-process rendering's ranks on the card (two gloo ranks sharing it,
-one NCCL rank), against the stacked store on the card.  This module
+one NCCL rank), against the stacked store on the card, and one NCCL
+rank's WAL, audits and recovery onto the card.  The MoE FFN and MIND on
+the card are held to the same functions on CPU tensors (float32 without
+TF32: 1e-4; histories bit for bit).  This module
 imports no JAX (the card's machine has none): ``ATTN_CASES`` is shared with
 the CPU parity test.
 """
@@ -1042,6 +1045,109 @@ def test_lm_on_card_matches_cpu(cuda):
                                    rtol=1e-4)
 
 
+def test_moe_on_card_matches_cpu(cuda):
+    """A two-layer qwen3-style MoE model (head_dim 64, QK norm, 16 experts
+    top-4, float32) on the card against the same model on the CPU: the
+    FFN alone at a capacity that drops, ungrouped and in 2 groups, with
+    the same kept assignments; forward, and decode after prefill against
+    forward on the card."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LMConfig(name="moe-card", n_layers=2, d_model=256, n_heads=4,
+                   n_kv_heads=2, head_dim=64, d_ff=128, vocab_size=1024,
+                   n_experts=16, top_k=4, qk_norm=True,
+                   tie_embeddings=False, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((512, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    lw = {k: params["layers"][k][0] for k in ("router", "w_gate", "w_up",
+                                              "w_down")}
+    lw_card = {k: v.to(cuda) for k, v in lw.items()}
+    for groups in (1, 2):
+        c = dataclasses.replace(cfg, capacity_factor=1.0,
+                                dispatch_groups=groups)
+        xg = x.reshape(groups, -1, cfg.d_model)
+        host, card = (tfm.moe_route(xg, lw["router"], c),
+                      tfm.moe_route(xg.to(cuda), lw_card["router"], c))
+        assert not bool(host.keep.all())
+        assert torch.equal(card.keep.cpu(), host.keep)
+        assert torch.equal(card.slot.cpu(), host.slot)
+        torch.testing.assert_close(tfm.moe_ffn(x.to(cuda), lw_card,
+                                               c).cpu(),
+                                   tfm.moe_ffn(x, lw, c), atol=1e-4,
+                                   rtol=1e-4)
+    on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    host, card = TransformerLM(cfg, params), TransformerLM(cfg, on_card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 96)))
+    full = card(toks.to(cuda))
+    torch.testing.assert_close(full.cpu(), host(toks), atol=1e-4, rtol=1e-4)
+    # decode drops nothing (C >= 8 > B); forward over 2 x 96 tokens at
+    # capacity E / K = 4 keeps every assignment too
+    assert tfm.moe_capacity(2 * 96, cfg) < 2 * 96
+    cfg_all = dataclasses.replace(cfg, capacity_factor=4.0)
+    card_all = TransformerLM(cfg_all, on_card)
+    full = card_all(toks.to(cuda))
+    logits, pc = card_all.prefill(toks[:, :64].to(cuda))
+    torch.testing.assert_close(logits, full[:, 63], atol=1e-4, rtol=1e-4)
+    cache = init_cache(cfg_all, 2, 96, torch.float32, device=cuda)
+    cache["k"][:, :, :, :64] = pc["k"]
+    cache["v"][:, :, :, :64] = pc["v"]
+    for pos in range(64, 96):
+        logits, cache = card_all.decode_step(cache, toks[:, pos].to(cuda),
+                                             pos)
+        torch.testing.assert_close(logits, full[:, pos], atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_mind_on_card_matches_cpu(cuda):
+    """Histories out of a graph on the card bit-equal to the same graph's
+    on the CPU; MIND's interests, serve and retrieval scores and loss on
+    the card within 1e-5 of the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys import mind
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    V = 3000
+    src = np.concatenate([np.zeros(900, np.int64), rng.integers(0, V, 20000)])
+    dst = rng.integers(0, V, len(src))
+    g_host = from_edges_host(V, src, dst, hashing=True, device="cpu")
+    g_card = from_edges_host(V, src, dst, hashing=True, device=cuda)
+    users = torch.from_numpy(rng.integers(0, V, 700))
+    h_host, m_host = mind.history_from_slab(g_host, users, hist_len=50)
+    h_card, m_card = mind.history_from_slab(g_card, users.to(cuda),
+                                            hist_len=50)
+    assert torch.equal(h_card.cpu(), h_host)
+    assert torch.equal(m_card.cpu(), m_host)
+    assert int(m_host.sum(dim=1).max()) == 50
+    base = dataclasses.replace(get_arch("mind").full_config(), n_items=4096)
+    params = mind.init_params(base, torch.Generator().manual_seed(0))
+    p_card = {k: v.to(cuda) for k, v in params.items()}
+    cand = torch.from_numpy(rng.integers(0, base.n_items, 300))
+    target = torch.from_numpy(rng.integers(0, base.n_items, 700))
+    for routing in ("f32", "bf16"):
+        cfg = dataclasses.replace(base, routing_dtype=routing, neg_groups=2)
+        tol = dict(atol=1e-5, rtol=1e-4 if routing == "f32" else 1e-2)
+        args = (h_host, m_host)
+        cargs = (h_card, m_card)
+        torch.testing.assert_close(
+            mind.serve_scores(p_card, *cargs, cand.to(cuda), cfg).cpu(),
+            mind.serve_scores(params, *args, cand, cfg), **tol)
+        emb = params["item_embed"][:1000]
+        torch.testing.assert_close(
+            mind.retrieval_scores(p_card, *cargs, emb.to(cuda), cfg).cpu(),
+            mind.retrieval_scores(params, *args, emb, cfg), **tol)
+        torch.testing.assert_close(
+            mind.train_loss(p_card, *cargs, target.to(cuda), cfg).cpu(),
+            mind.train_loss(params, *args, target, cfg), **tol)
+
+
 # ----------------------------------------------------------------------------
 # durability: checkpoint and crash recovery onto the card
 # ----------------------------------------------------------------------------
@@ -1352,3 +1458,52 @@ def test_mesh_ranks_on_card_match_the_stacked_store(cuda, backend, world,
         for name in ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
                      "slab_chain_rank", "slab_count"):
             assert r["launches"][name] > 0, name
+
+
+def test_mesh_wal_and_recovery_on_one_nccl_rank(cuda, tmp_path):
+    """One NCCL rank with a WAL and audits every epoch: a kill after the
+    WAL append in the second epoch, ``recover`` onto the card and
+    ``place_on_mesh``, the last epoch: the pools equal the stacked store's
+    uninterrupted run on the card, the WAL records (the replayed one
+    included) equal its, every audit is clean."""
+    import _torch_mesh_ranks as M
+    from repro_torch import resilience as rz
+    from repro_torch.distributed.ranks import RankGroup
+    from repro_torch.stream import MaintenancePolicy, ShardedGraphStore
+
+    cfg = "card1"
+    V, S, _ = M.CONFIGS[cfg]
+    src, dst, _ = M.boot_edges(cfg)
+    stacked = ShardedGraphStore.from_edges(
+        V, S, src, dst, maintenance=MaintenancePolicy(
+            tombstone_ratio=M.RATIO), device=cuda)
+    stacked.save(tmp_path / "boot_u")
+    group = RankGroup(M.card_durable_rank, S,
+                      ("nccl", cfg, str(tmp_path)), deadline_s=300)
+    try:
+        group.wait()
+    finally:
+        errors = [r.get("error") for r in M.load_results(str(tmp_path), S)
+                  if r.get("error")] if (tmp_path / "rank0.pkl").is_file() \
+            else []
+        assert not errors, "\n".join(errors)
+    got = M.load_results(str(tmp_path), S)[0]
+    stacked.attach_wal(rz.WriteAheadLog(tmp_path / "stacked_wal"))
+    for kind, s, d, w, ds, dd in M.epochs(cfg):
+        stacked.apply(s, d, w, ds, dd)
+    stacked.wal.close()
+    assert got["killed"] and got["replayed"] == 1
+    assert got["device"] == "cuda:0" and got["version"] == stacked.version
+    assert got["audits"] and all(a["ok"] for a in got["audits"])
+    leaves = M.store_leaves(stacked)
+    for view, fields in leaves.items():
+        for f, a in fields.items():
+            if a is not None:
+                assert np.array_equal(got["leaves"][view][f], a), (view, f)
+    mine, _ = rz.read_wal(tmp_path / "wal")
+    want, _ = rz.read_wal(tmp_path / "stacked_wal")
+    assert len(mine) == len(want) == 3
+    for a, b in zip(mine, want):
+        assert a.version == b.version
+        for f in ("ins_src", "ins_dst", "del_src", "del_dst"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f

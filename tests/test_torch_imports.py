@@ -2,11 +2,13 @@
 ``chip_smoke.py``, imports in a process where ``import jax``, ``import
 repro``, ``import msgpack`` and ``import ml_dtypes`` fail (the card's
 machine has none of them).  The walk over the package must reach the
-modules of the health engine, the kernel instrumentation and the sharded
-plane, and in the same process the sharded plane's multi-process
-rendering runs on a one-rank gloo mesh (placement, an epoch, a query, the
-fixpoints, the triangle count, a checkpoint) with ``torch.distributed``
-and nothing of JAX."""
+modules of the health engine, the kernel instrumentation, the sharded
+plane, the MoE configs and MIND, and in the same process the sharded
+plane's multi-process rendering runs on a one-rank gloo mesh (placement
+with a WAL and audits attached, an epoch, a query, the fixpoints, the
+triangle count, a checkpoint), a MoE smoke model's forward and MIND's
+scores over histories from the graph, with ``torch.distributed`` and
+nothing of JAX."""
 import subprocess
 import sys
 from pathlib import Path
@@ -29,23 +31,39 @@ importlib.import_module("chip_smoke")
 
 import os, tempfile
 import numpy as np
+import torch
+from repro_torch import resilience as rz
+from repro_torch.configs import get_arch
 from repro_torch.distributed import ranks, sharded_graph as tsg
+from repro_torch.models import transformer as tfm
+from repro_torch.models.recsys import mind
 from repro_torch.stream import ShardedGraphStore
 tmp = tempfile.mkdtemp()
 mesh = ranks.init_shard_mesh(0, 1, init_file=os.path.join(tmp, "rdzv"),
                              backend="gloo", device="cpu")
 rng = np.random.default_rng(0)
 src, dst = rng.integers(0, 40, (2, 200)).astype(np.uint32)
-store = ShardedGraphStore.from_edges(40, 1, src, dst,
-                                     device="cpu").place_on_mesh(mesh)
+store = ShardedGraphStore.from_edges(40, 1, src, dst, device="cpu")
+store.attach_wal(rz.WriteAheadLog(os.path.join(tmp, "wal")))
+store.attach_audits(rz.AuditPolicy(every=1)).place_on_mesh(mesh)
 assert store._mode() == "shard_map"
 store.apply(dst[:20], src[:20], None, src[20:30], dst[20:30])
+assert store.audit_events[-1]["ok"] and store.wal.appended == 1
 store.query(src[:5], dst[:5])
 tsg.wcc_sharded(store.symmetric)
 tsg.pagerank_sharded(store.transpose, store.out_degree)
 tsg.triangles_sharded(store.symmetric)
 store.save(os.path.join(tmp, "ckpt"))
+mcfg = get_arch("mind").smoke_config()
+hist, mask = mind.history_from_slab(tsg.shard_slice(store.forward, 0),
+                                    [0, 1, 2], hist_len=mcfg.hist_len)
+scores = mind.serve_scores(mind.init_params(mcfg, torch.Generator()),
+                           hist, mask, torch.arange(10), mcfg)
+assert scores.shape == (3, 10)
 ranks.close_shard_mesh()
+cfg = get_arch("qwen3-moe-30b-a3b").smoke_config()
+lm = tfm.TransformerLM(cfg, tfm.init_params(cfg, torch.Generator()))
+assert lm(torch.zeros((1, 8), dtype=torch.long)).shape == (1, 8, 128)
 assert "torch.distributed" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
@@ -55,7 +73,11 @@ missing = sorted({"repro_torch.obs.health", "repro_torch.obs.instrument",
                   "repro_torch.distributed.collectives",
                   "repro_torch.distributed.sharded_graph",
                   "repro_torch.distributed.ranks",
-                  "repro_torch.stream.sharded_store"} - set(names))
+                  "repro_torch.stream.sharded_store",
+                  "repro_torch.models.recsys.mind",
+                  "repro_torch.configs.phi35_moe",
+                  "repro_torch.configs.qwen3_moe",
+                  "repro_torch.configs.mind"} - set(names))
 print(len(names), missing, bad)
 """
 

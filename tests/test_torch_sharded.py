@@ -225,8 +225,9 @@ def test_overflow_storm_grows_the_cap_as_the_reference():
 def test_shard_map_rendering_raises_naming_the_roadmap(tmp_path):
     """The multi-process rendering is ported (``test_torch_mesh.py``):
     ``dispatch="shard_map"`` without a mesh raises ``ValueError`` as the
-    reference's does, and what a mesh store does not run yet (a WAL,
-    audits) raises ``NotImplementedError`` naming its ROADMAP item."""
+    reference's does, a WAL and audits attached or not, and journals
+    nothing; the WAL and audits that a mesh store runs since (ROADMAP
+    item 4.1) attach, and the audit runs."""
     tg = tsg.shard_empty(V, S, capacity_slabs_per_shard=64, device="cpu")
     with pytest.raises(ValueError, match="place_on_mesh"):
         tsg.wcc_sharded(tg, dispatch="shard_map")
@@ -235,8 +236,11 @@ def test_shard_map_rendering_raises_naming_the_roadmap(tmp_path):
     with pytest.raises(ValueError, match="place_on_mesh"):
         store.apply([1], [2])
     store.attach_wal(rz.WriteAheadLog(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1, item 4.1"):
-        store.place_on_mesh(None)
+    store.attach_audits(rz.AuditPolicy(every=1))
+    with pytest.raises(ValueError, match="place_on_mesh"):
+        store.apply([1], [2])
+    assert store.wal.appended == 0
+    assert store.audit().ok
     store.wal.close()
 
 
