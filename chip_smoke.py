@@ -5,7 +5,7 @@
 
 Six phases, each printing JSON lines (the third with the iterators, MIND,
 the durability, the sharded and the mesh phases after it, the fifth with
-the MoE LM after it):
+the MoE LM and the training phase after it):
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -159,7 +159,8 @@ the MoE LM after it):
    the registers and spill bytes ``ptxas -v`` reported and the count of
    ``HMMA``/``HGMMA`` instructions in its SASS (``cuobjdump -sass``); every
    one (bf16 and float32, head_dim 64, 128, 256) must spill nothing, and
-   every bf16 one run on the tensor cores.  Then gemma2-9b at its full
+   every bf16 one run on the tensor cores; nor may any instantiation of
+   its backward's three kernels spill.  Then gemma2-9b at its full
    config (42 layers, d_model 3584, bf16, random weights from a seeded
    generator) serves two prompts
    of 8,192 tokens (``lm_batches``, seed 0): request 1 is the prefill
@@ -196,6 +197,35 @@ the MoE LM after it):
    prompt and 16 steps must equal forward within ``MOE_DECODE_ATOL``,
    which the position off by one and both MoE faults must fail; kernel
    10 is held to ``attention_ref`` on the first layer's q/k/v.
+   Then **train**: gemma-2b at its full config (18 layers, d_model 2048,
+   MQA 8/1, head_dim 256, vocab 256,000, 2.51 G parameters from a seeded
+   generator; float32 master weights, bf16 compute, remat "full") takes
+   TRAIN_STEPS steps of 2 sequences of 4,096 tokens (``lm_batches``; the
+   train_4k shape's global batch of 256 cut to 2, MICROBATCH's 2
+   microbatches) through ``build_lm_train_step``, with the launch counts
+   zeroed before each step and read after: kernel 10's forward 2 x 18 x 2
+   times (the forward, then its recompute) and its backward 18 x 2; each
+   step prints its ms, tokens/s, loss, gradient norm and peak memory, and
+   one warm step runs under the profiler (kernel 10's forward and
+   backward, cuBLAS, the rest).  Kernel 10's backward is held to
+   ``attention_bwd_ref`` on the (q, k, v, o, lse, dO) layers 0 and 17 saw
+   in the first step, on gemma2-9b's first local and global layer and on
+   qwen3-moe's layer 0 (their q, k, v from the LM and MoE phases, a seeded
+   dO), in bf16 and float32, at BWD_TOL, which three planted faults must
+   fail (a dropped tile in dK/dV, delta left out, and on q scaled until
+   the scores reach the softcap, the softcap's derivative left out), two
+   launches bit-equal; each timed beside its bound and SDPA's backward.
+   At 2 layers of the full width (a depth cut): in float32 the step
+   through the kernels against the same step through ``attention_ref``
+   (loss and every gradient leaf within STEP_TOL, which a planted dropped
+   tile fails; the updated parameters within Adam's 2 lr); in bf16 the
+   same step twice, and remat off, "full" and "dots", bit for bit, and
+   ``train.loop.train`` preempted at step 1 and resumed from its
+   checkpoint bit for bit against the run through (free disk checked
+   first; the checkpoint's bytes, save and restore seconds printed).
+   Then MIND at its full config takes MIND_TRAIN_STEPS steps at
+   train_batch (65,536 users), and one step on a 4,096-user slice is held
+   to the same step on CPU copies.
 6. **embedding_bag** - kernel 9 through its op on MIND's table (2**21 x 64
    float32, and a bfloat16 copy) for 50-slot history bags from
    ``recsys_batches`` (B = 512 and 65,536), against its plain version and
@@ -2826,11 +2856,21 @@ def triangles_phase(torch, np) -> dict:
 # phase 5: gemma2-9b prefill and decode at full width
 # ----------------------------------------------------------------------------
 
-def attention_build_readings(runtime, built: dict) -> dict:
-    """Per instantiation of the attention kernel (``attn_<dtype>_kernel<D>``):
-    the registers, stack frame and spill bytes ``ptxas -v`` reported in the
-    build log, and the count of tensor-core instructions (``HMMA``,
-    ``HGMMA``) in its SASS from ``cuobjdump -sass`` of the built library."""
+#: the instantiations of the attention kernels in a ptxas log: the
+#: forward's ``attn_<dtype>_kernel<D>`` and the backward's
+#: ``attn_bwd_<part>_kernel<T, D>``
+ATTN_FWD_NAME = r"attn_(bf16|f32)_kernelILi(\d+)E"
+ATTN_BWD_NAME = (r"attn_bwd_(delta|dkdv|dq)_kernelI(f|13__nv_bfloat16)"
+                 r"Li(\d+)E")
+
+
+def attention_build_readings(runtime, built: dict,
+                             pattern: str = ATTN_FWD_NAME) -> dict:
+    """Per instantiation of an attention kernel (``pattern``: the
+    forward's by default): the registers, stack frame and spill bytes
+    ``ptxas -v`` reported in the build log, and the count of tensor-core
+    instructions (``HMMA``, ``HGMMA``) in its SASS from ``cuobjdump -sass``
+    of the built library."""
     kernels = {}
     cur = None
     for ln in built["log"].splitlines():
@@ -2838,9 +2878,11 @@ def attention_build_readings(runtime, built: dict) -> dict:
                       r" '?(\w+)", ln)
         if m:
             cur = None
-            name = re.search(r"attn_(bf16|f32)_kernelILi(\d+)E", m.group(1))
+            name = re.search(pattern, m.group(1))
             if name:
-                cur = kernels.setdefault(f"{name[1]} D={name[2]}",
+                key = " ".join(g.replace("13__nv_bfloat16", "bf16")
+                               for g in name.groups()[:-1])
+                cur = kernels.setdefault(f"{key} D={name.groups()[-1]}",
                                          {"mangled": m.group(1)})
             continue
         if cur is None:
@@ -2868,14 +2910,29 @@ def attention_build_readings(runtime, built: dict) -> dict:
     return kernels
 
 
-def check_attention_build(runtime, built: dict) -> None:
+def check_attention_build(runtime, built: dict, built_bwd=None) -> None:
     """Every instantiation of the attention kernel (bf16 and float32,
     head_dim 64, 128, 256) builds with no spill; the bf16 ones run on the
-    tensor cores.  Prints each one's registers."""
+    tensor cores.  So does every one of its backward's three kernels (on
+    the CUDA cores), given ``built_bwd``.  Prints each one's registers."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     kernels = attention_build_readings(runtime, built)
-    emit({"phase": "lm_attention_build", "kernels": kernels})
+    bwd = {} if built_bwd is None else attention_build_readings(
+        runtime, built_bwd, ATTN_BWD_NAME)
+    emit({"phase": "lm_attention_build", "kernels": kernels,
+          "backward": bwd})
+    for part in ("delta", "dkdv", "dq") if built_bwd is not None else ():
+        for dtype in ("bf16", "f"):
+            for D in HEAD_DIMS:
+                r = bwd.get(f"{part} {dtype} D={D}")
+                check(r is not None and "registers" in r,
+                      f"ptxas reported no backward {part} kernel ({dtype}) "
+                      f"for head_dim {D}")
+                check(r.get("spill_store_bytes") == 0
+                      and r.get("spill_load_bytes") == 0,
+                      f"the backward {part} kernel ({dtype}) spills at "
+                      f"head_dim {D}: {r}")
     for dtype in ("bf16", "f32"):
         for D in HEAD_DIMS:
             r = kernels.get(f"{dtype} D={D}")
@@ -3178,7 +3235,8 @@ def decode_readings(torch, model, cache, generated, want) -> dict:
     return out
 
 
-def lm_phase(torch, np, attn_build: dict, *, seed: int = 0) -> dict:
+def lm_phase(torch, np, attn_build: dict, bwd_build=None, *,
+             seed: int = 0) -> dict:
     """Serve gemma2-9b at full width: a prefill of 2 prompts of 8,192 tokens
     and 128 greedy decode steps, with the launch counts zeroed just before
     the prefill and read after the last step; then the self-checks and the
@@ -3194,7 +3252,7 @@ def lm_phase(torch, np, attn_build: dict, *, seed: int = 0) -> dict:
                                           build_lm_prefill_step)
     from repro_torch.models import transformer as tfm
 
-    check_attention_build(runtime, attn_build)
+    check_attention_build(runtime, attn_build, bwd_build)
 
     # 42 layers, d_model 3584, GQA 16/8, head_dim 256, local(4096)/global
     # alternation, softcaps 50 and 30, bf16
@@ -3400,7 +3458,11 @@ def lm_phase(torch, np, attn_build: dict, *, seed: int = 0) -> dict:
     torch.cuda.empty_cache()
     results = compare_attention(torch, captured)
     results += time_attention_f32(torch, captured32)
-    return {"launches": launches, "results": results}
+    # the bf16 layers' inputs, kept on the host for the train phase
+    kept = {f"gemma2-9b {name} (layer {layer})":
+            tuple(t.cpu() for t in captured[name][:3]) + (captured[name][3],)
+            for name, layer in (("local", 0), ("global", 1))}
+    return {"launches": launches, "results": results, "captured": kept}
 
 
 # ----------------------------------------------------------------------------
@@ -3746,7 +3808,672 @@ def moe_phase(torch, np, *, seed: int = 0) -> dict:
     torch.cuda.empty_cache()
     results = compare_attention(torch, captured, layers={"global": 0},
                                 model="qwen3-moe ")
-    return {"launches": launches, "results": results}
+    kept = {"qwen3-moe layer 0": tuple(t.cpu() for t in
+                                       captured["global"][:3])
+            + (captured["global"][3],)}
+    return {"launches": launches, "results": results, "captured": kept}
+
+
+# ----------------------------------------------------------------------------
+# phase 5c: training, gemma-2b at full width, and kernel 10's backward
+# ----------------------------------------------------------------------------
+
+#: the train phase: gemma-2b's full config (bf16 compute, float32 master
+#: weights, remat "full") on the train_4k shape's 4,096-token sequences,
+#: the global batch cut from 256 to TRAIN_BATCH (MICROBATCH's 2
+#: microbatches of one sequence), TRAIN_STEPS steps through
+#: build_lm_train_step; the step checks at TRAIN_CHECK_LAYERS layers of the
+#: full width (a depth cut)
+TRAIN_ARCH, TRAIN_SHAPE = "gemma-2b", "train_4k"
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CHECK_LAYERS = 2, 4, 2
+#: kernel 10's backward against attention_bwd_ref, per output (dq, dk,
+#: dv): |kernel - plain| <= atol_rel * max|plain| + rtol * |plain|.  In
+#: bf16 both round a float32 result once, so they differ by up to one bf16
+#: ulp (2**-7 relative); in float32 by summation order over up to 16K
+#: terms.  The phase shows its planted faults fail these.
+BWD_TOL = {"bfloat16": (1e-3, 2e-2), "float32": (1e-5, 1e-4)}
+#: the softcap derivative's planted fault also runs on q scaled by this:
+#: random weights keep |x / softcap| near 0.02, where 1 - tanh^2 is 1
+#: within 4e-4, below what bf16 resolves; scaled, the scores reach the cap
+BWD_SOFTCAP_STRESS = 8.0
+#: the float32 step through the kernels against the same step through
+#: attention_ref at TRAIN_CHECK_LAYERS layers: the loss and every gradient
+#: leaf within atol_rel * max|plain| + rtol * |plain| (float32 summation
+#: orders through two layers and a 256,000-way softmax)
+STEP_TOL = (1e-4, 1e-3)
+#: MIND's train phase: steps at train_batch, and the users of the slice
+#: held against a step on CPU copies (float32 without TF32)
+MIND_TRAIN_STEPS, MIND_CPU_USERS = 3, 4096
+#: a planted fault's key tile: the backward kernels' 32-key tiles
+BWD_KEY_TILE = 32
+
+
+def bwd_readings(torch, got, want, tol) -> dict:
+    """Per output, the largest |got - want|, the output's scale (max
+    |want|), the share of elements outside the tolerance ``tol`` =
+    (atol_rel, rtol) and whether all are inside."""
+    atol_rel, rtol = tol
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        d = (g - w).abs()
+        outside = d > atol_rel * scale + rtol * w.abs()
+        out[name] = {"max_abs": float(d.max()), "scale": scale,
+                     "share_outside": float(outside.float().mean()),
+                     "close": not bool(outside.any())}
+        del d, outside
+    out["close"] = all(out[n]["close"] for n in ("dq", "dk", "dv"))
+    return out
+
+
+def faulty_bwd(torch, q, k, v, o, lse, do, *, fault, causal, window,
+               softcap, sm_scale, kv_len):
+    """attention_bwd_ref's formulas in float32 with a planted fault:
+    ``tile_dropped`` (the dK/dV kernel skips one query tile of one key
+    tile's band: the middle key tile's diagonal tile), ``softcap_derivative``
+    (dS without 1 - tanh^2) or ``delta`` (dS = P dP)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    kk = k.float().repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * sm_scale
+    dcap = None
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+        dcap = 1.0 - t * t
+        del t
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    kj = torch.arange(Skv, device=q.device)[None, :]
+    mask = kj < kv_len
+    if causal:
+        mask = mask & (qi >= kj)
+    if window > 0:
+        mask = mask & (qi - kj < window)
+    p = torch.exp(s - lse[..., None].float()).masked_fill(~mask, 0.0)
+    del s
+    dof = do.float()
+    ds = torch.einsum("bhqd,bhkd->bhqk", dof,
+                      v.float().repeat_interleave(g, dim=1))
+    if fault != "delta":
+        ds = ds - (dof * o.float()).sum(dim=-1)[..., None]
+    ds = p * ds
+    if dcap is not None and fault != "softcap_derivative":
+        ds = ds * dcap
+    del dcap
+    ds = ds * sm_scale
+    pk, dsk = p, ds
+    if fault == "tile_dropped":
+        c = min(Sq, Skv) // 2 // BWD_KEY_TILE * BWD_KEY_TILE
+        drop = torch.zeros_like(mask)
+        drop[c:c + BWD_KEY_TILE, c:c + BWD_KEY_TILE] = True
+        pk, dsk = p.masked_fill(drop, 0.0), ds.masked_fill(drop, 0.0)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk)
+    fold = (B, Hkv, g, Skv, D)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsk, q.float()).view(fold).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pk, dof).view(fold).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def plain_bwd(torch, q, k, v, o, lse, do, kw, *, kv_chunk: int,
+              fault=None):
+    """The plain backward (``attention_bwd_ref``, or ``faulty_bwd`` with
+    ``fault``) over chunks of ``kv_chunk`` KV heads and their query-head
+    groups, so that the (B, heads, Sq, Skv) float32 tensors stay a chunk's
+    size."""
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+
+    Hq, Hkv = q.shape[1], k.shape[1]
+    g = Hq // Hkv
+    outs = []
+    for h0 in range(0, Hkv, kv_chunk):
+        h1 = min(Hkv, h0 + kv_chunk)
+        sq, sk = slice(h0 * g, h1 * g), slice(h0, h1)
+        args = (q[:, sq], k[:, sk], v[:, sk], o[:, sq], lse[:, sq],
+                do[:, sq])
+        if fault is None:
+            outs.append(attention_bwd_ref(*args, **kw))
+        else:
+            outs.append(faulty_bwd(torch, *args, fault=fault, **kw))
+    return tuple(torch.cat([o_[i] for o_ in outs], dim=1) for i in range(3))
+
+
+def bwd_check(torch, name: str, q, k, v, kw, *, do=None, o=None, lse=None,
+              seed: int = 0, kv_chunk: int = 1, samples: int = 10) -> list:
+    """Kernel 10's backward on one layer's q, k, v (bf16) in bf16 and in
+    float32 (the same values widened): the forward kernel's o and lse (or
+    the captured ones), dO captured or seeded; the kernel against
+    ``plain_bwd`` within BWD_TOL, each planted fault shown outside it (the
+    softcap derivative's on q scaled by BWD_SOFTCAP_STRESS too), two
+    launches bit-equal; then its time on the device alone beside the
+    plain version's, its bound and SDPA's backward (causal or a band mask,
+    GQA, no softcap) on the same shapes.  -> the ``kernels`` rows."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    B, Hq, S, D = q.shape
+    window, softcap = kw.get("window", 0), kw.get("softcap", 0.0)
+    full = dict(causal=True, window=window, softcap=softcap,
+                sm_scale=D ** -0.5, kv_len=k.shape[2])
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bfloat16" if dt == torch.bfloat16 else "float32"
+        qd, kd, vd = (x.to(dt) for x in (q, k, v))
+        if o is not None and dt == q.dtype:
+            od, ld = o, lse
+        else:
+            od, ld = flash_attention_cuda(qd, kd, vd, lse=True, **full)
+        if do is not None:
+            dod = do.to(dt)
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            dod = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        got = flash_attention_bwd_cuda(qd, kd, vd, od, ld, dod, **full)
+        again = flash_attention_bwd_cuda(qd, kd, vd, od, ld, dod, **full)
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = plain_bwd(torch, qd, kd, vd, od, ld, dod, full,
+                         kv_chunk=kv_chunk)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[tag]
+        clean = bwd_readings(torch, got, want, tol)
+        faults = {}
+        for fault in ("tile_dropped", "delta") + (
+                ("softcap_derivative",) if softcap > 0 else ()):
+            bad = plain_bwd(torch, qd, kd, vd, od, ld, dod, full,
+                            kv_chunk=kv_chunk, fault=fault)
+            faults[fault] = bwd_readings(torch, bad, want, tol)
+            del bad
+        stress = None
+        if softcap > 0:
+            qs = qd * BWD_SOFTCAP_STRESS
+            os_, ls_ = flash_attention_cuda(qs, kd, vd, lse=True, **full)
+            ws = plain_bwd(torch, qs, kd, vd, os_, ls_, dod, full,
+                           kv_chunk=kv_chunk)
+            gs = flash_attention_bwd_cuda(qs, kd, vd, os_, ls_, dod, **full)
+            bs = plain_bwd(torch, qs, kd, vd, os_, ls_, dod, full,
+                           kv_chunk=kv_chunk, fault="softcap_derivative")
+            stress = {"q_scale": BWD_SOFTCAP_STRESS,
+                      "kernel": bwd_readings(torch, gs, ws, tol),
+                      "softcap_derivative": bwd_readings(torch, bs, ws,
+                                                         tol)}
+            del qs, os_, ls_, ws, gs, bs
+        emit({"phase": "train_attention_bwd", "layer": name, "dtype": tag,
+              "shape": {"q": list(q.shape), "kv": list(k.shape)},
+              "window": window, "softcap": softcap, "tol": tol,
+              "kernel": clean, "bit_equal": bit_equal, "faults": faults,
+              "softcap_stress": stress})
+        check(clean["close"], f"flash_attention_bwd differs from "
+              f"attention_bwd_ref on {name} ({tag}): {clean}")
+        check(bit_equal, f"two backward launches differ on {name} ({tag})")
+        for fault, r in faults.items():
+            if fault != "softcap_derivative":
+                check(not r["close"], f"the backward tolerance passes a "
+                      f"planted fault ({fault}) on {name} ({tag})")
+        if stress is not None:
+            check(stress["kernel"]["close"], f"flash_attention_bwd differs "
+                  f"from attention_bwd_ref on {name} ({tag}) with q scaled")
+            check(not stress["softcap_derivative"]["close"],
+                  f"the backward tolerance passes the softcap derivative's "
+                  f"fault on {name} ({tag}) with q scaled")
+
+        # times: the kernel, the plain version, SDPA's backward
+        ms = device_ms(torch, lambda: flash_attention_bwd_cuda(
+            qd, kd, vd, od, ld, dod, **full), samples=samples)
+        plain_ms = time_ms(torch, lambda: plain_bwd(
+            torch, qd, kd, vd, od, ld, dod, full, kv_chunk=kv_chunk),
+            warmup=1, reps=3)
+        library_ms, library_what = None, None
+        try:
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qd, kd, vd))
+            fn, library_what = sdpa(torch, qg, kg, vg, window)
+            out = fn()
+            library_ms = device_ms(torch, lambda: torch.autograd.grad(
+                out, (qg, kg, vg), dod, retain_graph=True), samples=samples)
+            library_what = f"{library_what}, backward"
+            del out, qg, kg, vg
+        except torch.OutOfMemoryError as e:
+            library_what = f"SDPA backward ran out of memory: {e}"[:200]
+        torch.cuda.empty_cache()
+        pairs = visible_pairs(S, window)
+        item = q.element_size() if dt == torch.bfloat16 else 4
+        # q, o, dO read and dq written; k, v read and dk, dv written; lse
+        n_bytes = (4 * q.numel() + 4 * k.numel()) * item + ld.numel() * 4
+        rows.append(dict(
+            name="flash_attention_bwd", variant=f"{name} {tag}",
+            window=window, softcap=softcap,
+            shape={"q": list(q.shape), "kv": list(k.shape)},
+            max_abs_err=max(clean[n]["max_abs"] for n in ("dq", "dk", "dv")),
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            library=library_what, pairs_per_head=pairs,
+            **bound(n_bytes, pairs * B * Hq * 10 * D,
+                    ops_per_s=BF16_OPS_PER_S if dt == torch.bfloat16
+                    else F32_OPS_PER_S)))
+        del got, want, qd, kd, vd, od, ld, dod
+        torch.cuda.empty_cache()
+    for r in rows:
+        emit({"phase": "train_kernels", **r})
+    return rows
+
+
+def profile_split(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's kernel time
+    split into kernel 10's forward, its backward, cuBLAS and everything
+    else (ms), and the call's wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"attention_fwd": 0.0, "attention_bwd": 0.0, "cublas": 0.0,
+             "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        name, ms = e.name, e.self_device_time_total / 1e3
+        if "attn_bwd_" in name:
+            split["attention_bwd"] += ms
+        elif "attn_bf16_kernel" in name or "attn_f32_kernel" in name:
+            split["attention_fwd"] += ms
+        elif re.search(r"gemm|nvjet|cutlass|xmma|cublas|sm90_", name,
+                       re.IGNORECASE):
+            split["cublas"] += ms
+        else:
+            split["other"] += ms
+    return {"busy_ms": sum(split.values()), "kernels": n, "split_ms": split,
+            "profiled_wall_ms": 1e3 * wall}
+
+
+def step_readings(torch, got, want, tol=STEP_TOL) -> dict:
+    """The loss and every leaf of ``got`` against ``want`` (trees of the
+    same structure): per leaf the largest |difference| over the leaf's
+    scale, and whether all lie within atol_rel * max|want| + rtol *
+    |want|."""
+    from repro_torch.core.tree import tree_leaves
+
+    atol_rel, rtol = tol
+    worst, ok = 0.0, True
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        d = (a - b).abs()
+        ok = ok and not bool((d > atol_rel * scale + rtol * b.abs()).any())
+        worst = max(worst, float(d.max()) / max(scale, 1e-30))
+    return {"close": ok, "max_rel_to_scale": worst}
+
+
+def trees_equal(torch, a, b) -> bool:
+    from repro_torch.core.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def train_checks(torch, np, cfg, seq: int, n_micro: int) -> dict:
+    """The step checks at TRAIN_CHECK_LAYERS layers of the full width: in
+    float32, the kernels' loss, gradients and updated parameters against
+    attention_ref's, and a planted backward fault outside that tolerance;
+    in bf16, the same step twice, and remat off, "full" and "dots", bit for
+    bit; ``train.loop.train`` preempted and resumed from its checkpoint,
+    bit for bit against the run not interrupted."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import tree
+    from repro_torch.data import synth
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import loop, optimizer as opt
+
+    out = {"layers": TRAIN_CHECK_LAYERS}
+    toks, labels = next(synth.lm_batches(cfg.vocab_size, TRAIN_BATCH, seq,
+                                         seed=1))
+    toks = torch.from_numpy(toks).cuda()
+    labels = torch.from_numpy(labels).cuda()
+
+    # float32: the kernels against attention_ref, and a planted fault
+    c32 = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS,
+                              dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p32 = tfm.init_params(c32, gen, dtype=torch.float32)
+
+    def grads(**swaps):
+        with swapped(tfm, **swaps.pop("model", {})), \
+                swapped(attn_ops, **swaps):
+            return steps.lm_value_and_grad(c32, p32, toks, labels,
+                                           n_microbatches=n_micro)
+
+    kern = grads()
+    plain = grads(model={"flash_attention": attention_ref})
+
+    def tile_dropped(q, k, v, o, lse, do, **kw):
+        return plain_bwd(torch, q, k, v, o, lse, do, kw, kv_chunk=1,
+                         fault="tile_dropped")
+    fault = grads(flash_attention_bwd_cuda=tile_dropped)
+    loss_rel = abs(float(kern[0]) - float(plain[0])) / abs(float(plain[0]))
+    g_read = step_readings(torch, kern[1], plain[1])
+    f_read = step_readings(torch, fault[1], plain[1])
+    state = opt.init(p32)
+    lr = float(opt._schedule(steps.ADAMW, state.count))
+    new_k, _ = opt.update(steps.ADAMW, kern[1], state, p32)
+    new_p, _ = opt.update(steps.ADAMW, plain[1], state, p32)
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree.tree_leaves(new_k), tree.tree_leaves(new_p)))
+    out["float32"] = {"loss": float(kern[0]), "loss_plain": float(plain[0]),
+                      "loss_rel_diff": loss_rel, "grads": g_read,
+                      "tol": STEP_TOL, "planted_tile_dropped": f_read,
+                      "params_max_abs_diff": param_diff, "lr": lr}
+    del kern, plain, fault, new_k, new_p, p32, state
+    torch.cuda.empty_cache()
+    check(loss_rel <= STEP_TOL[1], f"the float32 step's loss through the "
+          f"kernels differs from attention_ref's by {loss_rel}")
+    check(g_read["close"], f"the float32 step's gradients through the "
+          f"kernels differ from attention_ref's: {g_read}")
+    check(not f_read["close"], "the step tolerance passes a planted backward "
+          "fault (tile_dropped)")
+    # Adam's first step moves a parameter by lr * m / sqrt(v) ~ +-lr: a
+    # gradient that differs in sign at noise level moves it by 2 lr
+    check(param_diff <= 2.0 * lr * (1 + 1e-3), f"the updated parameters "
+          f"differ by {param_diff} (lr {lr})")
+
+    # bf16: determinism and remat, bit for bit
+    cb = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    pb = tfm.init_params(cb, gen, dtype=torch.float32)
+    sb = opt.init(pb)
+
+    def one_step(c):
+        return steps.build_lm_train_step(c, n_microbatches=n_micro)(
+            pb, sb, toks, labels)
+    first = one_step(cb)
+    bits = {"same_step_twice": trees_equal(torch, one_step(cb), first)}
+    for name, kw in (("remat_off", dict(remat=False)),
+                     ("remat_full", dict(remat=True, remat_policy="full")),
+                     ("remat_dots", dict(remat=True, remat_policy="dots"))):
+        bits[name] = trees_equal(torch, one_step(
+            dataclasses.replace(cb, **kw)), first)
+    out["bf16_bit_equal"] = bits
+    del first
+    torch.cuda.empty_cache()
+    for name, ok in bits.items():
+        check(ok, f"the bf16 step is not bit-equal ({name})")
+
+    # the loop: preempted at step 1 and resumed, against the run through
+    ckpt_bytes = sum(t.numel() * t.element_size()
+                     for t in tree.tree_leaves((pb, sb)))
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    free = shutil.disk_usage(tmp).free
+    out["loop"] = {"checkpoint_bytes": ckpt_bytes, "disk_free": free}
+    check(free > 2.2 * ckpt_bytes, f"{free} bytes free under {tmp}: the "
+          f"loop check keeps two checkpoints of {ckpt_bytes} bytes")
+    timed = {"save_s": [], "restore_s": []}
+    real_save, real_restore = ckpt.save, ckpt.restore
+
+    def save(*a, **k):
+        t0 = time.perf_counter()
+        r = real_save(*a, **k)
+        timed["save_s"].append(time.perf_counter() - t0)
+        return r
+
+    def restore(*a, **k):
+        t0 = time.perf_counter()
+        r = real_restore(*a, **k)
+        torch.cuda.synchronize()
+        timed["restore_s"].append(time.perf_counter() - t0)
+        return r
+
+    def data():
+        for t, l in synth.lm_batches(cfg.vocab_size, TRAIN_BATCH, seq,
+                                     seed=3):
+            yield torch.from_numpy(t).cuda(), torch.from_numpy(l).cuda()
+
+    step = steps.build_lm_train_step(cb, n_microbatches=n_micro)
+    quiet = {"log": lambda *a: None}
+    try:
+        with swapped(ckpt, save=save, restore=restore):
+            through = loop.train(step, pb, sb, data(), ckpt_dir=tmp / "a",
+                                 max_steps=2, ckpt_every=2, **quiet)
+            shutil.rmtree(tmp / "a")
+            try:
+                loop.train(step, pb, sb, data(), ckpt_dir=tmp / "b",
+                           max_steps=2, ckpt_every=1, preempt_at=1, **quiet)
+                preempted = False
+            except loop.Preempted:
+                preempted = True
+            resumed = loop.train(step, pb, sb, data(), ckpt_dir=tmp / "b",
+                                 max_steps=2, ckpt_every=1, **quiet)
+        out["loop"].update(
+            preempted=preempted, **timed,
+            losses=through["losses"], resumed_losses=resumed["losses"],
+            bit_equal=trees_equal(torch, (through["params"],
+                                          through["opt_state"]),
+                                  (resumed["params"], resumed["opt_state"])))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del pb, sb
+    torch.cuda.empty_cache()
+    emit({"phase": "train_check", **out})
+    check(out["loop"]["preempted"], "the loop did not preempt at step 1")
+    check(out["loop"]["bit_equal"], "the resumed run differs from the run "
+          "through")
+    return out
+
+
+def mind_train_phase(torch, np, *, seed: int = 0) -> dict:
+    """MIND at its full config (2**21 x 64 table, neg_groups 1) takes
+    MIND_TRAIN_STEPS steps of ``build_mind_train_step`` at train_batch
+    (65,536 users: a 65,536 x 65,536 float32 logits matrix), batches from
+    ``recsys_batches``; then one step on a MIND_CPU_USERS-user slice against
+    the same step on CPU copies (float32, no TF32): loss and gradients at
+    the CPU parity test's tolerance, the updated parameters within Adam's
+    2 lr."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree
+    from repro_torch.data import synth
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import mind
+    from repro_torch.train import optimizer as opt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = get_arch("mind")
+    cfg = arch.full_config()
+    B = arch.SHAPES["train_batch"]["batch"]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = mind.init_params(cfg, gen)
+    state = opt.init(params)
+    data = synth.recsys_batches(cfg.n_items, B, cfg.hist_len, seed=seed)
+    step = steps.build_mind_train_step(cfg, donate=True)
+    ms, losses = [], []
+    for _ in range(MIND_TRAIN_STEPS):
+        h, m, t = (torch.from_numpy(x).cuda() for x in next(data))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, h, m, t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"MIND train losses {losses}")
+
+    # one step on a slice, on the card and on CPU copies
+    h, m, t = (torch.from_numpy(x[:MIND_CPU_USERS]) for x in next(data))
+    host_p = tree.tree_map(lambda x: x.cpu(), params)
+    host_s = tree.tree_map(lambda x: x.cpu(), state)
+
+    def vg(p, *args):
+        return steps.value_and_grad(
+            lambda pp, hh, mm, tt: mind.train_loss(pp, hh, mm, tt, cfg), p,
+            *args)
+    gl, gg = vg(params, h.cuda(), m.cuda(), t.cuda())
+    cl, cg = vg(host_p, h, m, t)
+    grad_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree.tree_leaves(gg), tree.tree_leaves(cg)))
+    grads_close = all(torch.allclose(a.cpu(), b, atol=1e-6, rtol=1e-4)
+                      for a, b in zip(tree.tree_leaves(gg),
+                                      tree.tree_leaves(cg)))
+    lr = float(opt._schedule(steps.ADAMW, state.count))
+    new_card, _ = opt.update(steps.ADAMW, gg, state, params)
+    new_host, _ = opt.update(steps.ADAMW, cg, host_s, host_p)
+    param_diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree.tree_leaves(new_card), tree.tree_leaves(new_host)))
+    out = {"phase": "mind_train", "model": cfg.name, "items": cfg.n_items,
+           "batch": B, "step_ms": ms, "losses": losses,
+           "users_per_s": B / (statistics.median(ms) / 1e3),
+           "max_memory_allocated": peak, "cpu_users": MIND_CPU_USERS,
+           "cpu_loss": float(cl), "card_loss": float(gl),
+           "grads_max_abs_err": grad_err, "params_max_abs_diff": param_diff,
+           "lr": lr}
+    emit(out)
+    check(abs(float(gl) - float(cl)) <= 1e-5 * abs(float(cl)),
+          f"MIND slice loss {float(gl)} on the card, {float(cl)} on the CPU")
+    check(grads_close, f"MIND slice gradients differ from the CPU's by "
+          f"{grad_err}")
+    check(param_diff <= 2.0 * lr * (1 + 1e-3), f"MIND updated parameters "
+          f"differ from the CPU's by {param_diff} (lr {lr})")
+    del params, state, new_card, gg
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, np, captured: dict) -> dict:
+    """Train gemma-2b at its full config (18 layers, d_model 2048, MQA 8/1,
+    head_dim 256, vocab 256,000; bf16 compute on float32 master weights,
+    remat "full", random weights from a seeded generator): TRAIN_STEPS
+    steps of TRAIN_BATCH sequences of 4,096 tokens from ``lm_batches`` in
+    MICROBATCH's 2 microbatches, through ``build_lm_train_step``, the
+    launch counts zeroed before each step and read after (kernel 10's
+    forward 2 x 18 x 2 times, its backward 18 x 2); then one warm step
+    under the profiler.  Then kernel 10's backward against its plain
+    version on the (q, k, v, o, lse, dO) that layers 0 and 17 saw in the
+    first step, on ``captured`` (gemma2-9b's first local and global layer,
+    qwen3-moe's layer 0, from the LM and MoE phases), the step checks
+    (``train_checks``) and MIND's training (``mind_train_phase``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree
+    from repro_torch.data import synth
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+
+    arch = get_arch(TRAIN_ARCH)
+    cfg = arch.full_config()
+    seq = arch.SHAPES[TRAIN_SHAPE]["seq_len"]
+    n_micro = steps.MICROBATCH[(TRAIN_ARCH, TRAIN_SHAPE)]
+    check(cfg.remat and cfg.remat_policy == "full", "gemma-2b trains with "
+          "remat 'full'")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tfm.init_params(cfg, gen, dtype=torch.float32)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.tree_leaves((params, state)))
+    data = synth.lm_batches(cfg.vocab_size, TRAIN_BATCH, seq, seed=0)
+    step = steps.build_lm_train_step(cfg, n_microbatches=n_micro,
+                                     donate=True)
+
+    norms = []
+    real_norm = opt.global_norm
+
+    def record_norm(tree):
+        n = real_norm(tree)
+        norms.append(n)
+        return n
+
+    calls, grabbed = [], {}
+    real_bwd = attn_ops.flash_attention_bwd_cuda
+
+    def capture(q, k, v, o, lse, do, **kw):
+        layer = cfg.n_layers - 1 - len(calls)    # backward runs 17 .. 0
+        calls.append(layer)
+        if len(calls) <= cfg.n_layers and layer in (0, cfg.n_layers - 1):
+            grabbed[layer] = (q.clone(), k.clone(), v.clone(), o.clone(),
+                              lse.clone(), do.clone(), dict(kw))
+        return real_bwd(q, k, v, o, lse, do, **kw)
+
+    per_step, total = [], {"flash_attention": 0, "flash_attention_bwd": 0}
+    for i in range(TRAIN_STEPS):
+        toks, labels = (torch.from_numpy(x).cuda() for x in next(data))
+        swaps = {"flash_attention_bwd_cuda": capture} if i == 0 else {}
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        with swapped(opt, global_norm=record_norm), \
+                swapped(attn_ops, **swaps):
+            params, state, loss = step(params, state, toks, labels)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: runtime.LAUNCHES[k] for k in total}
+        for k in total:
+            total[k] += launches[k]
+        per_step.append({"step": i + 1, "ms": 1e3 * dt,
+                         "tokens_per_s": TRAIN_BATCH * seq / dt,
+                         "loss": float(loss), "grad_norm": float(norms[-1]),
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated(),
+                         "launches": launches})
+        check(bool(torch.isfinite(loss)), f"train step {i + 1}: loss "
+              f"{float(loss)}")
+        check(launches["flash_attention"] == 2 * cfg.n_layers * n_micro,
+              f"train step {i + 1} launched flash_attention "
+              f"{launches['flash_attention']} times, not 2 x "
+              f"{cfg.n_layers} x {n_micro}")
+        check(launches["flash_attention_bwd"] == cfg.n_layers * n_micro,
+              f"train step {i + 1} launched flash_attention_bwd "
+              f"{launches['flash_attention_bwd']} times, not "
+              f"{cfg.n_layers} x {n_micro}")
+    peak = torch.cuda.max_memory_allocated()
+    toks, labels = (torch.from_numpy(x).cuda() for x in next(data))
+
+    def warm():
+        nonlocal params, state
+        params, state, _ = step(params, state, toks, labels)
+    profile = profile_split(torch, warm)
+    warm_ms = statistics.median(s["ms"] for s in per_step[1:])
+    emit({"phase": "train", "model": cfg.name, "n_params": cfg.n_params(),
+          "params_and_state_bytes": state_bytes, "seq_len": seq,
+          "batch": TRAIN_BATCH, "global_batch_cut_from":
+              arch.SHAPES[TRAIN_SHAPE]["global_batch"],
+          "microbatches": n_micro, "remat": cfg.remat_policy,
+          "init_s": init_s, "steps": per_step,
+          "warm_step_ms_median": warm_ms,
+          "warm_tokens_per_s": TRAIN_BATCH * seq / (warm_ms / 1e3),
+          "max_memory_allocated": peak, "warm_step_profile": profile,
+          "launches": total})
+    check(set(grabbed) == {0, cfg.n_layers - 1},
+          f"the captured step's backward reached layers {sorted(grabbed)}")
+    del params, state, toks, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernel 10's backward on the captured layers and the served shapes
+    rows = []
+    for layer in sorted(grabbed):
+        q, k, v, o, lse, do, kw = grabbed.pop(layer)
+        rows += bwd_check(torch, f"gemma-2b layer {layer}", q, k, v, kw,
+                          o=o, lse=lse, do=do, kv_chunk=1)
+        del q, k, v, o, lse, do
+    for name, (q, k, v, kw) in captured.items():
+        rows += bwd_check(torch, name, q.cuda(), k.cuda(), v.cuda(), kw,
+                          seed=7, kv_chunk=1, samples=5)
+    captured.clear()
+    torch.cuda.empty_cache()
+    checks = train_checks(torch, np, cfg, seq, n_micro)
+    mind_out = mind_train_phase(torch, np)
+    return {"launches": total, "results": rows, "checks": checks,
+            "mind": mind_out}
 
 
 # ----------------------------------------------------------------------------
@@ -4008,9 +4735,11 @@ def main() -> int:
 
     # ------------------------------------------------------------------- lm
     t0 = time.perf_counter()
-    lm = lm_phase(torch, np, built["flash_attention"])
+    lm = lm_phase(torch, np, built["flash_attention"],
+                  built["flash_attention_bwd"])
     results += lm["results"]
     launches["flash_attention"] = lm["launches"]["flash_attention"]
+    attn_layers = dict(lm["captured"])
     emit({"phase": "lm", "seconds": time.perf_counter() - t0})
     del lm
     gc.collect()
@@ -4021,8 +4750,20 @@ def main() -> int:
     moe = moe_phase(torch, np)
     results += moe["results"]
     launches["flash_attention"] += moe["launches"]["flash_attention"]
+    attn_layers.update(moe["captured"])
     emit({"phase": "moe", "seconds": time.perf_counter() - t0})
     del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- train
+    t0 = time.perf_counter()
+    train = train_phase(torch, np, attn_layers)
+    results += train["results"]
+    launches["flash_attention"] += train["launches"]["flash_attention"]
+    launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
+    emit({"phase": "train", "seconds": time.perf_counter() - t0})
+    del train, attn_layers
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4043,6 +4784,7 @@ def main() -> int:
                     "probe_hits": next(r["variant"] for r in results
                                        if r["name"] == "probe_hits"),
                     "flash_attention": "global (layer 1)",
+                    "flash_attention_bwd": "gemma-2b layer 0 bfloat16",
                     "embedding_bag": f"B={BAG_BATCHES[-1]} f32"}
     replaces = {
         "slab_probe": "src/repro/kernels/slab_update/kernel.py:81",
@@ -4053,6 +4795,9 @@ def main() -> int:
         "slab_count": "src/repro/kernels/slab_intersect/kernel.py:120",
         "probe_hits": "src/repro/kernels/slab_intersect/kernel.py:180",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
+        # kernel 10's gradient: the TPU kernel has no VJP
+        "flash_attention_bwd":
+            "src/repro/kernels/flash_attention/kernel.py:99",
         "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:29"}
     source = {"slab_probe": "src/repro_torch/csrc/slab_update.cu",
               "slab_commit": "src/repro_torch/csrc/slab_update.cu",
@@ -4062,6 +4807,8 @@ def main() -> int:
               "slab_count": "src/repro_torch/csrc/slab_intersect.cu",
               "probe_hits": "src/repro_torch/csrc/slab_intersect.cu",
               "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+              "flash_attention_bwd":
+                  "src/repro_torch/csrc/flash_attention_bwd.cu",
               "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu"}
     kernels = []
     for name in main_variant:

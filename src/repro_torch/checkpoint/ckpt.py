@@ -11,29 +11,30 @@ manifest, in the reference's format.
 **Format.**  ``step_<10 digits>/leaf_<5 digits>.npy`` and
 ``manifest.msgpack`` with the keys ``step``, ``treedef``, ``n_leaves``,
 ``time``, ``extra`` and ``leaves`` (one ``{i, shape, dtype, raw}`` each).
-Leaves are numbered in JAX's flatten order, so either package reads the
-other's checkpoints: dict keys sorted, a ``SlabGraph``'s tensors in
-``FIELDS`` order with ``None`` (an unweighted graph's ``weights``)
-skipped, tuples (``TreeState``) and lists in order, and anything else a
-leaf.  Keys, which the port keeps as int32 bit patterns, are written as
-uint32 (the reference's dtype, the same bytes); a bfloat16 leaf is written
-``raw`` as uint16 with ``dtype: "bfloat16"``.  ``treedef`` describes the
-structure for a reader; ``restore`` checks only ``n_leaves``.
+Leaves are numbered in JAX's flatten order (``core.tree``), so either
+package reads the other's checkpoints: dict keys sorted, a
+``SlabGraph``'s tensors in ``FIELDS`` order with ``None`` (an unweighted
+graph's ``weights``) skipped, tuples (``TreeState``) and lists in order,
+and anything else a leaf.  Keys, which the port keeps as int32 bit
+patterns, are written as uint32 (the reference's dtype, the same bytes); a
+bfloat16 leaf is written ``raw`` as uint16 with ``dtype: "bfloat16"``.
+``treedef`` describes the structure for a reader; ``restore`` checks only
+``n_leaves``.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import shutil
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
 from ..core.slab_graph import FIELDS, SlabGraph
+from ..core.tree import flatten
 from ..resilience import faults
 from . import msgpack_codec
 
@@ -45,42 +46,6 @@ class CheckpointError(RuntimeError):
 
 
 _REQUIRED_MANIFEST_KEYS = ("step", "treedef", "n_leaves", "extra", "leaves")
-
-
-# ----------------------------------------------------------------------------
-# flatten / unflatten in JAX's order
-# ----------------------------------------------------------------------------
-
-def _flatten(tree, path: str = "") -> Tuple[List[Tuple[str, Any]], Any]:
-    """``([(path, leaf), ...], rebuild)``: the leaves in JAX's flatten
-    order and a function that rebuilds the structure from new leaves."""
-    if tree is None:
-        return [], lambda it: None
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [_flatten(tree[k], f"{path}/{k}") for k in keys]
-
-        def rebuild(it):
-            return {k: fn(it) for k, (_, fn) in zip(keys, parts)}
-        return [x for leaves, _ in parts for x in leaves], rebuild
-    if isinstance(tree, SlabGraph):
-        parts = [_flatten(getattr(tree, f), f"{path}/{f}") for f in FIELDS]
-
-        def rebuild(it):
-            return dataclasses.replace(
-                tree, **{f: fn(it) for f, (_, fn) in zip(FIELDS, parts)})
-        return [x for leaves, _ in parts for x in leaves], rebuild
-    if isinstance(tree, (list, tuple)):
-        parts = [_flatten(x, f"{path}/{i}") for i, x in enumerate(tree)]
-
-        def rebuild(it):
-            items = [fn(it) for _, fn in parts]
-            if isinstance(tree, list):
-                return items
-            return type(tree)(*items) if hasattr(tree, "_fields") \
-                else tuple(items)
-        return [x for leaves, _ in parts for x in leaves], rebuild
-    return [(path, tree)], lambda it: next(it)
 
 
 def _describe(tree) -> str:
@@ -197,7 +162,7 @@ def save(ckpt_dir, step: int, tree: Any, *, extra: Optional[Dict] = None,
         shutil.rmtree(tmp)
     tmp.mkdir()
 
-    leaves, _ = _flatten(tree)
+    leaves, _ = flatten(tree)
     manifest = {
         "step": int(step),
         "treedef": _describe(tree),
@@ -292,7 +257,7 @@ def restore(ckpt_dir, like: Any, *, step: Optional[int] = None,
     path = ckpt_dir / f"step_{step:010d}"
     manifest = validate_checkpoint(path)
 
-    leaves_like, rebuild = _flatten(like)
+    leaves_like, rebuild = flatten(like)
     if manifest["n_leaves"] != len(leaves_like):
         raise CheckpointError(
             f"{path} holds {manifest['n_leaves']} leaves but the restore "

@@ -1,9 +1,10 @@
 """The LM and recsys shape tables, from ``repro.configs.common``.
 
-``kind`` selects the step: ``train`` (not ported), ``prefill`` (logits and
-KV cache), ``decode`` (one new token against the KV cache), ``serve``
-(recsys candidate scoring) and ``retrieval`` (scoring pre-materialised
-candidate embeddings).
+``kind`` selects the step: ``train`` (forward, backward and AdamW:
+``launch.steps.build_lm_train_step`` and ``build_mind_train_step``),
+``prefill`` (logits and KV cache), ``decode`` (one new token against the
+KV cache), ``serve`` (recsys candidate scoring) and ``retrieval`` (scoring
+pre-materialised candidate embeddings).
 """
 from __future__ import annotations
 

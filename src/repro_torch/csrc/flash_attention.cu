@@ -29,6 +29,13 @@
 // running max that starts at NEG_INF = -1e30, a row with no visible key
 // (l = 0) written as 0, and the output rounded once.
 //
+// When ``lse`` is not null, both kernels also write each row's log-sum-exp
+// over the scaled, softcapped, masked scores, m + logf(l), once after the
+// key loop (lse (B, Hq, Sq) float32, for the backward of
+// flash_attention_bwd.cu); a row with no visible key gets +inf, so that
+// exp(x - lse) is exactly 0 for every key.  A null ``lse`` leaves the
+// kernels as they were but for one untaken branch a row.
+//
 // ---- bfloat16: tensor cores (wgmma, FlashAttention-3's products) -------
 //
 // Bound on this card: operations.  The scores and P·V are 4·D flops per
@@ -200,7 +207,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
                     int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-                    int kv_len, float softcap, float sm_scale) {
+                    int kv_len, float softcap, float sm_scale,
+                    float* __restrict__ lse) {
   using T = Tiles<D>;
   constexpr int kStride = T::kStride;
   constexpr int kHalf = D / 2;        // head dims of a lane's partial scores
@@ -428,6 +436,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     lr += __shfl_xor_sync(kFull, lr, 2);
     lr += __shfl_xor_sync(kFull, lr, 4);
     if (kg == 0) l_s[8 * rg + 4 * hf + i] = lr;
+    const int qi = wq0 + rg + 2 * (4 * hf + i);
+    if (lse != nullptr && kg == 0 && qi < Sq)
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + qi] =
+          lr > 0.f ? m[i] + logf(lr) : INFINITY;
   }
   __syncwarp();
   const float4 l_lo = *reinterpret_cast<const float4*>(l_s + 8 * ro);
@@ -451,7 +463,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-               int kv_len, float softcap, float sm_scale,
+               int kv_len, float softcap, float sm_scale, float* lse,
                cudaStream_t stream) {
   const size_t smem = Tiles<D>::kBytes;
   const int n_qt = (Sq + kBQ - 1) / kBQ;
@@ -465,7 +477,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   attn_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
-      causal, window, kv_len, softcap, sm_scale);
+      causal, window, kv_len, softcap, sm_scale, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -714,7 +726,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Sq,
                      int Skv, int causal, int window, int kv_len,
-                     float softcap, float sm_scale) {
+                     float softcap, float sm_scale, float* __restrict__ lse) {
   constexpr uint32_t kKV = TcTiles<D>::kKVBytes;
   constexpr int kNT = kTcBK / 8;   // 8-key column groups of S
   constexpr int kDT = D / 8;       // 8-column groups of O
@@ -900,6 +912,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     lr += __shfl_xor_sync(kFull, lr, 2);
     const int qi = wq0 + g + 8 * r;
     if (qi >= Sq) continue;
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + qi] =
+          lr > 0.f ? m[r] + logf(lr) : INFINITY;
     const float safe = lr > 0.f ? lr : 1.f;
     __nv_bfloat16* orow = oh + static_cast<size_t>(qi) * D + 2 * t4;
 #pragma unroll
@@ -913,7 +928,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-                int kv_len, float softcap, float sm_scale,
+                int kv_len, float softcap, float sm_scale, float* lse,
                 cudaStream_t stream) {
   const size_t smem = TcTiles<D>::kBytes;
   const int n_qt = (Sq + kTcBQ - 1) / kTcBQ;
@@ -928,20 +943,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Hq, Hkv, Sq, Skv, causal, window, kv_len, softcap, sm_scale);
+      Hq, Hkv, Sq, Skv, causal, window, kv_len, softcap, sm_scale, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int B, int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-           int kv_len, float softcap, float sm_scale, cudaStream_t stream) {
+           int kv_len, float softcap, float sm_scale, float* lse,
+           cudaStream_t stream) {
   if (dtype == 0)
     return launch_f32<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
-                         kv_len, softcap, sm_scale, stream);
+                         kv_len, softcap, sm_scale, lse, stream);
   if (dtype == 1)
     return launch_bf16<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
-                          kv_len, softcap, sm_scale, stream);
+                          kv_len, softcap, sm_scale, lse, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -949,11 +965,13 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  kv_len must be at most Skv.
+// dtype: 0 float32, 1 bfloat16.  kv_len must be at most Skv.  ``lse``
+// (B, Hq, Sq) float32 or null; it comes last, so a caller that passes it
+// can also call an earlier build of this entry point, which ignores it.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int B, int Hq, int Hkv, int Sq, int Skv, int D, int dtype,
                     int causal, int window, int kv_len, float softcap,
-                    float sm_scale, void* stream) {
+                    float sm_scale, void* stream, float* lse) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -961,13 +979,13 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   switch (D) {
     case 64:
       return launch<64>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
-                        window, kv_len, softcap, sm_scale, s);
+                        window, kv_len, softcap, sm_scale, lse, s);
     case 128:
       return launch<128>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
-                         window, kv_len, softcap, sm_scale, s);
+                         window, kv_len, softcap, sm_scale, lse, s);
     case 256:
       return launch<256>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
-                         window, kv_len, softcap, sm_scale, s);
+                         window, kv_len, softcap, sm_scale, lse, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

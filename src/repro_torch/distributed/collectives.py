@@ -1,4 +1,5 @@
-"""Shard-axis exchanges of the sharded graph plane, stacked and collective.
+"""Shard-axis exchanges of the sharded graph plane, stacked and collective;
+and the gradient compressors of training.
 
 Each exchange has two forms, as the reference's has a ``vmap`` and a
 ``shard_map`` rendering:
@@ -16,14 +17,27 @@ all-reduce (it stages them through host memory itself) but not through
 point-to-point sends, which read the device pointer on the host: the ring
 pass (``ring_shift``) stages CUDA tensors through the host explicitly, for
 gloo only.
+
+The gradient compressors, from the reference's
+``repro.distributed.collectives``: int8 quantization with a per-leaf scale
+(``quantize_int8``, ``dequantize_int8``), error feedback (``compress_grads``
+carries the quantization error into the next step's residual,
+``init_residual``), the int8 all-reduce ``compressed_psum`` (scales
+max-reduced so every rank dequantizes alike, the int8 values summed as
+int32, the mean) and ``reduce_scatter_grads`` (ZeRO-1's wire pattern).
+They take a parameter tree (nested dicts and tuples of tensors) and, for
+the collectives, the process group in place of the reference's
+``axis_name``.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..core.tree import tree_leaves, tree_map, tree_unflatten
 
 #: this rank's collectives: calls, bytes it sent (all-to-all bytes apart),
 #: and host-clock seconds inside the calls (a gloo call returns after its
@@ -167,7 +181,92 @@ def ring_shift(tensors: Sequence[torch.Tensor], group
     return recv
 
 
+# ----------------------------------------------------------------------------
+# gradient compression: int8 with error feedback, and reduce-scatter
+# ----------------------------------------------------------------------------
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q, scale)``: x / scale rounded half to even and clipped to
+    [-127, 127] as int8, scale = max|x| / 127 + 1e-12 (0-d float32)."""
+    scale = x.abs().max() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compress_grads(grads: Any, residual: Any) -> Tuple[Any, Any, Any]:
+    """Quantize ``grads + residual`` leaf by leaf: ``(q, scales,
+    new_residual)``, the residual the quantization error."""
+    def one(g, r):
+        t = g.float() + r
+        q, s = quantize_int8(t)
+        return q, s, t - dequantize_int8(q, s)
+
+    out = [one(g, r) for g, r in zip(tree_leaves(grads),
+                                    tree_leaves(residual))]
+    return tuple(tree_unflatten(grads, [o[i] for o in out])
+                 for i in range(3))
+
+
+def init_residual(params: Any) -> Any:
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def compressed_psum(grads: Any, residual: Any, group=None
+                    ) -> Tuple[Any, Any]:
+    """The int8 all-reduce over ``group`` (the default group when None):
+    each leaf's scale max-reduced over the ranks (one all-reduce for all
+    leaves), ``grads + residual`` requantized against it, the int8 values
+    summed as int32 and dequantized, divided by the group size.  Returns
+    ``(mean gradients, new residual)``."""
+    _, scales, _ = compress_grads(grads, residual)
+    s = torch.stack(tree_leaves(scales))
+    _counted(dist.all_reduce, _nbytes(s), s, op=dist.ReduceOp.MAX,
+             group=group)
+    n = dist.get_world_size(group)
+    means, res = [], []
+    for g, r, sc in zip(tree_leaves(grads), tree_leaves(residual),
+                        s.unbind(0)):
+        t = g.float() + r
+        qq = torch.clamp(torch.round(t / sc), -127, 127).to(torch.int8)
+        res.append(t - qq.float() * sc)
+        summed = qq.to(torch.int32)
+        _counted(dist.all_reduce, _nbytes(summed), summed,
+                 op=dist.ReduceOp.SUM, group=group)
+        means.append(summed.float() * sc / n)
+    return tree_unflatten(grads, means), tree_unflatten(grads, res)
+
+
+def reduce_scatter_grads(grads: Any, group=None,
+                         num_shards: Optional[int] = None) -> Any:
+    """Reduce-scatter each gradient leaf along its leading dim over
+    ``group`` (``dist.reduce_scatter_tensor``: rank r keeps rows [r n / S,
+    (r + 1) n / S) of the sum); a 0-d leaf, or one whose leading dim
+    ``num_shards`` (the group size when None) does not divide, is
+    all-reduced whole.  A backend without reduce-scatter raises; there is
+    no fallback."""
+    S = dist.get_world_size(group) if num_shards is None else num_shards
+
+    def one(g):
+        if g.dim() == 0 or g.shape[0] % S:
+            out = g.clone()
+            _counted(dist.all_reduce, _nbytes(out), out,
+                     op=dist.ReduceOp.SUM, group=group)
+            return out
+        out = g.new_empty((g.shape[0] // S,) + tuple(g.shape[1:]))
+        _counted(dist.reduce_scatter_tensor, _nbytes(g), out,
+                 g.contiguous(), op=dist.ReduceOp.SUM, group=group)
+        return out
+    return tree_map(one, grads)
+
+
 __all__ = ["COLLECTIVE_STATS", "reset_collective_stats",
            "exchange_buckets", "gather_interleaved", "or_across_shards",
            "gather_stacked", "max_across_shards", "sum_across_shards",
-           "gather_objects", "ring_shift"]
+           "gather_objects", "ring_shift", "quantize_int8",
+           "dequantize_int8", "compress_grads", "init_residual",
+           "compressed_psum", "reduce_scatter_grads"]

@@ -1,7 +1,12 @@
-"""Blocked online-softmax attention (kernel 10): the hand-written kernel for
-CUDA tensors, ``attention_ref`` for CPU tensors (see ``ops``)."""
-from .kernel import flash_attention_cuda
-from .ops import flash_attention
-from .ref import attention_ref
+"""Blocked online-softmax attention (kernel 10) and its backward: the
+hand-written kernels for CUDA tensors, ``attention_ref`` (with its
+autograd) for CPU tensors (see ``ops``); ``chunked`` holds the reference's
+plain XLA schedule."""
+from .chunked import attention_chunked
+from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .ops import FlashAttention, flash_attention
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
-__all__ = ["attention_ref", "flash_attention", "flash_attention_cuda"]
+__all__ = ["FlashAttention", "attention_bwd_ref", "attention_chunked",
+           "attention_lse_ref", "attention_ref", "flash_attention",
+           "flash_attention_bwd_cuda", "flash_attention_cuda"]

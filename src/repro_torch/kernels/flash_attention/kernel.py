@@ -1,15 +1,19 @@
-"""The flash-attention kernel of ``csrc/flash_attention.cu`` and its ctypes
-binding.
+"""The flash-attention kernels of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu`` and their ctypes bindings.
 
 ``flash_attention_cuda`` launches the blocked online-softmax forward on CUDA
 tensors: bfloat16 ones on the tensor cores (``wgmma``), float32 ones on the
-CUDA cores in exact float32; both are one library and one entry point.  Its
-plain version is ``ref.attention_ref``, which ``ops`` runs for CPU tensors
-and the tests hold the kernel to.
+CUDA cores in exact float32; both are one library and one entry point.
+Asked for ``lse``, it also returns each row's log-sum-exp, which
+``flash_attention_bwd_cuda`` (the backward: dq, dk, dv, deterministic, on
+the CUDA cores in float32 for both dtypes) recomputes the softmax from.
+Their plain versions are ``ref.attention_ref``, ``ref.attention_lse_ref``
+and ``ref.attention_bwd_ref``, which the tests hold the kernels to.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple, Union
 
 import torch
 
@@ -19,7 +23,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -27,19 +31,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _lib() -> ctypes.CDLL:
     lib = runtime.library("flash_attention")
     if lib.flash_attention.argtypes is None:
-        lib.flash_attention.argtypes = [_P] * 4 + [_I] * 10 + [_F, _F, _P]
+        lib.flash_attention.argtypes = [_P] * 4 + [_I] * 10 + [_F, _F, _P, _P]
         lib.flash_attention.restype = _I
         lib.flash_attention_error_string.argtypes = [_I]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, window: int, softcap: float,
-                         sm_scale: float, kv_len: int) -> torch.Tensor:
-    """q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), contiguous CUDA tensors of
-    one dtype (float32 or bfloat16), D in ``HEAD_DIMS``, Hq a multiple of
-    Hkv -> (B, Hq, Sq, D) in q's dtype."""
+def _bwd_lib() -> ctypes.CDLL:
+    lib = runtime.library("flash_attention_bwd")
+    if lib.flash_attention_bwd.argtypes is None:
+        lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 10 \
+            + [_F, _F, _P]
+        lib.flash_attention_bwd.restype = _I
+        lib.flash_attention_bwd_error_string.argtypes = [_I]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(B, Hq, Hkv, Sq, Skv, D) of q (B, Hq, Sq, D), k and v (B, Hkv, Skv,
+    D), after checking what the kernels take."""
     dev = q.device
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Hq, Sq, D), got {tuple(q.shape)}")
@@ -56,14 +68,63 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     runtime.require(q, "q", q.dtype, dev, (B, Hq, Sq, D), 16)
     runtime.require(k, "k", q.dtype, dev, (B, Hkv, Skv, D), 16)
     runtime.require(v, "v", q.dtype, dev, (B, Hkv, Skv, D), 16)
+    return B, Hq, Hkv, Sq, Skv, D
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window: int, softcap: float,
+                         sm_scale: float, kv_len: int, lse: bool = False
+                         ) -> Union[torch.Tensor,
+                                    Tuple[torch.Tensor, torch.Tensor]]:
+    """q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), contiguous CUDA tensors of
+    one dtype (float32 or bfloat16), D in ``HEAD_DIMS``, Hq a multiple of
+    Hkv -> (B, Hq, Sq, D) in q's dtype; with ``lse``, also the rows'
+    log-sum-exp (B, Hq, Sq) float32 (+inf for a row with no visible key)."""
+    B, Hq, Hkv, Sq, Skv, D = _check_shapes(q, k, v)
     out = torch.empty_like(q)
+    row_lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                          device=q.device) if lse else None
     lib = _lib()
     rc = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv,
         Sq, Skv, D, _DTYPES[q.dtype], int(bool(causal)), int(window),
         int(min(kv_len, Skv)), float(softcap), float(sm_scale),
-        runtime.stream_handle(dev))
+        runtime.stream_handle(q.device), runtime.ptr(row_lse))
     runtime.check_launch(rc, lib, "flash_attention_error_string",
                          "flash_attention")
     runtime.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, row_lse) if lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool, window: int, softcap: float,
+                             sm_scale: float, kv_len: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The backward of ``flash_attention_cuda`` from its inputs, its output
+    ``o`` and row log-sum-exp ``lse`` and the output's gradient ``do`` (all
+    contiguous CUDA tensors; o and do of q's shape and dtype, lse (B, Hq,
+    Sq) float32) -> (dq, dk, dv) in the inputs' dtype, bit-reproducible (no
+    atomics)."""
+    B, Hq, Hkv, Sq, Skv, D = _check_shapes(q, k, v)
+    dev = q.device
+    runtime.require(o, "o", q.dtype, dev, (B, Hq, Sq, D), 16)
+    runtime.require(do, "do", q.dtype, dev, (B, Hq, Sq, D), 16)
+    runtime.require(lse, "lse", torch.float32, dev, (B, Hq, Sq))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    rc = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+        _DTYPES[q.dtype], int(bool(causal)), int(window),
+        int(min(kv_len, Skv)), float(softcap), float(sm_scale),
+        runtime.stream_handle(dev))
+    runtime.check_launch(rc, lib, "flash_attention_bwd_error_string",
+                         "flash_attention_bwd")
+    runtime.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("slab_update", "slab_sweep", "slab_compact", "slab_intersect",
-           "flash_attention", "embedding_bag")
+           "flash_attention", "flash_attention_bwd", "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,7 +36,7 @@ LAUNCHES: Dict[str, int] = {"slab_probe": 0, "slab_commit": 0,
                             "slab_sweep": 0, "slab_live": 0,
                             "slab_chain_rank": 0, "slab_count": 0,
                             "probe_hits": 0, "flash_attention": 0,
-                            "embedding_bag": 0}
+                            "flash_attention_bwd": 0, "embedding_bag": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -21,7 +21,15 @@ Departures from the reference:
 * ``history_from_slab`` walks every user's chain at once, one hop a step
   (the reference ``vmap``s a per-user ``slab_iterator``), and stops a
   user's walk once its history is full.
-* ``train_loss`` is a value; its gradients come with the train step.
+* ``train_loss`` takes the gold logit as each user's dot product with its
+  own target, not the diagonal of the (B, B) in-batch logits (the same
+  value up to summation order), and the logits' log-sum-exp through
+  ``InBatchLogSumExp``, which keeps the (B, B) logits only inside its
+  forward and its backward (it recomputes them there): at ``train_batch``
+  autograd's ``logsumexp`` would hold three 17.2 GB tensors at once.  The
+  table gather's backward accumulates the rows' gradients with
+  ``index_put_``, which sorts the indices on CUDA and adds each row's
+  contributions in order (deterministic).
 """
 from __future__ import annotations
 
@@ -110,6 +118,32 @@ def label_aware_attention(interests: torch.Tensor, target_e: torch.Tensor,
     return torch.einsum("bk,bkd->bd", w, interests)
 
 
+class InBatchLogSumExp(torch.autograd.Function):
+    """``logsumexp_c(u[g, b] . t[g, c])`` (G, b) of users ``u`` and targets
+    ``t`` (G, b, D): the in-batch logits are made, reduced in place as
+    ``torch.logsumexp`` reduces them (max, exp of the difference, sum, log,
+    the max added back) and dropped; the backward makes them again and
+    turns them in place into their gradient, ``exp(logits - lse) * grad``.
+    One (G, b, b) float32 tensor lives at a time."""
+
+    @staticmethod
+    def forward(ctx, u, t):
+        logits = torch.einsum("gbd,gcd->gbc", u, t)
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = logits.sub_(m).exp_().sum(dim=-1).log_()
+        lse.add_(m.squeeze(-1).masked_fill_(m.squeeze(-1).isinf(), 0))
+        ctx.save_for_backward(u, t, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        u, t, lse = ctx.saved_tensors
+        g = torch.einsum("gbd,gcd->gbc", u, t)
+        g.sub_(lse[..., None]).exp_().mul_(grad[..., None])
+        return (torch.einsum("gbc,gcd->gbd", g, t),
+                torch.einsum("gbc,gbd->gcd", g, u))
+
+
 def train_loss(params: Dict, hist: torch.Tensor, hist_mask: torch.Tensor,
                target: torch.Tensor, cfg: MINDConfig) -> torch.Tensor:
     """Sampled softmax with in-batch negatives (per group of B / G users
@@ -121,9 +155,8 @@ def train_loss(params: Dict, hist: torch.Tensor, hist_mask: torch.Tensor,
     G = cfg.neg_groups
     ug = user.reshape(G, B // G, D)
     tg = te.reshape(G, B // G, D)
-    logits = torch.einsum("gbd,gcd->gbc", ug, tg)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.diagonal(logits, dim1=1, dim2=2)
+    logz = InBatchLogSumExp.apply(ug, tg)
+    gold = (ug * tg).sum(dim=-1)
     return (logz - gold).mean()
 
 

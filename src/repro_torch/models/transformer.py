@@ -1,4 +1,4 @@
-"""Decoder-only LM serving path, from ``repro.models.transformer``.
+"""Decoder-only LM, serving and training, from ``repro.models.transformer``.
 
 One parameterised stack for the reference's five LM configs (phi3.5-moe:
 GQA, 16 experts top-2; qwen3-moe: GQA, QK norm, 128 experts top-8;
@@ -7,15 +7,22 @@ global layers alternating, attention and final softcaps; qwen1.5-32b: MHA,
 QKV bias).  ``TransformerLM`` holds the layer-stacked parameters under the
 reference's pytree names (``embed``, ``final_norm``, ``lm_head``,
 ``layers.<name>`` with a leading layer dimension) and serves ``forward``,
-``prefill`` and ``decode_step`` with the reference's outputs.
+``prefill`` and ``decode_step`` with the reference's outputs; its parameters
+take no gradient.  Training is functional, as the reference's: ``forward``
+and ``loss_fn`` over a parameter dict whose leaves may require gradients,
+each layer (an alternating stack's local/global pair, as the reference's
+pair scan) under ``torch.utils.checkpoint`` when ``cfg.remat`` is set.
 
 Departures from the reference:
 
 * Attention goes through ``kernels.flash_attention``: the hand-written
-  kernel for tensors on the card, the plain ``attention_ref`` for CPU
-  tensors.  The reference defaults to its plain version and reaches its
-  Pallas kernel only when asked (``attn_impl="pallas"``).  Its XLA
-  ``"chunked"`` schedule is not ported, so the port has no ``attn_impl``.
+  kernel (forward, and its backward under autograd) for tensors on the
+  card, the plain ``attention_ref`` for CPU tensors.  The reference
+  defaults to its plain version and reaches its Pallas kernel only when
+  asked (``attn_impl="pallas"``); the port's ``attn_impl`` "ref" and
+  "pallas" are both that op, and "chunked" is the reference's plain
+  schedule (``kernels.flash_attention.chunked``) on any device.  Serving
+  always takes the op.
 * A Python loop over the layers replaces ``lax.scan``; a layer's attention
   is local or global by its parity (``LMConfig.layer_window``), and only
   that attention is computed.
@@ -31,13 +38,21 @@ Departures from the reference:
   float32 temporary of one layer, not of the whole stack).
 * The one-layer alternating stack the reference keeps for dry-run
   calibration raises ``NotImplementedError``.
-* Training (``loss_fn``, remat, the scan-unroll and FSDP-cast knobs) is not
-  ported.
+* Remat's unit is a layer (a pair for alternating stacks) under
+  ``checkpoint(use_reentrant=False)``; ``remat_policy="dots"`` saves the
+  outputs of the weight products (``aten.mm``, as the reference's
+  ``dots_with_no_batch_dims_saveable`` saves its batch-free dots) through
+  ``create_selective_checkpoint_contexts`` and recomputes the rest.
+* ``scan_unroll`` and ``cast_params_once``, set only by the reference's dry
+  run, are not fields: they come with the dry run (ROADMAP item 5.5).
+* The final softcap runs in place on the logits when nothing records a
+  gradient (serving), out of place otherwise.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -46,7 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import attention_chunked, flash_attention
 
 #: the layer-stacked parameter names a config may have
 LAYER_PARAMS = ("wq", "wk", "wv", "wo", "ln_attn", "ln_mlp", "bq", "bk",
@@ -82,7 +97,9 @@ class LMConfig:
     embed_scale: bool = False          # gemma: x *= sqrt(d_model)
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True     # checkpoint each layer (pair) in training
     dispatch_groups: int = 1  # shard-local MoE dispatch over G token groups
+    remat_policy: str = "full"      # or "dots": save the weight products
 
     @property
     def is_moe(self) -> bool:
@@ -377,22 +394,171 @@ def _qkv(x: torch.Tensor, lw: Dict, cfg: LMConfig, positions: torch.Tensor
     return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
 
 
-def _attend(qt, kt, vt, cfg: LMConfig, window: int):
-    """Causal attention of one layer through the flash-attention op:
-    (B, Hq, S, hd) -> (B, S, Hq * hd)."""
-    o = flash_attention(qt, kt, vt, causal=True, window=window,
-                        softcap=cfg.attn_softcap)
+#: the ``attn_impl`` choices: the reference's names; "ref" and "pallas" are
+#: both the flash-attention op (kernel 10 for CUDA tensors, attention_ref
+#: for CPU ones), "chunked" the reference's plain online-softmax schedule
+ATTN_IMPLS = ("ref", "pallas", "chunked")
+
+
+def _attend(qt, kt, vt, cfg: LMConfig, window: int, attn_impl: str = "ref"):
+    """Causal attention of one layer, (B, Hq, S, hd) -> (B, S, Hq * hd),
+    through the flash-attention op or, for ``attn_impl="chunked"``,
+    ``attention_chunked``."""
+    if attn_impl == "chunked":
+        o = attention_chunked(qt, kt, vt, causal=True, window=window,
+                              softcap=cfg.attn_softcap)
+    elif attn_impl in ("ref", "pallas"):
+        o = flash_attention(qt, kt, vt, causal=True, window=window,
+                            softcap=cfg.attn_softcap)
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one of "
+                         f"{ATTN_IMPLS}")
     B, _, S, _ = o.shape
     return o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
 
 
 def attention(x: torch.Tensor, lw: Dict, cfg: LMConfig,
-              positions: torch.Tensor, *, local: bool) -> torch.Tensor:
+              positions: torch.Tensor, *, local: bool,
+              attn_impl: str = "ref") -> torch.Tensor:
     """One layer's attention block (training / prefill form): x (B, S, D)
     -> (B, S, D)."""
     qt, kt, vt = _qkv(x, lw, cfg, positions)
     window = cfg.sliding_window if local else 0
-    return _attend(qt, kt, vt, cfg, window) @ lw["wo"]
+    return _attend(qt, kt, vt, cfg, window, attn_impl) @ lw["wo"]
+
+
+def _ffn(x: torch.Tensor, lw: Dict, cfg: LMConfig) -> torch.Tensor:
+    """The FFN half of a layer, residual included: the experts over the
+    flattened tokens of x (B, S, D), or the dense FFN."""
+    h = rms_norm(x, lw["ln_mlp"], cfg.norm_eps)
+    if cfg.is_moe:
+        return x + moe_ffn(h.reshape(-1, h.shape[-1]), lw,
+                           cfg).view(h.shape)
+    return x + dense_ffn(h, lw, cfg)
+
+
+def _block(x: torch.Tensor, lw: Dict, cfg: LMConfig, positions: torch.Tensor,
+           window: int, attn_impl: str = "ref") -> torch.Tensor:
+    """One transformer block over x (B, S, D) with the layer's weights
+    ``lw`` in the compute dtype: attention of the given window and the FFN,
+    each with its residual."""
+    h = rms_norm(x, lw["ln_attn"], cfg.norm_eps)
+    x = x + attention(h, lw, cfg, positions, local=window > 0,
+                      attn_impl=attn_impl)
+    return _ffn(x, lw, cfg)
+
+
+def _embed(embed: torch.Tensor, tokens: torch.Tensor, cfg: LMConfig
+           ) -> torch.Tensor:
+    """Token embeddings (B, S, D) in the compute dtype, scaled by
+    sqrt(d_model) rounded to that dtype (the reference scales by a scalar
+    of it) when ``cfg.embed_scale``."""
+    x = embed[tokens.long()].to(cfg.dtype)
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype))
+    return x
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device)[None].expand(B, S)
+
+
+def _logits(x: torch.Tensor, final_norm: torch.Tensor, head: torch.Tensor,
+            cfg: LMConfig) -> torch.Tensor:
+    """The final norm and the LM head (``cfg.dtype``), with the final
+    softcap: in place when nothing records a gradient (the (B, S, V)
+    logits once), out of place otherwise."""
+    x = rms_norm(x, final_norm.to(cfg.dtype), cfg.norm_eps)
+    logits = x @ head.to(cfg.dtype)
+    c = cfg.final_softcap
+    if c > 0:
+        if logits.requires_grad:
+            return c * torch.tanh(logits / c)
+        logits.div_(c).tanh_().mul_(c)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# training: forward and loss over a parameter dict
+# ---------------------------------------------------------------------------
+
+#: the weight products the "dots" remat policy saves (``x @ w`` with a 2-D
+#: weight dispatches to ``aten.mm``); batched products (``bmm``) recompute
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(cfg: LMConfig) -> Dict:
+    if cfg.remat_policy == "full":
+        return {}
+    if cfg.remat_policy == "dots":
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        return {"context_fn": partial(create_selective_checkpoint_contexts,
+                                      _save_dots)}
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected "
+                     "'full' or 'dots'")
+
+
+def _unit(cfg: LMConfig, attn_impl: str, names, first: int, positions,
+          x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+    """Remat's unit: layers first, first + 1, ... over x, each from its
+    stacked slices ``weights`` (``names`` order a layer), cast to the
+    compute dtype inside, as the reference's scanned layer casts its
+    slice."""
+    n = len(names)
+    for j in range(len(weights) // n):
+        lw = {k: w.to(cfg.dtype)
+              for k, w in zip(names, weights[j * n:(j + 1) * n])}
+        x = _block(x, lw, cfg, positions, cfg.layer_window(first + j),
+                   attn_impl)
+    return x
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig, *,
+            attn_impl: str = "ref") -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, V) in ``cfg.dtype``, from the
+    parameter dict ``params`` (the reference's pytree; leaves may require
+    gradients).  Each layer, or an alternating stack's local/global pair,
+    runs under ``torch.utils.checkpoint`` when ``cfg.remat`` is set."""
+    from torch.utils.checkpoint import checkpoint
+
+    if cfg.has_local and cfg.n_layers == 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the one-layer alternating stack (the reference's "
+            "dry-run calibration variant) is not ported")
+    x = _embed(params["embed"], tokens, cfg)
+    positions = _positions(tokens)
+    names = sorted(params["layers"])
+    slices = [params["layers"][k].unbind(0) for k in names]
+    step = 2 if cfg.has_local else 1
+    remat_kw = _remat_kwargs(cfg) if cfg.remat else None
+    for first in range(0, cfg.n_layers, step):
+        weights = [s[i] for i in range(first, first + step) for s in slices]
+        fn = partial(_unit, cfg, attn_impl, names, first, positions)
+        if remat_kw is None:
+            x = fn(x, *weights)
+        else:
+            x = checkpoint(fn, x, *weights, use_reentrant=False, **remat_kw)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return _logits(x, params["final_norm"], head, cfg)
+
+
+def loss_fn(params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: LMConfig, *, attn_impl: str = "ref") -> torch.Tensor:
+    """Mean next-token cross-entropy: float32 logits, logsumexp minus the
+    gold logit, averaged over (B, S), as the reference's ``loss_fn``."""
+    logits = forward(params, tokens, cfg, attn_impl=attn_impl).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -475,58 +641,35 @@ class TransformerLM(nn.Module):
             raise ValueError(f"unknown layer parameters {sorted(unknown)}")
         self.layers = nn.ParameterDict(
             {k: frozen(v) for k, v in params["layers"].items()})
-        # sqrt(d_model) rounded to the compute dtype, as the reference
-        # scales by a scalar of that dtype
-        self._embed_mult = float(torch.tensor(cfg.d_model ** 0.5,
-                                              dtype=cfg.dtype))
 
     # -- pieces ---------------------------------------------------------------
     def _layer(self, i: int) -> Dict:
         return {k: p[i].to(self.cfg.dtype) for k, p in self.layers.items()}
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens.long()].to(self.cfg.dtype)
-        if self.cfg.embed_scale:
-            x = x * self._embed_mult
-        return x
+        return _embed(self.embed, tokens, self.cfg)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and LM head, without the final softcap."""
         cfg = self.cfg
         x = rms_norm(x, self.final_norm.to(cfg.dtype), cfg.norm_eps)
         head = self.embed.T if self.lm_head is None else self.lm_head
         return x @ head.to(cfg.dtype)
 
     def _ffn(self, x: torch.Tensor, lw: Dict) -> torch.Tensor:
-        """The FFN half of a layer, residual included: the experts over the
-        flattened tokens of x (B, S, D), or the dense FFN."""
-        cfg = self.cfg
-        h = rms_norm(x, lw["ln_mlp"], cfg.norm_eps)
-        if cfg.is_moe:
-            return x + moe_ffn(h.reshape(-1, h.shape[-1]), lw,
-                               cfg).view(h.shape)
-        return x + dense_ffn(h, lw, cfg)
-
-    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
-        B, S = tokens.shape
-        return torch.arange(S, dtype=torch.int32,
-                            device=tokens.device)[None].expand(B, S)
+        return _ffn(x, lw, self.cfg)
 
     # -- entry points ---------------------------------------------------------
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) int -> logits (B, S, V) in ``cfg.dtype``."""
         cfg = self.cfg
         x = self._embed(tokens)
-        positions = self._positions(tokens)
+        positions = _positions(tokens)
         for i in range(cfg.n_layers):
-            lw = self._layer(i)
-            h = rms_norm(x, lw["ln_attn"], cfg.norm_eps)
-            x = x + attention(h, lw, cfg, positions,
-                              local=cfg.layer_window(i) > 0)
-            x = self._ffn(x, lw)
-        logits = self._head(x)
-        if cfg.final_softcap > 0:   # in place: the (B, S, V) logits once
-            logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
-        return logits
+            x = _block(x, self._layer(i), cfg, positions,
+                       cfg.layer_window(i))
+        head = self.embed.T if self.lm_head is None else self.lm_head
+        return _logits(x, self.final_norm, head, cfg)
 
     def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         """Serving prefill: last-position logits (B, V) float32 and the KV
@@ -536,7 +679,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         B, S = tokens.shape
         x = self._embed(tokens)
-        positions = self._positions(tokens)
+        positions = _positions(tokens)
         shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
         ks = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
         vs = torch.empty_like(ks)

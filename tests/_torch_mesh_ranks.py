@@ -744,3 +744,40 @@ def load_results(run_dir: str, world: int) -> list:
         with open(os.path.join(run_dir, f"rank{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+def grad_rank(rank: int, world: int, run_dir: str) -> None:
+    """One rank of ``test_torch_optimizer.py``'s compressor test: its
+    gradient tree and residual from ``job.pkl``, ``compressed_psum`` and
+    ``reduce_scatter_grads`` over the gloo group; results to
+    ``rank{rank}.pkl``."""
+    import torch
+    torch.set_num_threads(1)
+    res = {"rank": rank}
+    code = 0
+    try:
+        from repro_torch.distributed import collectives as C
+        from repro_torch.distributed.ranks import (close_shard_mesh,
+                                                   init_shard_mesh)
+        with open(os.path.join(run_dir, "job.pkl"), "rb") as f:
+            job = pickle.load(f)
+        init_shard_mesh(rank, world, init_file=os.path.join(run_dir, "rdzv"),
+                        backend="gloo", device="cpu")
+        try:
+            grads = {k: torch.from_numpy(v) for k, v in
+                     job["grads"][rank].items()}
+            resid = {k: torch.from_numpy(v) for k, v in
+                     job["res"][rank].items()}
+            mean, new_res = C.compressed_psum(grads, resid)
+            rs = C.reduce_scatter_grads(grads)
+            res.update(mean={k: v.numpy() for k, v in mean.items()},
+                       res={k: v.numpy() for k, v in new_res.items()},
+                       rs={k: v.numpy() for k, v in rs.items()})
+        finally:
+            close_shard_mesh()
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        code = 1
+    with open(os.path.join(run_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    sys.exit(code)

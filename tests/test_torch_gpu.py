@@ -16,7 +16,10 @@ multi-process rendering's ranks on the card (two gloo ranks sharing it,
 one NCCL rank), against the stacked store on the card, and one NCCL
 rank's WAL, audits and recovery onto the card.  The MoE FFN and MIND on
 the card are held to the same functions on CPU tensors (float32 without
-TF32: 1e-4; histories bit for bit).  This module
+TF32: 1e-4; histories bit for bit).  Kernel 10's backward is held to
+``attention_bwd_ref`` (1e-4 in float32, 2e-2 in bfloat16: one rounding of
+either output) and to itself bit for bit, and a train step on the card to
+the same step on the CPU.  This module
 imports no JAX (the card's machine has none): ``ATTN_CASES`` is shared with
 the CPU parity test.
 """
@@ -57,8 +60,10 @@ from repro_torch.kernels.slab_update import (insert_edges_ref, slab_commit,
 from repro_torch.kernels.embedding_bag import embedding_bag, \
     embedding_bag_ref
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
-from repro_torch.kernels.flash_attention import attention_ref, \
-    flash_attention
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_lse_ref,
+                                                 attention_ref,
+                                                 flash_attention)
 from repro_torch.kernels.flash_attention import kernel as attn_kernel
 from repro_torch.models.transformer import (LMConfig, TransformerLM,
                                             init_cache, init_params)
@@ -970,6 +975,52 @@ def test_embedding_bag_matches_plain(cuda, B, L, D, dtype, table):
     assert not got[:n_pad].any()
 
 
+@pytest.mark.parametrize("case", ATTN_CASES + [GEMMA2_CASE],
+                         ids=[f"attn{i}" for i in range(len(ATTN_CASES))]
+                         + ["gemma2"])
+def test_flash_attention_backward_matches_plain(cuda, case):
+    """The forward with ``lse`` (the same output bits as without, ``lse``
+    the plain version's), then the backward kernel through the op's
+    autograd against ``attention_bwd_ref`` on the same (q, k, v, o, lse,
+    dO), and a second backward launch bit-equal to the first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    *_, causal, window, softcap, dtype, extra = case
+    q, k, v = _attn_inputs(case, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(5), device=cuda).to(q.dtype)
+    D, Skv = q.shape[-1], k.shape[2]
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=extra.get("sm_scale", D ** -0.5),
+              kv_len=extra.get("kv_len", Skv))
+    o, lse = attn_kernel.flash_attention_cuda(q, k, v, lse=True, **kw)
+    assert torch.equal(o, attn_kernel.flash_attention_cuda(q, k, v, **kw))
+    want_lse = attention_lse_ref(q, k, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[fin], want_lse[fin], atol=1e-5,
+                               rtol=1e-5)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(runtime.LAUNCHES)
+    out = flash_attention(*ts, **kw)
+    grads = torch.autograd.grad(out, ts, do)
+    assert runtime.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert runtime.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert torch.equal(out.detach(), o)
+    want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    again = attn_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for name, g, w, a in zip(("dq", "dk", "dv"), grads, want, again):
+        assert g.dtype == q.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol,
+                                   msg=name)
+        assert torch.equal(g, a), f"{name}: two launches differ"
+    if extra.get("kv_len") == 0:
+        assert not any(g.any() for g in grads)
+
+
 def test_unbuildable_kernel_raises(cuda, tmp_path, monkeypatch):
     """A kernel that does not build raises on CUDA tensors; the op does not
     fall back to its plain version."""
@@ -982,6 +1033,22 @@ def test_unbuildable_kernel_raises(cuda, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         flash_attention(q, k, v)
     assert runtime.LAUNCHES["flash_attention"] == before
+
+
+def test_unbuildable_backward_raises(cuda, tmp_path, monkeypatch):
+    """A backward kernel that does not build raises from the op's backward
+    on CUDA tensors; nothing falls back to the plain version."""
+    (tmp_path / "flash_attention_bwd.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(runtime, "CSRC", tmp_path)
+    monkeypatch.setattr(runtime, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(runtime._libs, "flash_attention_bwd", raising=False)
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(ATTN_CASES[0], cuda))
+    runtime.library("flash_attention")        # the forward is built already
+    out = flash_attention(q, k, v)
+    before = runtime.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        out.sum().backward()
+    assert runtime.LAUNCHES["flash_attention_bwd"] == before
 
 
 class _RefusedLaunch:
@@ -997,12 +1064,17 @@ class _RefusedLaunch:
 def test_failed_launch_raises(cuda, monkeypatch):
     """A launch the card refuses raises, counts no launch and falls back to
     nothing."""
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(ATTN_CASES[0], cuda))
+    out = flash_attention(q, k, v)
     monkeypatch.setattr(attn_kernel, "_lib", _RefusedLaunch)
+    monkeypatch.setattr(attn_kernel, "_bwd_lib", _RefusedLaunch)
     monkeypatch.setattr(bag_kernel, "_lib", _RefusedLaunch)
-    q, k, v = _attn_inputs(ATTN_CASES[0], cuda)
     before = dict(runtime.LAUNCHES)
     with pytest.raises(RuntimeError, match="flash_attention launch failed"):
         flash_attention(q, k, v)
+    with pytest.raises(RuntimeError,
+                       match="flash_attention_bwd launch failed"):
+        out.sum().backward()
     idx = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="embedding_bag launch failed"):
         embedding_bag(idx, torch.ones((4, 3), device=cuda),
@@ -1043,6 +1115,54 @@ def test_lm_on_card_matches_cpu(cuda):
         logits, cache = card.decode_step(cache, toks[:, pos].to(cuda), pos)
         torch.testing.assert_close(logits, full[:, pos], atol=1e-4,
                                    rtol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """gemma2-9b's smoke config at head_dim 64 (the kernels' smallest),
+    float32: one train step of 2 microbatches with remat on the card,
+    through kernel 10's forward and backward (launched 2 x layers x
+    microbatches and layers x microbatches times), against the same step
+    on the CPU through ``attention_ref``'s autograd; the same step twice on
+    the card is bit-equal.  The serving model's outputs carry no autograd
+    record."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree as ttree
+    from repro_torch.launch.steps import build_lm_train_step
+    from repro_torch.train import optimizer as opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("gemma2-9b").smoke_config(),
+                              head_dim=64, sliding_window=16)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 65)))
+    t, l = toks[:, :-1], toks[:, 1:]
+    step = build_lm_train_step(cfg, n_microbatches=2)
+    want_p, want_s, want_l = step(params, opt.init(params), t, l)
+    card = ttree.tree_map(lambda x: x.to(cuda), params)
+    runs = []
+    for _ in range(2):
+        before = dict(runtime.LAUNCHES)
+        runs.append(step(card, opt.init(card), t.to(cuda), l.to(cuda)))
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["flash_attention"] - \
+            before["flash_attention"] == 2 * cfg.n_layers * 2
+        assert runtime.LAUNCHES["flash_attention_bwd"] - \
+            before["flash_attention_bwd"] == cfg.n_layers * 2
+    got_p, got_s, got_l = runs[0]
+    torch.testing.assert_close(got_l.cpu(), want_l, atol=1e-5, rtol=1e-5)
+    for a, b in zip(ttree.tree_leaves((got_p, got_s)),
+                    ttree.tree_leaves((want_p, want_s))):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-5, rtol=1e-4)
+    for a, b in zip(ttree.tree_leaves(runs[0]), ttree.tree_leaves(runs[1])):
+        assert torch.equal(a, b)
+    model = TransformerLM(cfg, card)
+    out = model(t.to(cuda))
+    logits, cache = model.prefill(t.to(cuda))
+    lg, cache = model.decode_step(cache, l[:, -1].to(cuda), 0)
+    assert all(x.grad_fn is None and not x.requires_grad
+               for x in [out, logits, lg, *cache.values()])
 
 
 def test_moe_on_card_matches_cpu(cuda):

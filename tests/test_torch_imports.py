@@ -8,7 +8,9 @@ plane's multi-process rendering runs on a one-rank gloo mesh (placement
 with a WAL and audits attached, an epoch, a query, the fixpoints, the
 triangle count, a checkpoint), a MoE smoke model's forward and MIND's
 scores over histories from the graph, with ``torch.distributed`` and
-nothing of JAX."""
+nothing of JAX; and the training modules (``train/*``, ``launch/train.py``,
+the chunked attention) train a smoke LM two steps through the loop, with a
+checkpoint, and take a MIND train step."""
 import subprocess
 import sys
 from pathlib import Path
@@ -64,6 +66,20 @@ ranks.close_shard_mesh()
 cfg = get_arch("qwen3-moe-30b-a3b").smoke_config()
 lm = tfm.TransformerLM(cfg, tfm.init_params(cfg, torch.Generator()))
 assert lm(torch.zeros((1, 8), dtype=torch.long)).shape == (1, 8, 128)
+from repro_torch.launch import steps
+from repro_torch.train import loop, optimizer
+gcfg = get_arch("gemma2-9b").smoke_config()
+gp = tfm.init_params(gcfg, torch.Generator())
+toks = torch.randint(0, 128, (2, 9), generator=torch.Generator())
+batches = iter([(toks[:, :-1], toks[:, 1:])] * 2)
+out = loop.train(steps.build_lm_train_step(gcfg, attn_impl="chunked"), gp,
+                 optimizer.init(gp), batches,
+                 ckpt_dir=os.path.join(tmp, "train"), max_steps=2,
+                 log=lambda *a: None)
+assert len(out["losses"]) == 2
+mp = mind.init_params(mcfg, torch.Generator())
+steps.build_mind_train_step(mcfg)(mp, optimizer.init(mp), hist, mask,
+                                  torch.arange(3))
 assert "torch.distributed" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
@@ -77,7 +93,12 @@ missing = sorted({"repro_torch.obs.health", "repro_torch.obs.instrument",
                   "repro_torch.models.recsys.mind",
                   "repro_torch.configs.phi35_moe",
                   "repro_torch.configs.qwen3_moe",
-                  "repro_torch.configs.mind"} - set(names))
+                  "repro_torch.configs.mind",
+                  "repro_torch.core.tree",
+                  "repro_torch.train.optimizer", "repro_torch.train.loop",
+                  "repro_torch.launch.train",
+                  "repro_torch.kernels.flash_attention.chunked"}
+                 - set(names))
 print(len(names), missing, bad)
 """
 

@@ -281,8 +281,10 @@ def build(names, variants, parents=()):
 
 def load(path):
     lib = ctypes.CDLL(path)
+    # the trailing lse pointer (null here) is ignored by builds before it
     lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                                    + [ctypes.c_float] * 2
+                                    + [ctypes.c_void_p] * 2)
     lib.flash_attention.restype = ctypes.c_int
     return lib
 
@@ -300,7 +302,7 @@ def launcher(torch, lib):
             int(window),
             int(Skv if kv_len is None else min(kv_len, Skv)), float(softcap),
             float(D ** -0.5 if sm_scale is None else sm_scale),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, None)
         if rc:
             raise RuntimeError(f"launch failed with code {rc}")
         return out

@@ -42,9 +42,12 @@ def main(argv=None) -> int:
     if args.kernels_from is not None:
         runtime.CSRC = args.kernels_from / "src" / "repro_torch" / "csrc"
     print(cs.gpu_line(), flush=True)
-    built = runtime.build(verbose=True)
+    built = runtime.build(tuple(n for n in runtime.SOURCES
+                                if (runtime.CSRC / f"{n}.cu").is_file()),
+                          verbose=True)
     try:
-        cs.lm_phase(torch, np, built["flash_attention"], seed=args.seed)
+        cs.lm_phase(torch, np, built["flash_attention"],
+                    built.get("flash_attention_bwd"), seed=args.seed)
     except cs.SmokeFailure as e:
         print(f"lm_gate: seed {args.seed}: a gate failed: {e}", flush=True)
         return 1
