@@ -2857,11 +2857,12 @@ def triangles_phase(torch, np) -> dict:
 # ----------------------------------------------------------------------------
 
 #: the instantiations of the attention kernels in a ptxas log: the
-#: forward's ``attn_<dtype>_kernel<D>`` and the backward's
-#: ``attn_bwd_<part>_kernel<T, D>``
+#: forward's ``attn_<dtype>_kernel<D>`` and the backward's: delta and the
+#: reduction ``attn_bwd_<part>_kernel<T, D...>``, the dK/dV and dQ passes
+#: ``attn_bwd_<part>_<tc|f32>_kernel<D>`` (tc: the bf16 tensor-core form)
 ATTN_FWD_NAME = r"attn_(bf16|f32)_kernelILi(\d+)E"
-ATTN_BWD_NAME = (r"attn_bwd_(delta|dkdv|dq)_kernelI(f|13__nv_bfloat16)"
-                 r"Li(\d+)E")
+ATTN_BWD_NAME = (r"attn_bwd_(?:(delta|reduce)_kernelI(f|13__nv_bfloat16)"
+                 r"|(dkdv|dq)_(tc|f32)_kernelI)Li(\d+)E")
 
 
 def attention_build_readings(runtime, built: dict,
@@ -2880,8 +2881,12 @@ def attention_build_readings(runtime, built: dict,
             cur = None
             name = re.search(pattern, m.group(1))
             if name:
-                key = " ".join(g.replace("13__nv_bfloat16", "bf16")
-                               for g in name.groups()[:-1])
+                groups = [g for g in name.groups()[:-1] if g]
+                if pattern != ATTN_FWD_NAME:
+                    # the backward's dtype as "bf16" or "f" (float32)
+                    groups = [{"13__nv_bfloat16": "bf16", "tc": "bf16",
+                               "f32": "f"}.get(g, g) for g in groups]
+                key = " ".join(groups)
                 cur = kernels.setdefault(f"{key} D={name.groups()[-1]}",
                                          {"mangled": m.group(1)})
             continue
@@ -2913,8 +2918,9 @@ def attention_build_readings(runtime, built: dict,
 def check_attention_build(runtime, built: dict, built_bwd=None) -> None:
     """Every instantiation of the attention kernel (bf16 and float32,
     head_dim 64, 128, 256) builds with no spill; the bf16 ones run on the
-    tensor cores.  So does every one of its backward's three kernels (on
-    the CUDA cores), given ``built_bwd``.  Prints each one's registers."""
+    tensor cores.  So does every one of its backward's four kernels, given
+    ``built_bwd``: no spill, and the bf16 dK/dV and dQ passes on the tensor
+    cores (HGMMA).  Prints each one's registers."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     kernels = attention_build_readings(runtime, built)
@@ -2922,7 +2928,7 @@ def check_attention_build(runtime, built: dict, built_bwd=None) -> None:
         runtime, built_bwd, ATTN_BWD_NAME)
     emit({"phase": "lm_attention_build", "kernels": kernels,
           "backward": bwd})
-    for part in ("delta", "dkdv", "dq") if built_bwd is not None else ():
+    for part in BWD_PARTS if built_bwd is not None else ():
         for dtype in ("bf16", "f"):
             for D in HEAD_DIMS:
                 r = bwd.get(f"{part} {dtype} D={D}")
@@ -2933,6 +2939,10 @@ def check_attention_build(runtime, built: dict, built_bwd=None) -> None:
                       and r.get("spill_load_bytes") == 0,
                       f"the backward {part} kernel ({dtype}) spills at "
                       f"head_dim {D}: {r}")
+                if dtype == "bf16" and part in ("dkdv", "dq"):
+                    check(r.get("tensor_core_instructions", 0) > 0,
+                          f"the bf16 backward {part} kernel's SASS holds "
+                          f"no HGMMA at head_dim {D}")
     for dtype in ("bf16", "f32"):
         for D in HEAD_DIMS:
             r = kernels.get(f"{dtype} D={D}")
@@ -3844,8 +3854,19 @@ STEP_TOL = (1e-4, 1e-3)
 #: MIND's train phase: steps at train_batch, and the users of the slice
 #: held against a step on CPU copies (float32 without TF32)
 MIND_TRAIN_STEPS, MIND_CPU_USERS = 3, 4096
-#: a planted fault's key tile: the backward kernels' 32-key tiles
-BWD_KEY_TILE = 32
+#: a planted fault's tile, per dtype: the dK/dV pass's key tile and its
+#: units' query tile (64 x 64 in bf16, 32 x 32 in float32)
+BWD_KEY_TILE = {"bfloat16": 64, "float32": 32}
+#: the backward's split by launch at gemma-2b's training shape before its
+#: redesign (the CUDA-core kernels: delta, dK/dV on a grid of 128 key
+#: tiles, dQ; no reduction), device ms from ``bwd_split_ms`` on random
+#: inputs, one H100 80GB HBM3 at 700.00 W (tools/attention_bwd_probe.py on
+#: that checkout; a recorded constant, not a reading of the run)
+BWD_SPLIT_MS_BEFORE_REDESIGN = {
+    "bfloat16": {"delta": 0.0157, "dkdv": 11.786, "dq": 4.891,
+                 "total_ms": 16.699},
+    "float32": {"delta": 0.0268, "dkdv": 11.944, "dq": 5.052,
+                "total_ms": 17.033}}
 
 
 def bwd_readings(torch, got, want, tol) -> dict:
@@ -3870,9 +3891,10 @@ def bwd_readings(torch, got, want, tol) -> dict:
 def faulty_bwd(torch, q, k, v, o, lse, do, *, fault, causal, window,
                softcap, sm_scale, kv_len):
     """attention_bwd_ref's formulas in float32 with a planted fault:
-    ``tile_dropped`` (the dK/dV kernel skips one query tile of one key
-    tile's band: the middle key tile's diagonal tile), ``softcap_derivative``
-    (dS without 1 - tanh^2) or ``delta`` (dS = P dP)."""
+    ``tile_dropped`` (the dK/dV pass skips one unit of one key tile: the
+    middle key tile's diagonal tile, ``BWD_KEY_TILE`` of q's dtype),
+    ``softcap_derivative`` (dS without 1 - tanh^2) or ``delta`` (dS =
+    P dP)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -3905,9 +3927,11 @@ def faulty_bwd(torch, q, k, v, o, lse, do, *, fault, causal, window,
     ds = ds * sm_scale
     pk, dsk = p, ds
     if fault == "tile_dropped":
-        c = min(Sq, Skv) // 2 // BWD_KEY_TILE * BWD_KEY_TILE
+        t = BWD_KEY_TILE["bfloat16" if q.dtype == torch.bfloat16
+                         else "float32"]
+        c = min(Sq, Skv) // 2 // t * t
         drop = torch.zeros_like(mask)
-        drop[c:c + BWD_KEY_TILE, c:c + BWD_KEY_TILE] = True
+        drop[c:c + t, c:c + t] = True
         pk, dsk = p.masked_fill(drop, 0.0), ds.masked_fill(drop, 0.0)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk)
     fold = (B, Hkv, g, Skv, D)
@@ -4017,9 +4041,12 @@ def bwd_check(torch, name: str, q, k, v, kw, *, do=None, o=None, lse=None,
                   f"the backward tolerance passes the softcap derivative's "
                   f"fault on {name} ({tag}) with q scaled")
 
-        # times: the kernel, the plain version, SDPA's backward
-        ms = device_ms(torch, lambda: flash_attention_bwd_cuda(
-            qd, kd, vd, od, ld, dod, **full), samples=samples)
+        # times: the kernel and its launches, the plain version, SDPA's
+        # backward
+        def kernel():
+            return flash_attention_bwd_cuda(qd, kd, vd, od, ld, dod, **full)
+        ms = device_ms(torch, kernel, samples=samples)
+        split = bwd_split_ms(torch, kernel, reps=2 if samples < 10 else 5)
         plain_ms = time_ms(torch, lambda: plain_bwd(
             torch, qd, kd, vd, od, ld, dod, full, kv_chunk=kv_chunk),
             warmup=1, reps=3)
@@ -4044,8 +4071,15 @@ def bwd_check(torch, name: str, q, k, v, kw, *, do=None, o=None, lse=None,
             window=window, softcap=softcap,
             shape={"q": list(q.shape), "kv": list(k.shape)},
             max_abs_err=max(clean[n]["max_abs"] for n in ("dq", "dk", "dv")),
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            ms=ms, split_ms=split, plain_ms=plain_ms, library_ms=library_ms,
             library=library_what, pairs_per_head=pairs,
+            # the flops a pair the kernels spend against the bound's 10·D
+            # (both dtypes compute S and dP twice; bf16 also doubles dV, dK
+            # and dQ, whose P and dS operands are hi + lo)
+            flops_per_pair_spent=(20 if dt == torch.bfloat16 else 14) * D,
+            **({"split_ms_before_redesign":
+                BWD_SPLIT_MS_BEFORE_REDESIGN[tag]}
+               if name == "gemma-2b layer 0" else {}),
             **bound(n_bytes, pairs * B * Hq * 10 * D,
                     ops_per_s=BF16_OPS_PER_S if dt == torch.bfloat16
                     else F32_OPS_PER_S)))
@@ -4054,6 +4088,41 @@ def bwd_check(torch, name: str, q, k, v, kw, *, do=None, o=None, lse=None,
     for r in rows:
         emit({"phase": "train_kernels", **r})
     return rows
+
+
+#: kernel 10's backward launches, by the part their names carry
+#: (``attn_bwd_<part>_...``): delta, the dK/dV pass, its reduction (from
+#: the work-list form on) and dQ
+BWD_PARTS = ("delta", "dkdv", "reduce", "dq")
+
+
+def bwd_split_ms(torch, fn, reps: int = 5):
+    """Device ms that one call of ``fn`` (a backward launch) spends in each
+    of its kernels (``BWD_PARTS``; each launches at most once a call): the
+    mean over the launches of each that ``torch.profiler`` recorded in
+    ``reps`` calls after a warm one (the trace has been seen to drop a
+    call's events); None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(BWD_PARTS, 0.0)
+    seen = dict.fromkeys(BWD_PARTS, 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"attn_bwd_(delta|dkdv|reduce|dq)_", e.name)
+        if m:
+            total[m.group(1)] += e.self_device_time_total / 1e3
+            seen[m.group(1)] += 1
+    if not any(seen.values()):
+        return None
+    return {p: total[p] / seen[p] if seen[p] else 0.0 for p in BWD_PARTS}
 
 
 def profile_split(torch, fn) -> dict:

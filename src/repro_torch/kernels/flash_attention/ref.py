@@ -20,6 +20,23 @@ from typing import Optional, Tuple
 import torch
 
 
+def visibility(Sq: int, Skv: int, *, causal: bool, window: int,
+               kv_len: Optional[int] = None, device=None) -> torch.Tensor:
+    """The (Sq, Skv) bool mask of the (query, key) pairs attention sees:
+    query i sees key j when j < kv_len, i >= j (causal) and i - j < window
+    (window > 0), absolute indices from 0."""
+    if kv_len is None:
+        kv_len = Skv
+    qi = torch.arange(Sq, device=device)[:, None]
+    kj = torch.arange(Skv, device=device)[None, :]
+    mask = (kj < kv_len).expand(Sq, Skv)
+    if causal:
+        mask = mask & (qi >= kj)
+    if window > 0:
+        mask = mask & ((qi - kj) < window)
+    return mask
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool, window: int,
             sm_scale: Optional[float], kv_len: Optional[int]):
     """(scaled scores (B, Hq, Sq, Skv) float32, visibility mask (Sq, Skv),
@@ -29,17 +46,10 @@ def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool, window: int,
     Hkv, Skv = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = D ** -0.5
-    if kv_len is None:
-        kv_len = Skv
     kk = k.float().repeat_interleave(Hq // Hkv, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk)
-    qi = torch.arange(Sq, device=q.device)[:, None]
-    kj = torch.arange(Skv, device=q.device)[None, :]
-    mask = (kj < kv_len).expand(Sq, Skv)
-    if causal:
-        mask = mask & (qi >= kj)
-    if window > 0:
-        mask = mask & ((qi - kj) < window)
+    mask = visibility(Sq, Skv, causal=causal, window=window, kv_len=kv_len,
+                      device=q.device)
     return s, mask, sm_scale
 
 

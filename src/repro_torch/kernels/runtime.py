@@ -3,8 +3,9 @@
 Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 libraries go to ``build/repro_torch/`` at the root of the checkout (ignored
-by git), named by a hash of their source, so an edited source is rebuilt and
-an unchanged one is reused.  Nothing is built when a module is imported: the
+by git), named by a hash of their source and the local headers it includes
+(``#include "..."``, found beside it), so an edited source or header is
+rebuilt and an unchanged one is reused.  Nothing is built when a module is imported: the
 first launch of a kernel builds its library, and ``build()`` builds all of
 them at once (one ``nvcc`` per source, all started together).
 
@@ -17,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -59,9 +61,26 @@ def nvcc() -> str:
     return found
 
 
+def _sources(path: Path) -> List[Path]:
+    """``path`` and the local headers it includes, directly or through
+    another header, each once, in the order they are first included."""
+    seen: List[Path] = []
+    todo = [path]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        todo += [p.parent / h for h in re.findall(
+            r'^\s*#\s*include\s*"([^"]+)"', p.read_text(), re.MULTILINE)
+            if (p.parent / h).is_file()]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in _sources(CSRC / f"{name}.cu")) +
+        " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

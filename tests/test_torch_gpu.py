@@ -896,6 +896,23 @@ ATTN_CASES = [
 # gemma2-9b's attention at a card-sized length: bf16, head_dim 256, GQA
 # 16/8, a window and softcap 50, and a ragged length (not a tile multiple)
 GEMMA2_CASE = (2, 16, 8, 1000, 1000, 256, True, 256, 50.0, "bfloat16", {})
+# the backward's work-list edges: MQA 8/1 at head_dim 256 over 1,000 tokens
+# (no multiple of the 64- or 32-key tiles; many items share a key tile),
+# with a window and softcap, and Sq != Skv under a window (more queries
+# than keys; fewer, non-causal, kv_len inside a tile), in both dtypes
+BWD_EDGE_CASES = [
+    (1, 8, 1, 1000, 1000, 256, True, 0, 0.0, "bfloat16", {}),
+    (1, 8, 1, 1000, 1000, 256, True, 300, 50.0, "bfloat16", {}),
+    (1, 4, 2, 700, 333, 128, True, 150, 0.0, "bfloat16", {}),
+    (1, 4, 2, 333, 700, 64, False, 90, 30.0, "bfloat16", {"kv_len": 650}),
+    (1, 8, 1, 1000, 1000, 256, True, 0, 0.0, "float32", {}),
+    (1, 4, 2, 700, 333, 128, True, 150, 0.0, "float32", {}),
+    (1, 4, 2, 333, 700, 64, False, 90, 30.0, "float32", {"kv_len": 650}),
+]
+#: the backward in bf16 against attention_bwd_ref, per output:
+#: |kernel - plain| <= atol_rel * max|plain| + rtol * |plain|
+#: (chip_smoke.py's BWD_TOL)
+BWD_BF16_TOL = (1e-3, 2e-2)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -975,14 +992,16 @@ def test_embedding_bag_matches_plain(cuda, B, L, D, dtype, table):
     assert not got[:n_pad].any()
 
 
-@pytest.mark.parametrize("case", ATTN_CASES + [GEMMA2_CASE],
+@pytest.mark.parametrize("case", ATTN_CASES + [GEMMA2_CASE] + BWD_EDGE_CASES,
                          ids=[f"attn{i}" for i in range(len(ATTN_CASES))]
-                         + ["gemma2"])
+                         + ["gemma2"] + [f"bwd_edge{i}" for i in
+                                         range(len(BWD_EDGE_CASES))])
 def test_flash_attention_backward_matches_plain(cuda, case):
     """The forward with ``lse`` (the same output bits as without, ``lse``
     the plain version's), then the backward kernel through the op's
     autograd against ``attention_bwd_ref`` on the same (q, k, v, o, lse,
-    dO), and a second backward launch bit-equal to the first."""
+    dO), within ``BWD_BF16_TOL`` in bf16 and 1e-4 in float32, and a
+    second backward launch bit-equal to the first."""
     torch.backends.cuda.matmul.allow_tf32 = False
     *_, causal, window, softcap, dtype, extra = case
     q, k, v = _attn_inputs(case, cuda)
@@ -1011,12 +1030,19 @@ def test_flash_attention_backward_matches_plain(cuda, case):
     want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
     again = attn_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    tol = 2e-2 if dtype == "bfloat16" else 1e-4
     for name, g, w, a in zip(("dq", "dk", "dv"), grads, want, again):
         assert g.dtype == q.dtype and g.shape == w.shape, name
-        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol,
-                                   msg=name)
         assert torch.equal(g, a), f"{name}: two launches differ"
+        gf, wf = g.float(), w.float()
+        if dtype == "bfloat16":
+            atol_rel, rtol = BWD_BF16_TOL
+            err = (gf - wf).abs()
+            assert not (err > atol_rel * wf.abs().max()
+                        + rtol * wf.abs()).any(), \
+                (name, float(err.max()), float(wf.abs().max()))
+        else:
+            torch.testing.assert_close(gf, wf, atol=1e-4, rtol=1e-4,
+                                       msg=name)
     if extra.get("kv_len") == 0:
         assert not any(g.any() for g in grads)
 
