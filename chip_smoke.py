@@ -5,7 +5,7 @@
 
 Six phases, each printing JSON lines (the third with the iterators, MIND,
 the durability, the sharded and the mesh phases after it, the fifth with
-the MoE LM and the training phase after it):
+the MoE LM, the training and the GNN phases after it):
 
 1. **build** - compile the CUDA sources under ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
@@ -36,6 +36,15 @@ the MoE LM and the training phase after it):
    longest run (``deg_runs``, ``deg_vertices``, ``longest_run``), and times
    the same kernel on a plan of the same size with every entry parked
    (``parked_ms``: no store and no atomic, the kernel's own fixed cost).
+   Kernel 4, PageRank's contribution sums (``kernels/slab_pagerank``: no
+   kernel of its own, kernel 3's ``sum`` launch behind an op that refuses
+   unpacked rows; not on the serve, whose PageRank sweeps through kernel
+   3), is driven as a path of its own: one call of its op on the served
+   transpose pool with PageRank's contributions, the launch counts zeroed
+   just before and read just after (the ``kernels`` line's launches),
+   held to its plain version, timed as its launch on the device alone
+   (``ms``) and per call of the op with its row check (``op_ms``), and it
+   must refuse a copy of the pool with one row unpacked.
 3. **serve** - the port's ``launch.serve`` on the card at RMAT scale 20
    (1,048,576 vertices, 2**24 generated edges, 65,536-edge update batches
    with 25% deletes, 15 requests cycling update, PageRank, BFS and WCC
@@ -165,11 +174,11 @@ the MoE LM and the training phase after it):
    generator) serves two prompts
    of 8,192 tokens (``lm_batches``, seed 0): request 1 is the prefill
    through ``build_lm_prefill_step`` (one ``flash_attention`` launch per
-   layer), requests 2-129 are 128 greedy decode steps through
-   ``build_lm_decode_step`` against a cache of 8,320 slots seeded from the
+   layer), requests 2-33 are 32 greedy decode steps through
+   ``build_lm_decode_step`` against a cache of 8,224 slots seeded from the
    prefill's.  The launch counts are zeroed just before the prefill and
    read after the last step.  Self-checks without the reference: ``forward``
-   over the 8,320 prompt and generated tokens (through the kernel) must
+   over the 8,224 prompt and generated tokens (through the kernel) must
    give the prefill's logits at position 8,191 and each decode step's at
    its position.  The same weights in float32 then serve a prefill and 16
    decode steps against a float32 forward, at a limit that the phase shows
@@ -187,7 +196,7 @@ the MoE LM and the training phase after it):
    2048, GQA 32/4, head_dim 128, QK norm, 128 experts top-8, d_ff 768,
    vocab 151,936, bf16, 30.5 G parameters from a seeded generator, drawn a
    layer at a time) serves the same two prompts of 8,192 tokens (one
-   ``flash_attention`` launch a layer in the prefill) and 128 greedy
+   ``flash_attention`` launch a layer in the prefill) and 32 greedy
    decode steps through ``launch.steps``, printing per layer the share of
    (token, expert) assignments dropped at capacity 1.25.  The prefill's
    logits must equal ``forward``'s over the same prompts within
@@ -226,6 +235,31 @@ the MoE LM and the training phase after it):
    Then MIND at its full config takes MIND_TRAIN_STEPS steps at
    train_batch (65,536 users), and one step on a 4,096-user slice is held
    to the same step on CPU copies.
+   Then **gnn**: the four GNNs (NequIP, MACE, PNA, EquiformerV2) at their
+   full configs, float32 without TF32, seeded random weights and AdamW
+   through ``build_gnn_train_step``, GNN_STEPS steps and a profiled one
+   more on each of GNN_RUNS: ``molecule`` (128 graphs of 30 atoms, 3,840
+   nodes, 8,192 edges) and ``full_graph_sm`` (2,708 nodes, 10,556 edges;
+   PNA's ``d_in`` 1,433) from the random builders, and ``minibatch_lg``
+   (169,984 nodes, 168,960 edges) for PNA, NequIP and MACE, sampled by
+   ``data.sampler.sample_khop`` (1,024 seeds, fanout (15, 10)) over the
+   ``csr_snapshot`` of the served forward view after its updates (taken
+   right after the MIND phase).  Each run prints its step ms, losses,
+   gradient norms, peak bytes and the profiled step's kernel time split
+   into gathers and scatters, matrix products and the rest; the cells that
+   do not fit one card are printed with the tensor that rules them out
+   (GNN_NOT_RUN).  Gates: at 2 layers of full width, the loss and every
+   gradient leaf on the card against the CPU's (STEP_TOL; PNA's looser, see
+   GNN_STEP_TOL), which a planted fault per model must fail (a CG block
+   with its output's m order reversed, the attention softmax over senders,
+   PNA's min replaced by its max); at full depth, the geometric models'
+   energies invariant under a seeded rotation (GNN_INV_TOL), which the CG
+   fault must fail.  Then the reference's ``examples/gnn_molecules.py``
+   loop at full width: NequIP trains 20 steps on a SlabGraph of 3,840 atoms
+   whose intra-molecule bonds are inserted (and every third step deleted)
+   through the update engine (kernels 1-2, counted), fed through
+   ``edges_from_slab`` into 8,192 edge slots, the card's edges bit-equal to
+   the CPU port's on a host copy of the pool every step.
 6. **embedding_bag** - kernel 9 through its op on MIND's table (2**21 x 64
    float32, and a bfloat16 copy) for 50-slot history bags from
    ``recsys_batches`` (B = 512 and 65,536), against its plain version and
@@ -315,8 +349,9 @@ SERVE_KERNELS = ("slab_probe", "slab_commit", "slab_sweep", "slab_live",
 INT32_MAX = 2 ** 31 - 1
 #: the LM phase: gemma2-9b serving 2 prompts of 8,192 tokens (a multiple of
 #: the 4,096-token window, so the prefill's last-window cache lines up with
-#: the decode ring) and 128 greedy tokens
-LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 128
+#: the decode ring) and 32 greedy tokens (a cut of the request count, to keep
+#: the script well inside its time limit)
+LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 32
 #: decode (and prefill) logits against forward's at the same positions.
 #: Both are bf16 serves of the same weights; each lands up to ~4.4 (mean
 #: ~0.27) from a float32 forward of those weights (the float32 oracle below,
@@ -436,7 +471,14 @@ def check(cond, what: str) -> None:
         raise SmokeFailure(what)
 
 
+#: the script's start on the host clock: each phase line carries its
+#: seconds since (``t_s``), so that a run shows where its time went
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -581,6 +623,22 @@ def swapped(module, **fns):
     finally:
         for name, fn in real.items():
             setattr(module, name, fn)
+
+
+def drawn_once(rmat_edges):
+    """``rmat_edges`` that draws each (arguments) graph once a run: the
+    serve's boots (phases 2, 3 and the sharded phase) and the triangles
+    phase draw the same RMAT scale-20 graph, ~17 s of host numpy each.
+    Later calls get copies of the first draw's arrays, so each boot still
+    builds its store from arrays of its own."""
+    drawn = {}
+
+    def draw(n_vertices, n_edges, **kw):
+        key = (n_vertices, n_edges, tuple(sorted(kw.items())))
+        if key not in drawn:
+            drawn[key] = rmat_edges(n_vertices, n_edges, **kw)
+        return tuple(a.copy() for a in drawn[key])
+    return draw
 
 
 def capture_serve_inputs(torch, np, serve_mod):
@@ -906,6 +964,10 @@ def compare_kernels(torch, got) -> list:
                 whole_row_bound_by=whole_rows["bound_by"],
                 **bound(filled * 4 + rest, filled * 2)))
 
+    # -- kernel 4: PageRank's contribution sums through their op, on the
+    # served transpose pool with PageRank's contrib ---------------------------
+    results.append(contrib_sums_row(torch, got["sweep"][("sum", False)]))
+
     # -- census: the forward view's pool at its first compaction ----------------
     keys, owner = got["live"]
     k = slab_live(keys, owner)
@@ -964,6 +1026,68 @@ def compare_kernels(torch, got) -> list:
     for r in results:
         emit({"phase": "kernels", **r})
     return results
+
+
+def contrib_sums_row(torch, cap) -> dict:
+    """Kernel 4 (``kernels/slab_pagerank``) on a captured PageRank sweep.
+    The op is not on the serve (PageRank sweeps through kernel 3's
+    ``sweep_partials``), so it is driven here as a path of its own: one
+    call of the op (``slab_contrib_sums``, which checks the rows are
+    packed, one reduction and one host read, then launches kernel 3's
+    ``sum``) with the launch counts zeroed just before and read just after
+    (``launches``: the op's own count, one, and kernel 3's, one), held to
+    ``ref.slab_contrib_sums_ref`` within SUM_RTOL of the row totals; timed
+    on the device alone as its launch (``ms``; the row check reads the host,
+    so the op is timed per call, ``op_ms``), beside the CSR product; and
+    the op must refuse a copy of the pool with one row unpacked."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.slab_pagerank import (slab_contrib_sums,
+                                                   slab_contrib_sums_ref)
+    from repro_torch.kernels.slab_sweep import slab_sweep
+
+    keys, owner, contrib = cap["keys"], cap["slab_vertex"], cap["values"]
+    n = cap["n_vertices"]
+    check(contrib.numel() == n, "PageRank's contrib is not one per vertex")
+    # pool_edges(view).valid of the captured pool
+    valid = (owner[:, None] >= 0) & (keys >= 0) & (keys < n)
+    runtime.reset_launches()
+    k = slab_contrib_sums(keys, valid, contrib)
+    torch.cuda.synchronize()
+    launched = {name: c for name, c in runtime.LAUNCHES.items() if c}
+    check(launched == {"slab_contrib_sums": 1, "slab_sweep": 1},
+          f"one call of the op launched {launched}, not kernel 3's sum once")
+    p = slab_contrib_sums_ref(keys, owner, contrib, n_vertices=n)
+    err = float((k - p).abs().max())
+    check(err <= SUM_RTOL * float(p.abs().max()) + 1e-30,
+          f"slab_contrib_sums off by {err}")
+    bad = keys.clone()
+    row = int(torch.nonzero(bad[:, 1] >= 0)[0, 0])
+    bad[row, 0] = EMPTY_KEY
+    try:
+        slab_contrib_sums(bad, valid, contrib)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "slab_contrib_sums took a pool with an unpacked row")
+    del bad
+    S = keys.shape[0]
+    filled = int(((keys != EMPTY_KEY) & (owner >= 0)[:, None]).sum())
+    a = csr_of_pool(torch, keys, owner, n)
+    library_ms = device_ms(torch, lambda: torch.mv(a, contrib))
+    del a
+    row = dict(
+        name="slab_contrib_sums", variant="PageRank contrib (transpose view)",
+        max_abs_err=err,
+        ms=device_ms(torch, lambda: slab_sweep(keys, owner, contrib,
+                                               semiring="sum", n_vertices=n)),
+        op_ms=time_ms(torch, lambda: slab_contrib_sums(keys, valid,
+                                                       contrib)),
+        plain_ms=time_ms(torch, lambda: slab_contrib_sums_ref(
+            keys, owner, contrib, n_vertices=n)),
+        library_ms=library_ms, rows=S, filled_lanes=filled,
+        refuses_unpacked_row=refused, launches=launched["slab_contrib_sums"],
+        **bound(filled * 4 + S * (4 + 4) + n * 4, filled * 2))
+    return row
 
 
 # ----------------------------------------------------------------------------
@@ -3248,7 +3372,7 @@ def decode_readings(torch, model, cache, generated, want) -> dict:
 def lm_phase(torch, np, attn_build: dict, bwd_build=None, *,
              seed: int = 0) -> dict:
     """Serve gemma2-9b at full width: a prefill of 2 prompts of 8,192 tokens
-    and 128 greedy decode steps, with the launch counts zeroed just before
+    and LM_NEW greedy decode steps, with the launch counts zeroed just before
     the prefill and read after the last step; then the self-checks and the
     kernel against its plain version.  First, the attention kernel's build
     (``attn_build``: ``runtime.build(verbose=True)``'s entry for it, with
@@ -4158,22 +4282,27 @@ def profile_split(torch, fn) -> dict:
             "profiled_wall_ms": 1e3 * wall}
 
 
-def step_readings(torch, got, want, tol=STEP_TOL) -> dict:
+def step_readings(torch, got, want, tol=STEP_TOL, floor=0.0) -> dict:
     """The loss and every leaf of ``got`` against ``want`` (trees of the
     same structure): per leaf the largest |difference| over the leaf's
     scale, and whether all lie within atol_rel * max|want| + rtol *
-    |want|."""
-    from repro_torch.core.tree import tree_leaves
+    |want|; with ``floor``, a leaf's scale is at least ``floor`` times the
+    largest leaf's.  ``worst`` names the leaf of the largest reading."""
+    from repro_torch.core.tree import flatten
 
     atol_rel, rtol = tol
-    worst, ok = 0.0, True
-    for a, b in zip(tree_leaves(got), tree_leaves(want)):
-        a, b = a.float(), b.float()
-        scale = float(b.abs().max())
+    pairs = [(path, a.float(), b.float()) for (path, a), (_, b) in
+             zip(flatten(got)[0], flatten(want)[0])]
+    top = max(float(b.abs().max()) for _, _, b in pairs)
+    worst, ok, at = 0.0, True, None
+    for path, a, b in pairs:
+        scale = max(float(b.abs().max()), floor * top)
         d = (a - b).abs()
         ok = ok and not bool((d > atol_rel * scale + rtol * b.abs()).any())
-        worst = max(worst, float(d.max()) / max(scale, 1e-30))
-    return {"close": ok, "max_rel_to_scale": worst}
+        r = float(d.max()) / max(scale, 1e-30)
+        if at is None or r > worst:
+            worst, at = r, path
+    return {"close": ok, "max_rel_to_scale": worst, "worst": at}
 
 
 def trees_equal(torch, a, b) -> bool:
@@ -4546,6 +4675,562 @@ def train_phase(torch, np, captured: dict) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# the GNN phase (after the MIND train phase)
+# ----------------------------------------------------------------------------
+
+#: the (arch, shape) runs on one card, full config and full width, each
+#: GNN_STEPS steps and a profiled one more (shapes: configs.common's
+#: GNN_SHAPES; minibatch_lg through the sampler over the served view)
+GNN_RUNS = (("nequip", "molecule"), ("mace", "molecule"),
+            ("pna", "molecule"), ("equiformer-v2", "molecule"),
+            ("nequip", "full_graph_sm"), ("mace", "full_graph_sm"),
+            ("pna", "full_graph_sm"), ("equiformer-v2", "full_graph_sm"),
+            ("pna", "minibatch_lg"), ("nequip", "minibatch_lg"),
+            ("mace", "minibatch_lg"))
+#: the cells not run, with the tensor reckoned for each from its shape
+GNN_NOT_RUN = (("equiformer-v2", "minibatch_lg"), ("pna", "ogb_products"),
+               ("nequip", "ogb_products"), ("mace", "ogb_products"),
+               ("equiformer-v2", "ogb_products"))
+GNN_STEPS = 3
+GNN_SEED = 0
+#: the step gate: 2 layers of each full config (a depth cut; full width),
+#: on 8 molecules of 30 atoms (240 nodes, 512 edges) or a feature graph of
+#: the same size, the loss and every gradient leaf on the card against the
+#: CPU's in float32 at STEP_TOL
+GNN_GATE_LAYERS, GNN_GATE_GRAPHS = 2, 8
+#: the step gate's floor, as a share of the largest gradient leaf's scale:
+#: a leaf whose gradient vanishes in exact arithmetic (MACE's (1, 1, 1)
+#: products of a vector field with itself, EquiformerV2's last attention
+#: bias under the softmax's shift invariance) carries rounding noise alone
+#: (CPU float32 against float64: 2e-12 on a zero leaf whose float64 reading
+#: is 4e-21), so each leaf is held to STEP_TOL of its scale or of this
+#: floor, whichever is larger
+GNN_LEAF_FLOOR = 1e-3
+#: the step gate's (atol over the leaf's scale, rtol) per arch: STEP_TOL,
+#: but for PNA, whose std aggregator sqrt(max(E[m^2] - E[m]^2, 1e-8))
+#: scales the rounding of a near-zero variance by 1 / (2 std): float32
+#: against float64 on the CPU differs by 1.6e-3 of a leaf's scale there,
+#: the card against the CPU by 3.4e-3 (NVIDIA H100 80GB HBM3), the planted
+#: fault by 1.16
+GNN_STEP_TOL = {"pna": (2e-2, 1e-3)}
+#: the invariance gate: each geometric full config's energies on the
+#: molecule shape's batch with each atom in a GNN_INV_BOX A box (so that
+#: its bonds lie within the 5 A cutoff), at full depth, against those of
+#: its positions under a seeded rotation, max |difference| over the
+#: energies' scale.  On the CPU (16 molecules) the clean readings were
+#: 1.0e-7 (NequIP), 1.6e-7 (MACE) and 5.2e-7 (EquiformerV2), the planted
+#: CG fault 2.3e-2 (NequIP) and 6.2e-3 (MACE); in the random builder's box
+#: (side 31 A at 3,840 nodes) most edges lie past the cutoff and the MACE
+#: fault moved the energies by 4.4e-6 alone (NVIDIA H100 80GB HBM3)
+GNN_INV_TOL, GNN_INV_BOX = 1e-5, 4.0
+#: the live loop: NequIP's full config on a SlabGraph of 128 molecules of
+#: 30 atoms (the molecule shape), GNN_LIVE_INSERTS intra-molecule bonds
+#: inserted a step, GNN_LIVE_DELETES of them deleted every third step,
+#: edges_from_slab into the molecule shape's 8,192 edge slots
+GNN_LIVE_STEPS, GNN_LIVE_INSERTS, GNN_LIVE_DELETES = 20, 512, 128
+
+
+def gnn_shape_size(shape: dict):
+    """(nodes, edges, graphs) a step of ``shape``, as the reference's
+    ``gnn_cell`` reads them."""
+    from repro_torch.configs.common import sampled_subgraph_size
+    if shape["kind"] == "train_sampled":
+        return (*sampled_subgraph_size(shape), 1)
+    if shape["kind"] == "train_batched":
+        return (shape["n_nodes"] * shape["batch"],
+                shape["n_edges"] * shape["batch"], shape["batch"])
+    return shape["n_nodes"], shape["n_edges"], 1
+
+
+def gnn_config(arch: str, shape: dict):
+    """The full config; PNA's ``d_in`` from the shape's ``d_feat``, else
+    100 (the reference's ``make_cell``)."""
+    from repro_torch.configs import get_arch
+    m = get_arch(arch)
+    if arch == "pna":
+        return m.full_config(d_in=shape.get("d_feat", 100) or 100)
+    return m.full_config()
+
+
+def gnn_not_run_bytes(arch: str, shape: dict) -> dict:
+    """The one tensor that rules a cell out of one card, from its shape:
+    an (E, ...) float32 edge tensor of the first layer, or for
+    EquiformerV2 an (N, C, (l_max + 1)^2) node tensor and an edge
+    tensor."""
+    N, E, _ = gnn_shape_size(shape)
+    cfg = gnn_config(arch, shape)
+    if arch == "pna":
+        return {"tensor": f"(E, {2 * cfg.d_hidden}) message input",
+                "bytes": E * 2 * cfg.d_hidden * 4}
+    if arch == "equiformer-v2":
+        comps = (cfg.l_max + 1) ** 2
+        return {"tensor": f"(N, {cfg.channels}, {comps}) node and (E, "
+                          f"{cfg.channels}, {comps}) edge features",
+                "bytes": N * cfg.channels * comps * 4,
+                "edge_bytes": E * cfg.channels * comps * 4}
+    return {"tensor": f"(E, {cfg.channels}, {2 * cfg.l_max + 1}) message",
+            "bytes": E * cfg.channels * (2 * cfg.l_max + 1) * 4}
+
+
+def sampled_minibatch(torch, np, graph, shape: dict) -> dict:
+    """``minibatch_lg``'s subgraph over a live view: the view's
+    ``csr_snapshot`` on the host, ``sample_khop`` from ``batch_nodes``
+    seeded seeds with the shape's fanout, each sampled id mapped to its
+    position in ``nodes`` (senders of hop k to their slot in layer k + 1,
+    receivers to ``offset_k + j // f_k``).  Host numpy; checked: the
+    local ids gather back the sampled global ids."""
+    from repro_torch.core.worklist import csr_snapshot
+    from repro_torch.data.sampler import sample_khop
+
+    t0 = time.perf_counter()
+    n_e = int(graph.n_edges)
+    csr = csr_snapshot(graph, max_edges=n_e)
+    check(int(csr.n_edges) == n_e, "csr_snapshot lost edges")
+    indptr = csr.indptr.cpu().numpy().astype(np.int64)
+    indices = csr.indices.cpu().numpy()[:n_e]
+    del csr
+    B, fanout = shape["batch_nodes"], tuple(shape["fanout"])
+    rng = np.random.default_rng(GNN_SEED)
+    seeds = rng.choice(graph.n_vertices, B, replace=False).astype(np.int32)
+    nodes, snd, rcv, mask = sample_khop(indptr, indices, seeds, fanout,
+                                        seed=GNN_SEED)
+    offsets, n_front = [0], B
+    for f in fanout:
+        offsets.append(offsets[-1] + n_front)
+        n_front *= f
+    snd_l, rcv_l = [], []
+    n_front = B
+    for k, f in enumerate(fanout):
+        j = np.arange(n_front * f)
+        snd_l.append(offsets[k + 1] + j)
+        rcv_l.append(offsets[k] + j // f)
+        n_front *= f
+    snd_l = np.concatenate(snd_l).astype(np.int32)
+    rcv_l = np.concatenate(rcv_l).astype(np.int32)
+    N, E, _ = gnn_shape_size(shape)
+    check(nodes.shape == (N,) and snd.shape == (E,),
+          f"sampled {nodes.shape[0]} nodes and {snd.shape[0]} edges, the "
+          f"shape says {N} and {E}")
+    check(np.array_equal(nodes[snd_l], snd) and
+          np.array_equal(nodes[rcv_l], rcv),
+          "the local ids do not gather back the sampled ids")
+    return {"nodes": nodes, "senders": snd_l, "receivers": rcv_l,
+            "edge_mask": mask, "n_vertices": graph.n_vertices,
+            "graph_edges": n_e, "live_edges": int(mask.sum()),
+            "degree0_seeds": int((indptr[seeds + 1] == indptr[seeds]).sum()),
+            "sample_s": time.perf_counter() - t0}
+
+
+def gnn_batch(torch, np, arch: str, shape_name: str, cfg, style: str,
+              sampled: dict):
+    """A step's (batch, targets) on the card: the port's random builders
+    for ``molecule`` and ``full_graph_sm`` (positions and species for the
+    geometric models, features and labels for PNA), or ``minibatch_lg``'s
+    sampled subgraph with per-vertex features, positions (a 4 A box) and
+    species gathered from seeded per-vertex tables."""
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.models.gnn.common import (GraphBatch,
+                                               random_feature_graph,
+                                               random_geometric_batch)
+    shape = GNN_SHAPES[shape_name]
+    N, E, G = gnn_shape_size(shape)
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    if shape_name != "minibatch_lg":
+        if style == "geometric":
+            b = random_geometric_batch(gen, N, E, n_species=cfg.n_species,
+                                       n_graphs=G)
+            return b, torch.randn((G,), generator=gen, device="cuda")
+        b = random_feature_graph(gen, N, E, cfg.d_in)
+        return b, torch.randint(0, cfg.n_classes, (N,), generator=gen,
+                                device="cuda")
+    V = sampled["n_vertices"]
+    nodes = torch.from_numpy(sampled["nodes"]).cuda().long()
+    common = dict(senders=torch.from_numpy(sampled["senders"]).cuda(),
+                  receivers=torch.from_numpy(sampled["receivers"]).cuda(),
+                  edge_mask=torch.from_numpy(sampled["edge_mask"]).cuda(),
+                  node_mask=torch.ones(N, dtype=torch.bool, device="cuda"),
+                  graph_ids=torch.zeros(N, dtype=torch.int32,
+                                        device="cuda"), n_graphs=1)
+    if style == "geometric":
+        pos = torch.rand((V, 3), generator=gen, device="cuda") * 4.0
+        species = torch.randint(0, cfg.n_species, (V,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        b = GraphBatch(positions=pos[nodes], node_feat=None,
+                       species=species[nodes], **common)
+        return b, torch.randn((1,), generator=gen, device="cuda")
+    feat = torch.randn((V, cfg.d_in), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.n_classes, (V,), generator=gen,
+                           device="cuda")
+    b = GraphBatch(positions=None, node_feat=feat[nodes], species=None,
+                   **common)
+    return b, labels[nodes]
+
+
+def gnn_loss(module, cfg, style):
+    if style == "geometric":
+        return lambda p, b, t: module.energy_loss(p, b, t, cfg)
+    return lambda p, b, t: module.node_xent_loss(p, b, t, cfg)
+
+
+def gnn_profile_split(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's kernel time
+    split into gathers and scatters (indexing, ``index_add``,
+    ``scatter_reduce``), matrix products (cuBLAS: the einsums, batched
+    products and MLPs) and the rest (ms), and the call's wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # the card's activity alone: a step's CPU events (tens of thousands of
+    # small ops) take the profiler's post-processing seconds
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"gather_scatter": 0.0, "matmul": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        name, ms = e.name, e.self_device_time_total / 1e3
+        if re.search(r"gemm|gemv|nvjet|cutlass|xmma|cublas|sm90_|dot_kernel",
+                     name, re.IGNORECASE):
+            split["matmul"] += ms
+        elif re.search(r"index|scatter|gather", name, re.IGNORECASE):
+            split["gather_scatter"] += ms
+        else:
+            split["other"] += ms
+    return {"busy_ms": sum(split.values()), "kernels": n, "split_ms": split,
+            "profiled_wall_ms": 1e3 * wall}
+
+
+def gnn_run(torch, np, arch: str, shape_name: str, sampled: dict) -> dict:
+    """One (arch, shape) cell: the full config with seeded random weights
+    and AdamW through ``build_gnn_train_step``, GNN_STEPS steps and a
+    profiled one more; each step's ms, loss and gradient norm (read inside
+    the step's AdamW update), the peak bytes."""
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps as S
+    from repro_torch.train import optimizer as opt
+
+    module, style = S._GNN[arch]
+    cfg = gnn_config(arch, GNN_SHAPES[shape_name])
+    batch, targets = gnn_batch(torch, np, arch, shape_name, cfg, style,
+                               sampled)
+    params = module.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(GNN_SEED))
+    ostate = opt.init(params)
+    step = S.build_gnn_train_step(module, cfg, style)
+    norms = []
+    real_update = opt.update
+
+    def update(cfg_, grads, *a, **kw):
+        norms.append(float(opt.global_norm(grads)))
+        return real_update(cfg_, grads, *a, **kw)
+
+    out = {"phase": "gnn", "arch": arch, "shape": shape_name,
+           "nodes": batch.n_nodes, "edges": batch.n_edges,
+           "live_edges": int(batch.edge_mask.sum()),
+           "graphs": batch.n_graphs,
+           "parameters": sum(p.numel() for p in tree_leaves(params)),
+           "step_ms": [], "loss": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with swapped(S.opt, update=update):
+        for _ in range(GNN_STEPS):
+            t0 = time.perf_counter()
+            params, ostate, loss = step(params, ostate, batch, targets)
+            torch.cuda.synchronize()
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["loss"].append(float(loss))
+        last = {}
+
+        def profiled():
+            last["out"] = step(params, ostate, batch, targets)
+
+        out["profile"] = gnn_profile_split(torch, profiled)
+    params, ostate, loss = last["out"]
+    out["loss"].append(float(loss))
+    out["grad_norm"] = norms
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(out["loss"])) and all(np.isfinite(norms)),
+          f"{arch} on {shape_name}: a loss or gradient norm is not finite")
+    check(len(norms) == GNN_STEPS + 1, "the step did not run AdamW")
+    del params, ostate, batch, targets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rotation(torch, np, seed: int):
+    """A seeded random rotation (QR of a Gaussian matrix, det +1)."""
+    Q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    if np.linalg.det(Q) < 0:
+        Q[:, 0] *= -1
+    return torch.tensor(Q, dtype=torch.float32)
+
+
+def gnn_faults(torch, arch: str, batch):
+    """The planted fault of each model, as a context manager: a CG block
+    with its output's m order reversed (NequIP, MACE: the (0, 1, 1) block
+    that carries every layer's scalars into l = 1; an axis transposition of
+    a CG block is itself an invariant tensor and cannot fail the invariance
+    gate), the attention softmax normalised over senders (EquiformerV2), or
+    PNA's min aggregator replaced by its max."""
+    from repro_torch.models.gnn import equiformer_v2 as eq2
+    from repro_torch.models.gnn import pna, tensor_field
+
+    if arch in ("nequip", "mace"):
+        real = tensor_field.cg_tensor
+
+        def cg(l1, l2, l3, device, dtype=torch.float32):
+            C = real(l1, l2, l3, device, dtype)
+            return C.flip(2) if (l1, l2, l3) == (0, 1, 1) else C
+        return "cg_block_m_reversed", swapped(tensor_field, cg_tensor=cg)
+    if arch == "equiformer-v2":
+        real = eq2.segment_softmax
+        snd = batch.senders
+
+        def over_senders(logits, segs, n, mask):
+            return real(logits, snd, n, mask)
+        return "softmax_over_senders", swapped(
+            eq2, segment_softmax=over_senders)
+    real = pna._aggregate
+
+    def min_is_max(msg, *a):
+        out = real(msg, *a)
+        d = msg.shape[1]
+        return torch.cat([out[:, :6 * d], out[:, 3 * d:6 * d],
+                          out[:, 9 * d:]], dim=-1)
+    return "min_replaced_by_max", swapped(pna, _aggregate=min_is_max)
+
+
+def gnn_step_gate(torch, np) -> dict:
+    """Each full config cut to GNN_GATE_LAYERS layers: the loss and every
+    gradient leaf on the card against the same on the CPU (float32, no
+    TF32) within STEP_TOL (GNN_STEP_TOL for PNA) of each leaf's scale
+    (floored at GNN_LEAF_FLOOR of the largest), and with its planted fault
+    on the card, which must fall outside."""
+    import dataclasses
+
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import steps as S
+    from repro_torch.models.gnn.common import (random_feature_graph,
+                                               random_geometric_batch)
+
+    out = {}
+    mol = GNN_SHAPES["molecule"]
+    N = mol["n_nodes"] * GNN_GATE_GRAPHS
+    E = mol["n_edges"] * GNN_GATE_GRAPHS
+    for arch in ("nequip", "mace", "pna", "equiformer-v2"):
+        module, style = S._GNN[arch]
+        cfg = dataclasses.replace(gnn_config(arch, mol),
+                                  n_layers=GNN_GATE_LAYERS)
+        gen = torch.Generator().manual_seed(GNN_SEED)
+        params = module.init_params(cfg, gen)
+        if style == "geometric":
+            batch = random_geometric_batch(gen, N, E, n_graphs=GNN_GATE_GRAPHS,
+                                           n_species=cfg.n_species)
+            targets = torch.randn((GNN_GATE_GRAPHS,), generator=gen)
+        else:
+            batch = random_feature_graph(gen, N, E, cfg.d_in)
+            targets = torch.randint(0, cfg.n_classes, (N,), generator=gen)
+        loss = gnn_loss(module, cfg, style)
+        lw, gw = S.value_and_grad(loss, params, batch, targets)
+        want = (lw.reshape(1), gw)
+        card = tree_map(lambda x: x.cuda(), params)
+        cb, ct = batch.to("cuda"), targets.cuda()
+
+        def on_card():
+            lc, gc_ = S.value_and_grad(loss, card, cb, ct)
+            return tree_map(lambda x: x.cpu(), (lc.reshape(1), gc_))
+
+        tol = GNN_STEP_TOL.get(arch, STEP_TOL)
+        got = on_card()
+        clean = step_readings(torch, got, want, tol, GNN_LEAF_FLOOR)
+        # the segment sums add with atomics on the card: the same step
+        # twice, bit for bit or not (read, not gated)
+        again = trees_equal(torch, got, on_card())
+        fault, ctx = gnn_faults(torch, arch, cb)
+        with ctx:
+            faulty = step_readings(torch, on_card(), want, tol,
+                                   GNN_LEAF_FLOOR)
+        out[arch] = {"loss": float(lw), "tol": tol, "clean": clean,
+                     "bit_equal_twice": again, "fault": fault,
+                     "faulty": faulty}
+    return out
+
+
+def gnn_invariance_gate(torch, np) -> dict:
+    """Each geometric full config's energies on the molecule shape's batch
+    (positions redrawn in a GNN_INV_BOX box), at full depth, against those
+    of the same batch with its positions under a seeded rotation: within
+    GNN_INV_TOL of the energies' scale, and the planted CG fault (NequIP,
+    MACE) outside."""
+    import dataclasses
+
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.launch import steps as S
+
+    R = rotation(torch, np, GNN_SEED + 1).cuda()
+    out = {}
+    for arch in ("nequip", "mace", "equiformer-v2"):
+        module, style = S._GNN[arch]
+        cfg = gnn_config(arch, GNN_SHAPES["molecule"])
+        batch, _ = gnn_batch(torch, np, arch, "molecule", cfg, style, None)
+        gen = torch.Generator(device="cuda").manual_seed(GNN_SEED + 2)
+        batch = dataclasses.replace(batch, positions=torch.rand(
+            (batch.n_nodes, 3), generator=gen, device="cuda") * GNN_INV_BOX)
+        turned = dataclasses.replace(batch, positions=batch.positions @ R.T)
+        params = module.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(GNN_SEED))
+
+        def reading():
+            with torch.no_grad():
+                e = module.forward(params, batch, cfg)
+                er = module.forward(params, turned, cfg)
+            return float((e - er).abs().max() / e.abs().max())
+
+        row = {"layers": cfg.n_layers, "rel_err": reading()}
+        if arch in ("nequip", "mace"):
+            fault, ctx = gnn_faults(torch, arch, batch)
+            with ctx:
+                row["fault"], row["fault_rel_err"] = fault, reading()
+        out[arch] = row
+        del params, batch, turned
+    return out
+
+
+def gnn_live_loop(torch, np) -> dict:
+    """The reference's examples/gnn_molecules.py at full width: NequIP's
+    full config on a SlabGraph of 128 molecules of 30 atoms whose bond
+    graph changes every step (intra-molecule inserts through the update
+    engine, kernels 1-2 on the card, deletes every third step), fed to the
+    train step through ``edges_from_slab``; every step the card's edges
+    must equal the CPU port's on a host copy of the same pool bit for
+    bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.core import batch as tbatch
+    from repro_torch.core.bridge import (slab_graph_from_numpy,
+                                         slab_graph_to_numpy)
+    from repro_torch.core.slab_graph import empty, ensure_capacity
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import steps as S
+    from repro_torch.models.gnn.common import GraphBatch, edges_from_slab
+    from repro_torch.train import optimizer as opt
+
+    mol = GNN_SHAPES["molecule"]
+    per, G = mol["n_nodes"], mol["batch"]
+    V, E_CAP = per * G, mol["n_edges"] * G
+    cfg = get_arch("nequip").full_config()
+    module, style = S._GNN["nequip"]
+    rng = np.random.default_rng(GNN_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    params = module.init_params(cfg, gen)
+    ostate = opt.init(params)
+    step = S.build_gnn_train_step(module, cfg, style)
+    pos = (torch.rand((V, 3), generator=gen, device="cuda") * 4.0)
+    species = torch.randint(0, cfg.n_species, (V,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    gids = torch.arange(V, device="cuda", dtype=torch.int32) // per
+    g = empty(V, np.ones(V, np.int32), 256, device="cuda")
+
+    def pad(xs, n):
+        a = np.full(n, 0xFFFFFFFF, np.uint32)
+        a[:len(xs)] = np.asarray(xs, np.uint32)
+        return torch.from_numpy(a.view(np.int32)).cuda()
+
+    runtime.reset_launches()
+    out = {"phase": "gnn_live", "vertices": V, "max_edges": E_CAP,
+           "edges": [], "step_ms": [], "update_ms": [], "loss": []}
+    for it in range(GNN_LIVE_STEPS):
+        t0 = time.perf_counter()
+        mol_id = rng.integers(0, G, GNN_LIVE_INSERTS)
+        ns = mol_id * per + rng.integers(0, per, GNN_LIVE_INSERTS)
+        nd = mol_id * per + rng.integers(0, per, GNN_LIVE_INSERTS)
+        g = ensure_capacity(g, GNN_LIVE_INSERTS // 128 + 8)
+        g, _ = tbatch.insert_edges(g, pad(ns, GNN_LIVE_INSERTS),
+                                   pad(nd, GNN_LIVE_INSERTS))
+        if it % 3 == 2:
+            k = GNN_LIVE_DELETES
+            g, _ = tbatch.delete_edges(g, pad(ns[:k], k), pad(nd[:k], k))
+        snd, rcv, emask = edges_from_slab(g, max_edges=E_CAP)
+        torch.cuda.synchronize()
+        out["update_ms"].append(1e3 * (time.perf_counter() - t0))
+        host = slab_graph_from_numpy(slab_graph_to_numpy(g), "cpu")
+        want = edges_from_slab(host, max_edges=E_CAP)
+        check(all(torch.equal(a.cpu(), b) for a, b in
+                  zip((snd, rcv, emask), want)),
+              f"edges_from_slab on the card differs from the CPU's at "
+              f"step {it}")
+        batch = GraphBatch(positions=pos, node_feat=None, species=species,
+                           senders=snd, receivers=rcv, edge_mask=emask,
+                           node_mask=torch.ones(V, dtype=torch.bool,
+                                                device="cuda"),
+                           graph_ids=gids, n_graphs=G)
+        target = torch.full((G,), float(np.sin(it)), device="cuda")
+        t0 = time.perf_counter()
+        params, ostate, loss = step(params, ostate, batch, target)
+        torch.cuda.synchronize()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["loss"].append(float(loss))
+        out["edges"].append(int(emask.sum()))
+    out["launches"] = {k: runtime.LAUNCHES[k]
+                       for k in ("slab_probe", "slab_commit")}
+    out["live_edges_end"] = int(g.n_edges)
+    check(all(np.isfinite(out["loss"])), "the live loop's loss is not finite")
+    for name, n in out["launches"].items():
+        check(n > 0, f"the live loop never launched {name}")
+    check(out["live_edges_end"] > E_CAP,
+          "the live graph never outgrew the edge slots")
+    return out
+
+
+def gnn_phase(torch, np, sampled: dict) -> dict:
+    """The GNN family at full width: the GNN_RUNS cells, the not-run cells
+    with their bytes, the step and invariance gates and the live loop."""
+    from repro_torch.configs.common import GNN_SHAPES
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    for arch, shape in GNN_RUNS:
+        t0 = time.perf_counter()
+        row = gnn_run(torch, np, arch, shape, sampled)
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+        runs.append(row)
+    emit({"phase": "gnn_not_run", "cells": [
+        {"arch": a, "shape": s, **gnn_not_run_bytes(a, GNN_SHAPES[s])}
+        for a, s in GNN_NOT_RUN]})
+    t0 = time.perf_counter()
+    gates = {"step": gnn_step_gate(torch, np),
+             "invariance": gnn_invariance_gate(torch, np)}
+    emit({"phase": "gnn_gates", "leaf_floor": GNN_LEAF_FLOOR,
+          "inv_tol": GNN_INV_TOL, **gates,
+          "seconds": time.perf_counter() - t0})
+    for arch, r in gates["step"].items():
+        check(r["clean"]["close"], f"{arch}: the step on the card is outside "
+                                   f"{r['tol']} of the CPU's: {r['clean']}")
+        check(not r["faulty"]["close"], f"{arch}: the planted fault "
+                                        f"{r['fault']} passes the step gate")
+    for arch, r in gates["invariance"].items():
+        check(r["rel_err"] <= GNN_INV_TOL, f"{arch}: energies moved by "
+              f"{r['rel_err']} of their scale under a rotation")
+        check(r.get("fault_rel_err", 1.0) > GNN_INV_TOL,
+              f"{arch}: the planted fault passes the invariance gate")
+    live = gnn_live_loop(torch, np)
+    emit(live)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "gates": gates, "live": live}
+
+
+# ----------------------------------------------------------------------------
 # phase 6: EmbeddingBag at MIND's full table
 # ----------------------------------------------------------------------------
 
@@ -4669,6 +5354,7 @@ def main() -> int:
     import numpy as np
 
     import repro_torch.stream as stream_mod
+    from repro_torch.data import synth
     from repro_torch.kernels import runtime
     from repro_torch.launch import serve as serve_mod
 
@@ -4684,6 +5370,9 @@ def main() -> int:
                     for k, v in built.items()}})
     print(card, flush=True)
     dev_name = torch.cuda.get_device_name(0)
+
+    # the graph phases draw one RMAT graph: draw it once
+    synth.rmat_edges = drawn_once(synth.rmat_edges)
 
     # -------------------------------------------------------------- kernels
     t0 = time.perf_counter()
@@ -4752,6 +5441,12 @@ def main() -> int:
     t0 = time.perf_counter()
     mind_phase(torch, np, store.forward)
     emit({"phase": "mind", "seconds": time.perf_counter() - t0})
+    # the GNN phase's minibatch_lg subgraph, sampled over the same view
+    from repro_torch.configs.common import GNN_SHAPES
+    sampled = sampled_minibatch(torch, np, store.forward,
+                                GNN_SHAPES["minibatch_lg"])
+    emit({"phase": "gnn_sample", **{k: v for k, v in sampled.items()
+                                    if not isinstance(v, np.ndarray)}})
     updates = [req for kind, req, _, _ in out["responses"]
                if kind == "update"][:3]
     ref3 = served_reference(torch, np, out)
@@ -4836,6 +5531,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------------ gnn
+    t0 = time.perf_counter()
+    gnn_phase(torch, np, sampled)
+    emit({"phase": "gnn", "seconds": time.perf_counter() - t0})
+    del sampled
+
     # -------------------------------------------------------- embedding_bag
     t0 = time.perf_counter()
     bag = embedding_bag_phase(torch, np)
@@ -4844,9 +5545,14 @@ def main() -> int:
     emit({"phase": "embedding_bag", "seconds": time.perf_counter() - t0})
 
     # ------------------------------------------------------------- summary
+    # kernel 4's op is not on the serve: its launches are those of its own
+    # path in phase 2
+    launches["slab_contrib_sums"] = next(
+        r["launches"] for r in results if r["name"] == "slab_contrib_sums")
     batch = f"B={serve_mod.parse_args(SERVE_ARGS).batch}"
     main_variant = {"slab_probe": batch, "slab_commit": batch,
                     "slab_sweep": "sum (main path)",
+                    "slab_contrib_sums": "PageRank contrib (transpose view)",
                     "slab_live": "forward view",
                     "slab_chain_rank": "forward view",
                     "slab_count": "static",
@@ -4859,6 +5565,8 @@ def main() -> int:
         "slab_probe": "src/repro/kernels/slab_update/kernel.py:81",
         "slab_commit": "src/repro/kernels/slab_update/kernel.py:160",
         "slab_sweep": "src/repro/kernels/slab_sweep/kernel.py:80",
+        # kernel 4: kernel 3's sum launch, reached through its own op
+        "slab_contrib_sums": "src/repro/kernels/slab_pagerank/kernel.py:23",
         "slab_live": "src/repro/kernels/slab_compact/kernel.py:60",
         "slab_chain_rank": "src/repro/kernels/slab_compact/kernel.py:137",
         "slab_count": "src/repro/kernels/slab_intersect/kernel.py:120",
@@ -4871,6 +5579,7 @@ def main() -> int:
     source = {"slab_probe": "src/repro_torch/csrc/slab_update.cu",
               "slab_commit": "src/repro_torch/csrc/slab_update.cu",
               "slab_sweep": "src/repro_torch/csrc/slab_sweep.cu",
+              "slab_contrib_sums": "src/repro_torch/csrc/slab_sweep.cu",
               "slab_live": "src/repro_torch/csrc/slab_compact.cu",
               "slab_chain_rank": "src/repro_torch/csrc/slab_compact.cu",
               "slab_count": "src/repro_torch/csrc/slab_intersect.cu",

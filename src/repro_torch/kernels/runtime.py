@@ -11,7 +11,9 @@ them at once (one ``nvcc`` per source, all started together).
 
 ``LAUNCHES`` counts launches per kernel: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.
+went through the kernels.  Kernel 4 (``slab_contrib_sums``) has no kernel
+of its own: its entry point counts the calls in which it launches kernel
+3's ``sum`` on the card, which kernel 3's count holds as well.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {"slab_probe": 0, "slab_commit": 0,
-                            "slab_sweep": 0, "slab_live": 0,
+                            "slab_sweep": 0, "slab_contrib_sums": 0,
+                            "slab_live": 0,
                             "slab_chain_rank": 0, "slab_count": 0,
                             "probe_hits": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "embedding_bag": 0}

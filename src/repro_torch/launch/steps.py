@@ -1,13 +1,14 @@
-"""Step builders for the LM and recsys families, from
+"""Step builders for the LM, GNN and recsys families, from
 ``repro.launch.steps``.
 
 ``build_lm_train_step`` (forward, backward and AdamW, with microbatch
-accumulation) and ``build_mind_train_step`` return the step a trainer calls
-per batch, over the reference's parameter pytree as a dict of tensors;
-``build_lm_prefill_step`` and ``build_lm_decode_step`` return the step a
-server calls per request, over a ``TransformerLM``.  ``ADAMW`` and
-``MICROBATCH`` are the reference's.  The input and sharding specs and
-``lm_cell`` belong to the dry run (ROADMAP §1).
+accumulation), ``build_gnn_train_step`` and ``build_mind_train_step``
+return the step a trainer calls per batch, over the reference's parameter
+pytree as a dict of tensors; ``build_lm_prefill_step`` and
+``build_lm_decode_step`` return the step a server calls per request, over
+a ``TransformerLM``.  ``ADAMW``, ``MICROBATCH`` and ``_GNN`` are the
+reference's.  The input and sharding specs and the ``*_cell`` builders
+belong to the dry run (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -17,6 +18,10 @@ import torch
 
 from ..core import tree
 from ..models import transformer as tfm
+from ..models.gnn import equiformer_v2 as eq2
+from ..models.gnn import mace as mace_m
+from ..models.gnn import nequip as nequip_m
+from ..models.gnn import pna as pna_m
 from ..models.recsys import mind as mind_m
 from ..models.transformer import LMConfig, TransformerLM
 from ..train import optimizer as opt
@@ -44,10 +49,13 @@ def value_and_grad(loss: Callable, params, *args) -> Tuple[torch.Tensor,
                                                           object]:
     """``(loss(params, *args), its gradient)`` for a parameter tree, as
     ``jax.value_and_grad``: the gradient has ``params``' structure and
-    dtypes."""
+    dtypes, and a leaf the loss does not read gets zeros."""
     tp = _trainable(params)
+    leaves = tree.tree_leaves(tp)
     value = loss(tp, *args)
-    grads = torch.autograd.grad(value, tree.tree_leaves(tp))
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     return value.detach(), tree.tree_unflatten(params, grads)
 
 
@@ -130,6 +138,37 @@ def build_mind_train_step(cfg: mind_m.MINDConfig, *,
         return new_params, new_opt, value
 
     return step
+
+
+#: GNN arch -> (model module, batch style): "geometric" batches carry
+#: positions and species (an energy regression), "feature" batches node
+#: features (node classification)
+_GNN = {
+    "mace": (mace_m, "geometric"),
+    "nequip": (nequip_m, "geometric"),
+    "pna": (pna_m, "feature"),
+    "equiformer-v2": (eq2, "geometric"),
+}
+
+
+def build_gnn_train_step(module, cfg, style: str) -> Callable:
+    """``train_step(params, opt_state, batch, targets) -> (params,
+    opt_state, loss)``: the model's loss (``energy_loss`` on per-graph
+    energies, or ``node_xent_loss`` on node labels) and its gradients, then
+    one AdamW step (``ADAMW``).  The batch's positions take no gradient."""
+    if style == "geometric":
+        def loss_fn(params, batch, targets):
+            return module.energy_loss(params, batch, targets, cfg)
+    else:
+        def loss_fn(params, batch, targets):
+            return module.node_xent_loss(params, batch, targets, cfg)
+
+    def train_step(params, opt_state, batch, targets):
+        loss, grads = value_and_grad(loss_fn, params, batch, targets)
+        new_params, new_opt = opt.update(ADAMW, grads, opt_state, params)
+        return new_params, new_opt, loss
+
+    return train_step
 
 
 def _check(model: TransformerLM, cfg: LMConfig) -> None:

@@ -3,21 +3,25 @@
     python -m repro_torch.launch.train --arch gemma-2b --device cpu \\
         --steps 20 --ckpt-dir /tmp/ckpt
 
-Runs real steps of an LM (``build_lm_train_step``) or MIND
-(``build_mind_train_step``) on ``--device`` (``cuda`` unless the caller
-passes ``cpu``; the kernels run on the card, their plain versions on the
-CPU), through ``train.loop.train``: fault-tolerant by construction, it
-resumes from the newest checkpoint under ``--ckpt-dir``.  That defaults to
+Runs real steps of an LM (``build_lm_train_step``), a GNN
+(``build_gnn_train_step``) or MIND (``build_mind_train_step``) on
+``--device`` (``cuda`` unless the caller passes ``cpu``; the kernels run
+on the card, their plain versions on the CPU), through
+``train.loop.train``: fault-tolerant by construction, it resumes from the
+newest checkpoint under ``--ckpt-dir``.  That defaults to
 ``repro_torch_ckpt_<arch>`` under ``tempfile.gettempdir()`` (``$TMPDIR``),
 not the reference's fixed ``/tmp/repro_ckpt`` that every arch shares, so
 re-running one arch's command resumes it and no other arch's run restores
 into it.  Weights come from a generator seeded with 0 on the device,
-batches from ``data.synth``.
+batches from ``data.synth``; a GNN's from the random builders of
+``models.gnn.common``, batch ``i`` from a generator seeded with ``i``
+(molecule-like geometric batches of 64 nodes, 256 edges and 4 graphs, or
+feature graphs of 128 nodes and 512 edges).
 
 ``--smoke`` is declared as the reference declares it (``store_true`` with
 ``default=True``), so the command line always trains the smoke config, as
-the reference's does.  The GNN family waits for its models (ROADMAP item
-5.4) and the graph family is served, not trained: both exit with a message.
+the reference's does.  The graph family is served, not trained: it exits
+with a message.
 """
 from __future__ import annotations
 
@@ -28,9 +32,8 @@ from typing import Dict
 
 import numpy as np
 
-#: the reference's architectures of the families this launcher does not
-#: train: the GNNs (not ported yet) and the graph plane
-GNN_ARCHS = ("mace", "nequip", "pna", "equiformer-v2")
+#: the reference's architecture this launcher does not train: the graph
+#: plane, which is served
 GRAPH_ARCHS = ("meerkat-graph",)
 
 
@@ -64,12 +67,11 @@ def main(argv=None) -> Dict:
     from ..data.synth import lm_batches, recsys_batches
     from ..launch import steps as S
     from ..models import transformer as tfm
+    from ..models.gnn.common import (random_feature_graph,
+                                     random_geometric_batch)
     from ..train import optimizer as opt
     from ..train.loop import train
 
-    if args.arch in GNN_ARCHS:
-        raise SystemExit(f"{args.arch}: the GNN family is not ported yet "
-                         "(ROADMAP item 5.4)")
     if args.arch in GRAPH_ARCHS:
         raise SystemExit(f"use examples/streaming_analytics.py or "
                          f"repro_torch.launch.serve for {args.arch}")
@@ -87,6 +89,25 @@ def main(argv=None) -> Dict:
                                            args.seq_len):
                 yield (torch.from_numpy(toks).to(dev),
                        torch.from_numpy(labels).to(dev))
+    elif m.FAMILY == "gnn":
+        module, style = S._GNN[args.arch]
+        params = module.init_params(cfg, gen)
+        step = S.build_gnn_train_step(module, cfg, style)
+
+        def data():
+            i = 0
+            while True:
+                g = torch.Generator(device=dev).manual_seed(i)
+                if style == "geometric":
+                    b = random_geometric_batch(g, 64, 256, n_graphs=4,
+                                               n_species=cfg.n_species)
+                    t = torch.randn((4,), generator=g, device=dev)
+                else:
+                    b = random_feature_graph(g, 128, 512, cfg.d_in)
+                    t = torch.randint(0, cfg.n_classes, (128,),
+                                      generator=g, device=dev)
+                yield b, t
+                i += 1
     else:
         from ..models.recsys import mind as mind_m
         params = mind_m.init_params(cfg, gen)

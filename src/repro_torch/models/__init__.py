@@ -1,2 +1,3 @@
 """Model surface of the port: the decoder-only LM, dense and MoE
-(``transformer``), and MIND's serving path (``recsys.mind``)."""
+(``transformer``), MIND (``recsys.mind``) and the GNN family (``gnn``:
+NequIP, MACE, PNA, EquiformerV2)."""

@@ -19,7 +19,9 @@ the card are held to the same functions on CPU tensors (float32 without
 TF32: 1e-4; histories bit for bit).  Kernel 10's backward is held to
 ``attention_bwd_ref`` (1e-4 in float32, 2e-2 in bfloat16: one rounding of
 either output) and to itself bit for bit, and a train step on the card to
-the same step on the CPU.  This module
+the same step on the CPU, as is each GNN smoke config's step (1e-5 /
+1e-4).  Kernel 4's op is held to its plain version on the card and must
+refuse a pool with an unpacked row there too.  This module
 imports no JAX (the card's machine has none): ``ATTN_CASES`` is shared with
 the CPU parity test.
 """
@@ -1653,3 +1655,82 @@ def test_mesh_wal_and_recovery_on_one_nccl_rank(cuda, tmp_path):
         assert a.version == b.version
         for f in ("ins_src", "ins_dst", "del_src", "del_dst"):
             assert np.array_equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_slab_contrib_sums_on_card_matches_plain(cuda, graph):
+    """Kernel 4's op on the card (kernel 3's ``sum`` launch, counted under
+    both names) against its plain version on the same packed pool, within
+    1e-6 of the largest row total (the float sum's rounding)."""
+    from repro_torch.core.worklist import pool_edges
+    from repro_torch.kernels.slab_pagerank import (slab_contrib_sums,
+                                                   slab_contrib_sums_ref)
+    _, _, _, g = graph
+    contrib = torch.rand(g.n_vertices, device=cuda)
+    before = dict(runtime.LAUNCHES)
+    got = slab_contrib_sums(g.keys, pool_edges(g).valid, contrib)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_sweep"] == before["slab_sweep"] + 1
+    assert runtime.LAUNCHES["slab_contrib_sums"] == \
+        before["slab_contrib_sums"] + 1
+    owner = torch.where(pool_edges(g).valid.any(dim=1), 0, -1).to(
+        torch.int32)
+    want = slab_contrib_sums_ref(g.keys, owner, contrib,
+                                 n_vertices=g.n_vertices)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * float(want.abs().max()) + 1e-30)
+
+
+def test_slab_contrib_sums_refuses_an_unpacked_row_on_card(cuda, graph):
+    from repro_torch.core.hashing import EMPTY_KEY
+    from repro_torch.core.worklist import pool_edges
+    from repro_torch.kernels.slab_pagerank import slab_contrib_sums
+    _, _, _, g = graph
+    keys = g.keys.clone()
+    row = int(torch.nonzero((keys[:, 1] >= 0)).flatten()[0])
+    keys[row, 0] = EMPTY_KEY                 # a key after an EMPTY lane
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(ValueError, match="after an EMPTY lane"):
+        slab_contrib_sums(keys, pool_edges(g).valid,
+                          torch.rand(g.n_vertices, device=cuda))
+    assert runtime.LAUNCHES == before
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 products without TF32 for one test, the setting restored
+    after it."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.parametrize("arch", ["mace", "nequip", "pna", "equiformer-v2"])
+def test_gnn_step_on_card_matches_cpu(cuda, no_tf32, arch):
+    """A GNN smoke config's train step on the card against the same step on
+    the CPU, float32 without TF32: the loss, the parameters and the AdamW
+    moments within 1e-5 / 1e-4 (the card's segment sums add with
+    atomics, in another order)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree as ttree
+    from repro_torch.launch import steps as S
+    from repro_torch.models.gnn import common as gnn
+    from repro_torch.train import optimizer as opt
+    module, style = S._GNN[arch]
+    cfg = get_arch(arch).smoke_config()
+    gen = torch.Generator().manual_seed(0)
+    params = module.init_params(cfg, gen)
+    if style == "geometric":
+        batch = gnn.random_geometric_batch(gen, 48, 200, n_graphs=4,
+                                           n_species=cfg.n_species)
+        targets = torch.randn((4,), generator=gen)
+    else:
+        batch = gnn.random_feature_graph(gen, 60, 240, cfg.d_in)
+        targets = torch.randint(0, cfg.n_classes, (60,), generator=gen)
+    step = S.build_gnn_train_step(module, cfg, style)
+    want = step(params, opt.init(params), batch, targets)
+    card = ttree.tree_map(lambda x: x.to(cuda), params)
+    got = step(card, opt.init(card), batch.to(cuda), targets.to(cuda))
+    for a, b in zip(ttree.tree_leaves(got), ttree.tree_leaves(want)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4)

@@ -10,7 +10,10 @@ triangle count, a checkpoint), a MoE smoke model's forward and MIND's
 scores over histories from the graph, with ``torch.distributed`` and
 nothing of JAX; and the training modules (``train/*``, ``launch/train.py``,
 the chunked attention) train a smoke LM two steps through the loop, with a
-checkpoint, and take a MIND train step."""
+checkpoint, and take a MIND train step; and the GNN family
+(``models/gnn/*``, its configs, the sampler, kernel 4's op surface) takes
+one smoke train step per batch style, geometric (NequIP) and feature
+(PNA), with a batch from the sampler over a live graph's CSR snapshot."""
 import subprocess
 import sys
 from pathlib import Path
@@ -80,6 +83,36 @@ assert len(out["losses"]) == 2
 mp = mind.init_params(mcfg, torch.Generator())
 steps.build_mind_train_step(mcfg)(mp, optimizer.init(mp), hist, mask,
                                   torch.arange(3))
+from repro_torch.core import csr_snapshot, from_edges_host
+from repro_torch.data import sampler
+from repro_torch.kernels.slab_pagerank import slab_contrib_sums
+from repro_torch.models.gnn import common as gnn
+for arch in ("nequip", "pna"):
+    module, style = steps._GNN[arch]
+    gcfg = get_arch(arch).smoke_config()
+    gen = torch.Generator().manual_seed(0)
+    gpar = module.init_params(gcfg, gen)
+    if style == "geometric":
+        b = gnn.random_geometric_batch(gen, 24, 80, n_graphs=2,
+                                       n_species=gcfg.n_species)
+        t = torch.zeros(2)
+    else:
+        live = from_edges_host(40, src, dst, device="cpu")
+        csr = csr_snapshot(live, max_edges=4096)
+        n = int(csr.n_edges)
+        nodes, snd, rcv, em = sampler.sample_khop(
+            csr.indptr.numpy().astype(np.int64), csr.indices.numpy()[:n],
+            np.arange(4, dtype=np.int32), (3, 2))
+        b = gnn.GraphBatch(
+            positions=None, node_feat=torch.randn((40, gcfg.d_in)),
+            species=None, senders=torch.from_numpy(snd),
+            receivers=torch.from_numpy(rcv), edge_mask=torch.from_numpy(em),
+            node_mask=torch.ones(40, dtype=torch.bool),
+            graph_ids=torch.zeros(40, dtype=torch.int32), n_graphs=1)
+        t = torch.zeros(40, dtype=torch.long)
+    _, _, gl = steps.build_gnn_train_step(module, gcfg, style)(
+        gpar, optimizer.init(gpar), b, t)
+    assert bool(torch.isfinite(gl))
 assert "torch.distributed" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
@@ -97,7 +130,20 @@ missing = sorted({"repro_torch.obs.health", "repro_torch.obs.instrument",
                   "repro_torch.core.tree",
                   "repro_torch.train.optimizer", "repro_torch.train.loop",
                   "repro_torch.launch.train",
-                  "repro_torch.kernels.flash_attention.chunked"}
+                  "repro_torch.kernels.flash_attention.chunked",
+                  "repro_torch.kernels.slab_pagerank.ops",
+                  "repro_torch.models.gnn.common",
+                  "repro_torch.models.gnn.irreps",
+                  "repro_torch.models.gnn.tensor_field",
+                  "repro_torch.models.gnn.nequip",
+                  "repro_torch.models.gnn.mace",
+                  "repro_torch.models.gnn.pna",
+                  "repro_torch.models.gnn.equiformer_v2",
+                  "repro_torch.configs.mace",
+                  "repro_torch.configs.nequip",
+                  "repro_torch.configs.pna",
+                  "repro_torch.configs.equiformer_v2",
+                  "repro_torch.data.sampler"}
                  - set(names))
 print(len(names), missing, bad)
 """

@@ -405,5 +405,5 @@ def test_launcher_keeps_the_reference_flags(tmp_path, monkeypatch):
     assert args.smoke is True and args.device == "cuda"
     assert args.ckpt_dir == str(tmp_path / "repro_torch_ckpt_gemma-2b")
     assert tlaunch.parse_args(["--arch", "mind"]).ckpt_dir != args.ckpt_dir
-    with pytest.raises(SystemExit, match="5.4"):
-        tlaunch.main(["--arch", "mace", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="streaming_analytics"):
+        tlaunch.main(["--arch", "meerkat-graph", "--device", "cpu"])
