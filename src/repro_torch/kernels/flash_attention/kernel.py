@@ -63,6 +63,9 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """(B, Hq, Hkv, Sq, Skv, D) of q (B, Hq, Sq, D), k and v (B, Hkv, Skv,
     D), after checking what the kernels take."""
     dev = q.device
+    if not q.is_cuda:
+        raise ValueError("kernel 10 takes CUDA tensors, not tensors on "
+                         f"{dev}")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Hq, Sq, D), got {tuple(q.shape)}")
     B, Hq, Sq, D = q.shape

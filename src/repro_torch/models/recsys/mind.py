@@ -13,8 +13,9 @@ Departures from the reference:
 
 * ``init_params`` takes a ``torch.Generator``: the same distributions, not
   the same numbers.
-* The sharding constraint (``constrain``) is the identity on one device and
-  is dropped.
+* The sharding constraint (``constrain``, the table's ``embed_rows``) sits
+  at the reference's two sites: the identity outside a rules context or on
+  a plain tensor.
 * ``serve_scores`` and ``retrieval_scores`` take the max over the interests
   one interest at a time, so a (B, K, Nc) score tensor is never held; the
   scores are the same products.
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from ...core.device import resolve_device
+from ...distributed.sharding import constrain
 from ...core.hashing import INVALID_SLAB, is_valid_vertex
 
 
@@ -87,7 +89,8 @@ def extract_interests(params: Dict, hist: torch.Tensor,
     float32 through B2I routing."""
     B, L = hist.shape
     dev = hist.device
-    e = params["item_embed"][hist.clamp_min(0).long()]     # (B, L, D)
+    table = constrain(params["item_embed"], "embed_rows")
+    e = table[hist.clamp_min(0).long()]                      # (B, L, D)
     if cfg.routing_dtype == "bf16":
         e = e.to(torch.bfloat16)
         hist_mask = hist_mask.to(torch.bfloat16)
@@ -149,7 +152,7 @@ def train_loss(params: Dict, hist: torch.Tensor, hist_mask: torch.Tensor,
     """Sampled softmax with in-batch negatives (per group of B / G users
     when ``cfg.neg_groups`` > 1), a 0-d float32 value."""
     interests = extract_interests(params, hist, hist_mask, cfg)
-    te = params["item_embed"][target.long()]                  # (B, D)
+    te = constrain(params["item_embed"], "embed_rows")[target.long()]
     user = label_aware_attention(interests, te, cfg.pow_p)
     B, D = user.shape
     G = cfg.neg_groups

@@ -28,23 +28,30 @@ Departures from the reference:
   that attention is computed.
 * ``decode_step`` writes the new key and value into the cache in place and
   returns the same dict.
-* The sharding constraints (``distributed.sharding.constrain``) are
-  identities on one device and are dropped.
+* The sharding constraints (``distributed.sharding.constrain``) sit at
+  the reference's sites: identities outside a rules context or on plain
+  tensors, so no path on one device changes; inside one, on the dry run's
+  DTensors, redistributions.
 * ``moe_ffn`` sums a token's kept expert contributions in a fixed order
   (its experts ascending, one rounding an addition in the buffers' dtype,
   as the reference's ``segment_sum`` adds them), not with atomics, and
   breaks top-k ties toward the lower expert, as ``jax.lax.top_k`` does.
 * ``init_params`` draws the expert-stacked leaves one layer at a time (a
   float32 temporary of one layer, not of the whole stack).
-* The one-layer alternating stack the reference keeps for dry-run
-  calibration raises ``NotImplementedError``.
+* The one-layer alternating stack (the reference's dry-run calibration
+  variant) runs as the reference runs it: ``forward`` and ``prefill`` take
+  the single layer's weights as a (local, global) pair, keeping the local
+  layer's cache; ``decode_step`` runs the layer as local, on its ring.
 * Remat's unit is a layer (a pair for alternating stacks) under
   ``checkpoint(use_reentrant=False)``; ``remat_policy="dots"`` saves the
   outputs of the weight products (``aten.mm``, as the reference's
   ``dots_with_no_batch_dims_saveable`` saves its batch-free dots) through
   ``create_selective_checkpoint_contexts`` and recomputes the rest.
-* ``scan_unroll`` and ``cast_params_once``, set only by the reference's dry
-  run, are not fields: they come with the dry run (ROADMAP item 5.5).
+* ``cast_params_once`` casts the whole parameter tree to ``cfg.dtype``
+  once, before the layers (a step's FSDP gathers then move bf16).
+  ``scan_unroll`` is not a field: the reference unrolls its layer scan only
+  because XLA's cost analysis counts a loop body once, and the port's
+  layers are a Python loop that a flop counter counts in full.
 * The final softcap runs in place on the logits when nothing records a
   gradient (serving), out of place otherwise.
 """
@@ -61,6 +68,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..distributed.sharding import (constrain, fit_heads, fsdp_gather,
+                                    local_heads, stacked_like)
 from ..kernels.flash_attention import attention_chunked, flash_attention
 
 #: the layer-stacked parameter names a config may have
@@ -99,6 +108,7 @@ class LMConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True     # checkpoint each layer (pair) in training
     dispatch_groups: int = 1  # shard-local MoE dispatch over G token groups
+    cast_params_once: bool = False  # the whole tree to dtype, once a step
     remat_policy: str = "full"      # or "dots": save the weight products
 
     @property
@@ -125,6 +135,18 @@ class LMConfig:
             ffn = D * self.n_experts + self.n_experts * 3 * D * self.d_ff
         else:
             ffn = 3 * D * self.d_ff
+        per_layer = attn + ffn + 2 * D
+        emb = self.vocab_size * D * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + D
+
+    def n_active_params(self) -> int:
+        """Active parameters a token (MoE: its top_k experts only)."""
+        if not self.is_moe:
+            return self.n_params()
+        D, hd = self.d_model, self.head_dim
+        attn = D * (self.n_heads + 2 * self.n_kv_heads) * hd \
+            + self.n_heads * hd * D
+        ffn = D * self.n_experts + self.top_k * 3 * D * self.d_ff
         per_layer = attn + ffn + 2 * D
         emb = self.vocab_size * D * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + D
@@ -317,12 +339,23 @@ def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg: LMConfig
                     capacity=C, n_experts=E)
 
 
-def moe_experts(xg: torch.Tensor, lw: Dict, cfg: LMConfig, route: MoERoute
-                ) -> torch.Tensor:
+def _buffers(xe: torch.Tensor, grouped: bool) -> torch.Tensor:
+    """The expert buffers (G, E, C, D) under their sharding rule: the
+    grouped dispatch's ``moe_gecd``, or the single group's (E, C, D)
+    ``moe_ecd``."""
+    if grouped:
+        return constrain(xe, "moe_gecd")
+    return constrain(xe[0], "moe_ecd")[None]
+
+
+def moe_experts(xg: torch.Tensor, lw: Dict, cfg: LMConfig, route: MoERoute,
+                *, grouped: bool = False) -> torch.Tensor:
     """The experts of routed tokens ``xg`` (G, Tg, D): the kept assignments
     gathered into (G, E, C, D) buffers, the three expert products, and each
     token's kept outputs weighted by their gates and summed (its experts
-    ascending, in the buffers' dtype) -> (G, Tg, D) in xg's dtype."""
+    ascending, in the buffers' dtype) -> (G, Tg, D) in xg's dtype.
+    ``grouped`` (the shard-local dispatch) selects the buffers' sharding
+    rules."""
     G, Tg, D = xg.shape
     E, K, C = cfg.n_experts, cfg.top_k, route.capacity
     gi = torch.arange(G, device=xg.device)[:, None]
@@ -330,13 +363,15 @@ def moe_experts(xg: torch.Tensor, lw: Dict, cfg: LMConfig, route: MoERoute
     # one spare row takes every dropped assignment and is cut off
     xe = xg.new_zeros((G, E * C + 1, D))
     xe[gi, slot] = xg.repeat_interleave(K, dim=1)
-    xe = xe[:, :E * C].reshape(G, E, C, D)
+    xe = _buffers(xe[:, :E * C].reshape(G, E, C, D), grouped)
     h = _activation(torch.einsum("gecd,edf->gecf", xe, lw["w_gate"]),
                     torch.einsum("gecd,edf->gecf", xe, lw["w_up"]),
                     cfg.activation)
     del xe
-    ye = torch.einsum("gecf,efd->gecd", h, lw["w_down"]).reshape(
-        G, E * C, D)
+    ye = torch.einsum("gecf,efd->gecd", h, lw["w_down"])
+    if grouped:
+        ye = constrain(ye, "moe_gecd")
+    ye = ye.reshape(G, E * C, D)
     del h
     contrib = ye[gi, slot.clamp(max=E * C - 1)].view(G, Tg, K, D)
     contrib = contrib * route.top_g[..., None].to(ye.dtype)
@@ -367,8 +402,10 @@ def _moe_ffn_grouped(x: torch.Tensor, lw: Dict, cfg: LMConfig
     """Shard-local MoE dispatch: x (T, D) viewed as (G, T / G) groups, the
     capacity, sort and ranks per group."""
     T, D = x.shape
-    xg = x.reshape(cfg.dispatch_groups, T // cfg.dispatch_groups, D)
-    y = moe_experts(xg, lw, cfg, moe_route(xg, lw["router"], cfg))
+    xg = constrain(x.reshape(cfg.dispatch_groups, T // cfg.dispatch_groups,
+                             D), "moe_tokens_g")
+    y = moe_experts(xg, lw, cfg, moe_route(xg, lw["router"], cfg),
+                    grouped=True)
     return y.reshape(T, D)
 
 
@@ -383,6 +420,7 @@ def _qkv(x: torch.Tensor, lw: Dict, cfg: LMConfig, positions: torch.Tensor
     v = x @ lw["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
+    q, k, v = fit_heads(q, Hq), fit_heads(k, Hkv), fit_heads(v, Hkv)
     q = q.reshape(B, S, Hq, hd)
     k = k.reshape(B, S, Hkv, hd)
     v = v.reshape(B, S, Hkv, hd)
@@ -395,8 +433,9 @@ def _qkv(x: torch.Tensor, lw: Dict, cfg: LMConfig, positions: torch.Tensor
 
 
 #: the ``attn_impl`` choices: the reference's names; "ref" and "pallas" are
-#: both the flash-attention op (kernel 10 for CUDA tensors, attention_ref
-#: for CPU ones), "chunked" the reference's plain online-softmax schedule
+#: both the flash-attention op (kernel 10's registered operators for CUDA
+#: tensors, attention_ref for CPU ones), "chunked" the reference's plain
+#: online-softmax schedule
 ATTN_IMPLS = ("ref", "pallas", "chunked")
 
 
@@ -404,17 +443,16 @@ def _attend(qt, kt, vt, cfg: LMConfig, window: int, attn_impl: str = "ref"):
     """Causal attention of one layer, (B, Hq, S, hd) -> (B, S, Hq * hd),
     through the flash-attention op or, for ``attn_impl="chunked"``,
     ``attention_chunked``."""
-    if attn_impl == "chunked":
-        o = attention_chunked(qt, kt, vt, causal=True, window=window,
-                              softcap=cfg.attn_softcap)
-    elif attn_impl in ("ref", "pallas"):
-        o = flash_attention(qt, kt, vt, causal=True, window=window,
-                            softcap=cfg.attn_softcap)
-    else:
+    fns = {"chunked": attention_chunked, "ref": flash_attention,
+           "pallas": flash_attention}
+    if attn_impl not in fns:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one of "
                          f"{ATTN_IMPLS}")
+    o = local_heads(partial(fns[attn_impl], causal=True, window=window,
+                            softcap=cfg.attn_softcap), qt, kt, vt)
     B, _, S, _ = o.shape
-    return o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return fit_heads(o.transpose(1, 2).reshape(
+        B, S, cfg.n_heads * cfg.head_dim), cfg.n_heads)
 
 
 def attention(x: torch.Tensor, lw: Dict, cfg: LMConfig,
@@ -445,7 +483,7 @@ def _block(x: torch.Tensor, lw: Dict, cfg: LMConfig, positions: torch.Tensor,
     h = rms_norm(x, lw["ln_attn"], cfg.norm_eps)
     x = x + attention(h, lw, cfg, positions, local=window > 0,
                       attn_impl=attn_impl)
-    return _ffn(x, lw, cfg)
+    return constrain(_ffn(x, lw, cfg), "act_btd")
 
 
 def _embed(embed: torch.Tensor, tokens: torch.Tensor, cfg: LMConfig
@@ -453,7 +491,9 @@ def _embed(embed: torch.Tensor, tokens: torch.Tensor, cfg: LMConfig
     """Token embeddings (B, S, D) in the compute dtype, scaled by
     sqrt(d_model) rounded to that dtype (the reference scales by a scalar
     of it) when ``cfg.embed_scale``."""
-    x = embed[tokens.long()].to(cfg.dtype)
+    x = fsdp_gather(embed)[tokens.long()].to(cfg.dtype)
+    if tokens.dim() == 2:           # (B, S): the residual stream's rule
+        x = constrain(x, "act_btd")
     if cfg.embed_scale:
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype))
     return x
@@ -471,7 +511,7 @@ def _logits(x: torch.Tensor, final_norm: torch.Tensor, head: torch.Tensor,
     softcap: in place when nothing records a gradient (the (B, S, V)
     logits once), out of place otherwise."""
     x = rms_norm(x, final_norm.to(cfg.dtype), cfg.norm_eps)
-    logits = x @ head.to(cfg.dtype)
+    logits = constrain(x @ fsdp_gather(head).to(cfg.dtype), "logits")
     c = cfg.final_softcap
     if c > 0:
         if logits.requires_grad:
@@ -515,11 +555,31 @@ def _unit(cfg: LMConfig, attn_impl: str, names, first: int, positions,
     slice."""
     n = len(names)
     for j in range(len(weights) // n):
-        lw = {k: w.to(cfg.dtype)
+        lw = {k: fsdp_gather(w).to(cfg.dtype)
               for k, w in zip(names, weights[j * n:(j + 1) * n])}
         x = _block(x, lw, cfg, positions, cfg.layer_window(first + j),
                    attn_impl)
     return x
+
+
+def _cast_once(params: Dict, cfg: LMConfig) -> Dict:
+    """``params`` with every leaf in ``cfg.dtype`` when
+    ``cfg.cast_params_once`` (one cast a step, before the layers), else
+    ``params``."""
+    if not cfg.cast_params_once:
+        return params
+    out = {k: v.to(cfg.dtype) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: v.to(cfg.dtype) for k, v in params["layers"].items()}
+    return out
+
+
+def _sublayers(cfg: LMConfig):
+    """``[(layer, window), ...]`` in the order the forward runs them: each
+    layer with its window, or the one-layer alternating stack's single
+    layer twice, local then global (the reference's degenerate pair)."""
+    if cfg.has_local and cfg.n_layers == 1:
+        return [(0, cfg.sliding_window), (0, 0)]
+    return [(i, cfg.layer_window(i)) for i in range(cfg.n_layers)]
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig, *,
@@ -527,13 +587,11 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig, *,
     """tokens (B, S) int -> logits (B, S, V) in ``cfg.dtype``, from the
     parameter dict ``params`` (the reference's pytree; leaves may require
     gradients).  Each layer, or an alternating stack's local/global pair,
-    runs under ``torch.utils.checkpoint`` when ``cfg.remat`` is set."""
+    runs under ``torch.utils.checkpoint`` when ``cfg.remat`` is set; the
+    one-layer alternating stack is one pair of its single layer."""
     from torch.utils.checkpoint import checkpoint
 
-    if cfg.has_local and cfg.n_layers == 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the one-layer alternating stack (the reference's "
-            "dry-run calibration variant) is not ported")
+    params = _cast_once(params, cfg)
     x = _embed(params["embed"], tokens, cfg)
     positions = _positions(tokens)
     names = sorted(params["layers"])
@@ -541,7 +599,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig, *,
     step = 2 if cfg.has_local else 1
     remat_kw = _remat_kwargs(cfg) if cfg.remat else None
     for first in range(0, cfg.n_layers, step):
-        weights = [s[i] for i in range(first, first + step) for s in slices]
+        weights = [s[i % cfg.n_layers] for i in range(first, first + step)
+                   for s in slices]
         fn = partial(_unit, cfg, attn_impl, names, first, positions)
         if remat_kw is None:
             x = fn(x, *weights)
@@ -556,9 +615,45 @@ def loss_fn(params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
     """Mean next-token cross-entropy: float32 logits, logsumexp minus the
     gold logit, averaged over (B, S), as the reference's ``loss_fn``."""
     logits = forward(params, tokens, cfg, attn_impl=attn_impl).float()
+    if _is_dtensor(logits):
+        return _vocab_parallel_loss(logits, labels)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (logz - gold).mean()
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _vocab_parallel_loss(logits, labels):
+    """``loss_fn``'s value for vocab-sharded DTensor logits (the dry run on
+    a mesh): PyTorch's vocab-parallel cross-entropy (``loss_parallel``),
+    which keeps the logits and their gradient sharded as GSPMD keeps the
+    reference's; a gather's backward would build the whole (B, S, V)
+    gradient on every device."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.parallel import loss_parallel
+
+    B, S, V = logits.shape
+    mesh = logits.device_mesh
+    flat = logits.reshape(B * S, V)
+    want = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else
+            Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in logits.placements]
+    if not any(isinstance(p, Shard) and p.dim == 1 for p in want):
+        want = list(flat.placements)
+    flat = flat.redistribute(mesh, want)
+    target = labels.reshape(B * S).long()
+    if _is_dtensor(target):
+        target = target.redistribute(mesh, [
+            Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in flat.placements])
+    with loss_parallel():
+        total = F.cross_entropy(flat, target, reduction="sum")
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------
@@ -620,10 +715,6 @@ class TransformerLM(nn.Module):
     take no gradient."""
 
     def __init__(self, cfg: LMConfig, params: Dict):
-        if cfg.has_local and cfg.n_layers == 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the one-layer alternating stack (the "
-                "reference's dry-run calibration variant) is not ported")
         super().__init__()
         self.cfg = cfg
 
@@ -643,8 +734,10 @@ class TransformerLM(nn.Module):
             {k: frozen(v) for k, v in params["layers"].items()})
 
     # -- pieces ---------------------------------------------------------------
-    def _layer(self, i: int) -> Dict:
-        return {k: p[i].to(self.cfg.dtype) for k, p in self.layers.items()}
+    def _layer(self, i: int, layers=None) -> Dict:
+        layers = self.layers if layers is None else layers
+        return {k: fsdp_gather(p[i]).to(self.cfg.dtype)
+                for k, p in layers.items()}
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return _embed(self.embed, tokens, self.cfg)
@@ -654,7 +747,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         x = rms_norm(x, self.final_norm.to(cfg.dtype), cfg.norm_eps)
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return x @ head.to(cfg.dtype)
+        return x @ fsdp_gather(head).to(cfg.dtype)
 
     def _ffn(self, x: torch.Tensor, lw: Dict) -> torch.Tensor:
         return _ffn(x, lw, self.cfg)
@@ -665,31 +758,42 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         x = self._embed(tokens)
         positions = _positions(tokens)
-        for i in range(cfg.n_layers):
-            x = _block(x, self._layer(i), cfg, positions,
-                       cfg.layer_window(i))
+        for i, window in _sublayers(cfg):
+            x = _block(x, self._layer(i), cfg, positions, window)
         head = self.embed.T if self.lm_head is None else self.lm_head
         return _logits(x, self.final_norm, head, cfg)
 
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, tokens: torch.Tensor, *, attn_impl: str = "ref"
+                ) -> Tuple[torch.Tensor, Dict]:
         """Serving prefill: last-position logits (B, V) float32 and the KV
         cache {k, v}: (L, B, Hkv, S, hd) in ``cfg.dtype``; alternating
         stacks also fill the ring caches ``k_local``/``v_local`` with the
-        last ``window`` positions of every layer."""
+        last ``window`` positions of every layer (the one-layer alternating
+        stack keeps its local sub-layer's).  With ``cfg.cast_params_once``
+        the layer stack is cast to ``cfg.dtype`` once, up front.
+        ``attn_impl`` as ``forward``'s."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = _positions(tokens)
+        layers = self.layers
+        if cfg.cast_params_once:
+            layers = {k: p.to(cfg.dtype) for k, p in layers.items()}
         shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
         ks = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
         vs = torch.empty_like(ks)
-        for i in range(cfg.n_layers):
-            lw = self._layer(i)
+        for j, (i, window) in enumerate(_sublayers(cfg)):
+            lw = self._layer(i, layers)
             h = rms_norm(x, lw["ln_attn"], cfg.norm_eps)
-            qt, ks[i], vs[i] = _qkv(h, lw, cfg, positions)
-            x = x + _attend(qt, ks[i], vs[i], cfg,
-                            cfg.layer_window(i)) @ lw["wo"]
-            x = self._ffn(x, lw)
+            qt, kt, vt = _qkv(h, lw, cfg, positions)
+            if j == 0:
+                ks, vs = stacked_like(ks, kt), stacked_like(vs, vt)
+            if j < cfg.n_layers:
+                ks[j], vs[j] = kt, vt
+                kt, vt = ks[j], vs[j]
+            x = x + _attend(qt, kt, vt, cfg, window, attn_impl) @ lw["wo"]
+            x = constrain(self._ffn(x, lw), "act_btd")
+            del qt, kt, vt
         logits = self._head(x[:, -1]).float()
         if cfg.final_softcap > 0:
             logits = cfg.final_softcap * torch.tanh(
