@@ -36,15 +36,18 @@ the MoE LM, the training and the GNN phases after it):
    longest run (``deg_runs``, ``deg_vertices``, ``longest_run``), and times
    the same kernel on a plan of the same size with every entry parked
    (``parked_ms``: no store and no atomic, the kernel's own fixed cost).
-   Kernel 4, PageRank's contribution sums (``kernels/slab_pagerank``: no
-   kernel of its own, kernel 3's ``sum`` launch behind an op that refuses
-   unpacked rows; not on the serve, whose PageRank sweeps through kernel
-   3), is driven as a path of its own: one call of its op on the served
-   transpose pool with PageRank's contributions, the launch counts zeroed
-   just before and read just after (the ``kernels`` line's launches),
-   held to its plain version, timed as its launch on the device alone
-   (``ms``) and per call of the op with its row check (``op_ms``), and it
-   must refuse a copy of the pool with one row unpacked.
+   Kernel 4, PageRank's contribution sums (``kernels/slab_pagerank``, its
+   own kernel ``csrc/slab_pagerank.cu``, which sums every lane of a row as
+   the reference does; not on the serve, whose PageRank sweeps through
+   kernel 3), is driven as a path of its own: one call of its op on the
+   served transpose pool with PageRank's contributions, the launch counts
+   zeroed just before and read just after (the ``kernels`` line's
+   launches: its kernel once, kernel 3 never), held to its plain version,
+   and again on a seeded copy of the pool whose rows' lanes are rotated so
+   that EMPTY lanes come first, where kernel 3's error is printed beside
+   it (``sweep_err_unpacked``: kernel 3 stops at a row's first EMPTY lane,
+   so the two functions differ there); timed on the device alone (``ms``)
+   and per call of the op (``op_ms``), beside its whole-row bound.
 3. **serve** - the port's ``launch.serve`` on the card at RMAT scale 20
    (1,048,576 vertices, 2**24 generated edges, 65,536-edge update batches
    with 25% deletes, 15 requests cycling update, PageRank, BFS and WCC
@@ -54,9 +57,12 @@ the MoE LM, the training and the GNN phases after it):
    from the request generator's edge ledger must hold the same edge set,
    the same BFS tree, PageRank within tolerance and the same components
    (scipy's weak components, labelled by their minimum vertex), and
-   membership answers must match the ledger.  The check runs again after a
-   forced slab reclamation and after a forced compaction, whose forward view
-   must equal a compaction planned by the plain census and chain walk.
+   membership answers must match the ledger.  The static PageRank also
+   runs with the reference's default ``contrib_impl="ref"`` (kernel 4,
+   one launch an iteration) and must agree with the ``"sweep"`` vector.
+   The check runs again after a forced slab reclamation and after a
+   forced compaction, whose forward view must equal a compaction planned
+   by the plain census and chain walk.
    Then, on the same store, **iterators**: an epoch opens on a copy of the
    forward view with one insert-only batch of 65,536 pairs through the
    engine, bit-equal to ``insert_edges_ref`` on a second copy; on the open
@@ -116,13 +122,16 @@ the MoE LM, the training and the GNN phases after it):
    sharing the card (``spawn``ed, a ``FileStore`` rendezvous, a 120 s
    group timeout, a parent deadline that kills them) each restore the
    checkpoint, keep their shard (``place_on_mesh``), count the booted
-   triangles and serve the stream through ``RequestPipeline`` with the
-   three sharded properties, with the launch counts zeroed after the
-   placement: every rank's leaf digests after every update must equal the
-   stacked shard's, the answers the sharded phase's (BFS, WCC and
-   membership bit for bit, PageRank within ``MESH_PR_REL / V``) and agree on
-   every rank with equal fixpoint counts, the triangle count the sharded
-   phase's, and every rank must launch kernels 1–3 and 5–7.  The ranks
+   triangles of the RMAT scale-16 graph restored as SHARDS shards and
+   placed on the same mesh (G1 walks the ring: ``ring_shift`` on every
+   rotation, the shares summed over the ranks) and serve the stream
+   through ``RequestPipeline`` with the three sharded properties, with
+   the launch counts zeroed after the placement: every rank's leaf
+   digests after every update must equal the stacked shard's, the answers
+   the sharded phase's (BFS, WCC and membership bit for bit, PageRank
+   within ``MESH_PR_REL / V``) and agree on every rank with equal fixpoint
+   counts, the triangle count the stacked SHARDS-shard store's, and every
+   rank must launch kernels 1–3 and 5–7.  The ranks
    journal to a ``WriteAheadLog`` (rank 0 writes) and audit every epoch
    (``AuditPolicy(every=1)``), both attached before the placement; before
    the stream's last update every rank saves (a mesh checkpoint, rank 0
@@ -135,7 +144,11 @@ the MoE LM, the training and the GNN phases after it):
    every rank, and rank 0's WAL byte-equal to the stacked replay's.  One
    NCCL rank then serves a 1-shard store at RMAT scale 16 (three compacting
    updates, three reads, 1,024 queries) against a 1-shard stacked store,
-   with the same WAL, audits, kill and recovery.
+   with the same WAL, audits, kill and recovery; it also counts the booted
+   triangles of the same graph on its mesh, which must equal both stacked
+   counts, and launches kernels 1–3 and 5–7.  (The sharded phase's
+   scale-20 booted count, held to phase 4's, is not repeated on the
+   ranks: on the unhashed shard pools it took ~59 s a rank.)
    The ``mesh`` line prints per request the max over ranks of its ms,
    collective ms and bytes and all-to-all bytes, the fixpoints'
    iterations and host reads, each rank's restore and placement seconds,
@@ -351,8 +364,9 @@ SHARD_UNREACHED = 2 ** 30
 #: the mesh phase: the sharded phase's store as one process a shard, its
 #: ranks sharing the card over gloo (NCCL refuses two ranks on one card),
 #: a deadline after which the parent kills them, and the kernels they must
-#: launch; then one NCCL rank at RMAT scale 16 (a 1-shard mesh), its
-#: update batches, deletes and maintenance trigger
+#: launch (kernel 7 in the booted triangle count, which both meshes take on
+#: the RMAT scale-16 graph); then one NCCL rank at RMAT scale 16 (a 1-shard
+#: mesh), its update batches, deletes and maintenance trigger
 MESH_BACKEND, MESH_DEVICE = "gloo", "cuda"
 MESH_DEADLINE_S = 480
 MESH_KERNELS = SHARD_KERNELS
@@ -474,6 +488,10 @@ BF16_OPS_PER_S = 989e12
 #: static vector stop at an L1 step <= 1e-5 with damping 0.85, which leaves
 #: each within 1e-5 * 0.85 / 0.15 = 5.7e-5 (L1) of the fixed point
 PR_L1_TOL = 2.5e-4
+#: the ``contrib_impl="ref"`` vector against the ``"sweep"`` one, max-abs:
+#: the same iterations over sums of the same lanes in another order (the
+#: card test's bound; the H100 read 2.75e-8 in L1)
+PR_REF_ABS = 2e-5
 #: float sum sweeps add the 128 lanes in another order than the plain
 #: version: rounding of the row total, a few float32 ulp
 SUM_RTOL = 1e-6
@@ -1095,20 +1113,38 @@ def compare_kernels(torch, got) -> list:
     return results
 
 
+def rotated_rows(torch, keys, *, seed: int):
+    """A copy of ``keys`` (S, 128) with each row's lanes rotated right by a
+    seeded amount in [1, its EMPTY lanes]: a packed row's EMPTY lanes come
+    first, and its keys follow them."""
+    S, W = keys.shape
+    n_empty = (keys == EMPTY_KEY).sum(dim=1)
+    gen = torch.Generator(device=keys.device).manual_seed(seed)
+    u = torch.rand(S, generator=gen, device=keys.device)
+    shift = 1 + (u * n_empty).long().clamp(max=W - 1)
+    lane = torch.arange(W, device=keys.device)
+    return torch.gather(keys, 1, (lane[None, :] - shift[:, None]) % W)
+
+
 def contrib_sums_row(torch, cap) -> dict:
-    """Kernel 4 (``kernels/slab_pagerank``) on a captured PageRank sweep.
-    The op is not on the serve (PageRank sweeps through kernel 3's
-    ``sweep_partials``), so it is driven here as a path of its own: one
-    call of the op (``slab_contrib_sums``, which checks the rows are
-    packed, one reduction and one host read, then launches kernel 3's
-    ``sum``) with the launch counts zeroed just before and read just after
-    (``launches``: the op's own count, one, and kernel 3's, one), held to
-    ``ref.slab_contrib_sums_ref`` within SUM_RTOL of the row totals; timed
-    on the device alone as its launch (``ms``; the row check reads the host,
-    so the op is timed per call, ``op_ms``), beside the CSR product; and
-    the op must refuse a copy of the pool with one row unpacked."""
+    """Kernel 4 (``kernels/slab_pagerank``, ``csrc/slab_pagerank.cu``) on a
+    captured PageRank sweep.  The op is not on the serve (PageRank sweeps
+    through kernel 3's ``sweep_partials``), so it is driven here as a path
+    of its own: one call of the op (``slab_contrib_sums``) with the launch
+    counts zeroed just before and read just after (``launches``: its
+    kernel once, kernel 3 never), held to ``ref.slab_contrib_sums_ref``
+    within SUM_RTOL of the row totals; then the kernel again on a seeded
+    copy of the pool whose rows' lanes are rotated so that EMPTY lanes come
+    first (``rotated_rows``), held to its plain version there too, beside
+    kernel 3's error on that copy (``sweep_err_unpacked``; kernel 3 reads a
+    row only up to its first EMPTY lane).  Timed on the device alone
+    (``ms``; ``unpacked_ms`` on the copy) and per call of the op
+    (``op_ms``: the owner mask from ``valid`` and the launch), beside the
+    plain version and the CSR product.  The function sums every lane, so
+    its bound reads every allocated row whole."""
     from repro_torch.kernels import runtime
     from repro_torch.kernels.slab_pagerank import (slab_contrib_sums,
+                                                   slab_contrib_sums_cuda,
                                                    slab_contrib_sums_ref)
     from repro_torch.kernels.slab_sweep import slab_sweep
 
@@ -1121,39 +1157,56 @@ def contrib_sums_row(torch, cap) -> dict:
     k = slab_contrib_sums(keys, valid, contrib)
     torch.cuda.synchronize()
     launched = {name: c for name, c in runtime.LAUNCHES.items() if c}
-    check(launched == {"slab_contrib_sums": 1, "slab_sweep": 1},
-          f"one call of the op launched {launched}, not kernel 3's sum once")
+    check(launched == {"slab_contrib_sums": 1},
+          f"one call of the op launched {launched}, not kernel 4 once")
     p = slab_contrib_sums_ref(keys, owner, contrib, n_vertices=n)
     err = float((k - p).abs().max())
-    check(err <= SUM_RTOL * float(p.abs().max()) + 1e-30,
-          f"slab_contrib_sums off by {err}")
-    bad = keys.clone()
-    row = int(torch.nonzero(bad[:, 1] >= 0)[0, 0])
-    bad[row, 0] = EMPTY_KEY
-    try:
-        slab_contrib_sums(bad, valid, contrib)
-        refused = False
-    except ValueError:
-        refused = True
-    check(refused, "slab_contrib_sums took a pool with an unpacked row")
-    del bad
+    tol = SUM_RTOL * float(p.abs().max()) + 1e-30
+    check(err <= tol, f"slab_contrib_sums off by {err}")
+    del k
+
+    rot = rotated_rows(torch, keys, seed=0)
+    unpacked = unpacked_rows(torch, [rot])
+    check(unpacked > 0, "the rotated pool holds no unpacked row")
+    ku = slab_contrib_sums_cuda(rot, owner, contrib, n_vertices=n)
+    pu = slab_contrib_sums_ref(rot, owner, contrib, n_vertices=n)
+    su = slab_sweep(rot, owner, contrib, semiring="sum", n_vertices=n)
+    torch.cuda.synchronize()
+    err_u = float((ku - pu).abs().max())
+    tol_u = SUM_RTOL * float(pu.abs().max()) + 1e-30
+    check(err_u <= tol_u,
+          f"slab_contrib_sums off by {err_u} on the rotated pool")
+    sweep_err_u = float((su - pu).abs().max())
+    check(sweep_err_u > tol_u, "kernel 3 agrees with kernel 4 on the "
+          "rotated pool: the copy does not tell the two functions apart")
+    del ku, pu, su
+
     S = keys.shape[0]
+    rows_alloc = int((owner >= 0).sum())
     filled = int(((keys != EMPTY_KEY) & (owner >= 0)[:, None]).sum())
     a = csr_of_pool(torch, keys, owner, n)
     library_ms = device_ms(torch, lambda: torch.mv(a, contrib))
     del a
     row = dict(
         name="slab_contrib_sums", variant="PageRank contrib (transpose view)",
-        max_abs_err=err,
-        ms=device_ms(torch, lambda: slab_sweep(keys, owner, contrib,
-                                               semiring="sum", n_vertices=n)),
+        max_abs_err=max(err, err_u),
+        ms=device_ms(torch, lambda: slab_contrib_sums_cuda(
+            keys, owner, contrib, n_vertices=n)),
+        unpacked_ms=device_ms(torch, lambda: slab_contrib_sums_cuda(
+            rot, owner, contrib, n_vertices=n)),
         op_ms=time_ms(torch, lambda: slab_contrib_sums(keys, valid,
                                                        contrib)),
         plain_ms=time_ms(torch, lambda: slab_contrib_sums_ref(
             keys, owner, contrib, n_vertices=n)),
-        library_ms=library_ms, rows=S, filled_lanes=filled,
-        refuses_unpacked_row=refused, launches=launched["slab_contrib_sums"],
-        **bound(filled * 4 + S * (4 + 4) + n * 4, filled * 2))
+        library_ms=library_ms, rows=S, rows_allocated=rows_alloc,
+        filled_lanes=filled, unpacked_rows=unpacked,
+        max_abs_err_unpacked=err_u, sweep_err_unpacked=sweep_err_u,
+        launches=launched["slab_contrib_sums"],
+        # every allocated row's 512 B of keys, owner and output of every
+        # row, contrib once; a compare of every lane read
+        **bound(rows_alloc * 512 + S * (4 + 4) + n * 4, rows_alloc * 128,
+                ops_per_s=INT32_OPS_PER_S))
+    del rot
     return row
 
 
@@ -1169,6 +1222,7 @@ def static_reference(torch, np, out) -> dict:
     from scipy.sparse.csgraph import connected_components
 
     from repro_torch.algorithms import bfs_tree_static, pagerank
+    from repro_torch.kernels import runtime
     from repro_torch.launch.serve import EdgeLedger
     from repro_torch.stream import GraphStore
 
@@ -1181,6 +1235,25 @@ def static_reference(torch, np, out) -> dict:
     tree, _ = bfs_tree_static(static.forward, 0, edge_capacity=1,
                               g_in=static.transpose)
     pr, iters = pagerank(static.transpose, static.out_degree)
+    # the reference's default pool sweep, kernel 4: one launch an iteration
+    before = dict(runtime.LAUNCHES)
+    t0 = time.perf_counter()
+    pr_ref, iters_ref = pagerank(static.transpose, static.out_degree,
+                                 contrib_impl="ref")
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    k4 = runtime.LAUNCHES["slab_contrib_sums"] - before["slab_contrib_sums"]
+    k3 = runtime.LAUNCHES["slab_sweep"] - before["slab_sweep"]
+    check(k4 == iters_ref and k3 == 0,
+          f"PageRank with contrib_impl='ref' ran {iters_ref} iterations "
+          f"with {k4} launches of kernel 4 and {k3} of kernel 3")
+    check(iters_ref == iters, f"PageRank with contrib_impl='ref' ran "
+          f"{iters_ref} iterations, with 'sweep' {iters}")
+    l1_ref = float((pr_ref - pr).abs().sum())
+    abs_ref = float((pr_ref - pr).abs().max())
+    check(l1_ref <= PR_L1_TOL and abs_ref <= PR_REF_ABS,
+          f"PageRank with contrib_impl='ref' is {l1_ref} (L1) and "
+          f"{abs_ref} (max-abs) from the 'sweep' vector")
     adj = coo_matrix((np.ones(len(pairs), np.int8),
                       (pairs[:, 0].astype(np.int64),
                        pairs[:, 1].astype(np.int64))), shape=(V, V))
@@ -1190,7 +1263,12 @@ def static_reference(torch, np, out) -> dict:
     np.minimum.at(lowest, comp, np.arange(V))
     return {"tree": tree, "pagerank": pr, "pagerank_iters": iters,
             "wcc": torch.from_numpy(lowest[comp].astype(np.int32)).to(dev),
-            "components": int(n_comp)}
+            "components": int(n_comp),
+            "pagerank_ref": {"iters": iters_ref, "sweep_iters": iters,
+                             "l1_vs_sweep": l1_ref,
+                             "max_abs_vs_sweep": abs_ref,
+                             "slab_contrib_sums_launches": k4,
+                             "seconds": ref_s}}
 
 
 def check_state(torch, np, out, want, stage: str) -> dict:
@@ -2194,9 +2272,10 @@ def stacked_serve(torch, np, job: dict) -> dict:
 
 def mesh_rank(rank: int, world: int, run_dir: str) -> None:
     """One rank of a mesh job (``run_dir/job.pkl``): join the mesh, restore
-    the stacked checkpoint and keep this rank's shard, count the
-    triangles when asked, serve the requests, and write what it measured
-    and answered to ``run_dir/rank{rank}.pkl``."""
+    the stacked checkpoint and keep this rank's shard, count the booted
+    triangles of the job's triangle checkpoint on the mesh, serve the
+    requests, and write what it measured and answered to
+    ``run_dir/rank{rank}.pkl``."""
     import hashlib
     import pickle
     import traceback
@@ -2242,13 +2321,18 @@ def mesh_rank(rank: int, world: int, run_dir: str) -> None:
             runtime.reset_launches()
             sgm.reset_fix_stats()
             res["digests"] = [shard_digests(np, store, rank)]
-            if job["triangles"]:
-                collectives.reset_collective_stats()
-                t0 = time.perf_counter()
-                res["triangles"] = int(sgm.triangles_sharded(store.symmetric))
-                res["triangles_s"] = time.perf_counter() - t0
-                res["triangles_collective"] = dict(
-                    collectives.COLLECTIVE_STATS)
+            # the booted triangles of a store of their own, placed on the
+            # same mesh: one rotation of G1 a shard, summed over the ranks
+            tri, _ = stream_mod.ShardedGraphStore.restore(
+                job["triangles_ckpt"], device="cpu")
+            tri.place_on_mesh(mesh)
+            collectives.reset_collective_stats()
+            t0 = time.perf_counter()
+            res["triangles"] = int(sgm.triangles_sharded(tri.symmetric))
+            res["triangles_s"] = time.perf_counter() - t0
+            res["triangles_collective"] = dict(collectives.COLLECTIVE_STATS)
+            del tri
+            gc.collect()
             registry = _registry(stream_mod, store, job["policy"])
             pipe = stream_mod.RequestPipeline(store, registry)
             rows, maint_base = [], 0
@@ -2470,21 +2554,44 @@ def mesh_lines(got: list) -> dict:
             "fixpoint": got[0]["fix"]}
 
 
-def nccl_job(torch, np, run_dir: Path) -> dict:
-    """The one-rank NCCL job: a 1-shard sharded store at RMAT scale 16 on
-    the card, saved, and a stream of three mixed updates (the deletes
-    reach the maintenance trigger), a read of each property between them
-    and a membership query."""
+def small_graph():
+    """The mesh's RMAT scale-16 graph (deduplicated pairs)."""
     import repro_torch.stream as stream_mod
     from repro_torch.data.synth import rmat_edges
 
-    V = MESH_NCCL_VERTICES
-    src, dst = rmat_edges(V, MESH_NCCL_EDGES, seed=3)
+    src, dst = rmat_edges(MESH_NCCL_VERTICES, MESH_NCCL_EDGES, seed=3)
     src, dst, _ = stream_mod.dedup_pairs(src, dst)
-    store = stream_mod.ShardedGraphStore.from_edges(V, 1, src, dst,
-                                                    device=MESH_DEVICE)
-    store.save(run_dir / "ckpt")
+    return src, dst
+
+
+def triangle_ckpt(torch, n_shards: int, ckpt_dir: Path) -> int:
+    """The scale-16 graph booted as an ``n_shards`` stacked store on the
+    card and saved to ``ckpt_dir``; its booted triangle count (stacked),
+    which the mesh's ranks must count on its restored shards."""
+    import repro_torch.stream as stream_mod
+    from repro_torch.distributed import sharded_graph as sgm
+
+    src, dst = small_graph()
+    store = stream_mod.ShardedGraphStore.from_edges(
+        MESH_NCCL_VERTICES, n_shards, src, dst, device=MESH_DEVICE)
+    count = int(sgm.triangles_sharded(store.symmetric))
+    store.save(ckpt_dir)
     del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return count
+
+
+def nccl_job(torch, np, run_dir: Path) -> dict:
+    """The one-rank NCCL job: a 1-shard sharded store at RMAT scale 16 on
+    the card, saved (its booted triangles counted stacked), and a stream
+    of three mixed updates (the deletes reach the maintenance trigger), a
+    read of each property between them and a membership query."""
+    import repro_torch.stream as stream_mod
+
+    V = MESH_NCCL_VERTICES
+    src, dst = small_graph()
+    triangles = triangle_ckpt(torch, 1, run_dir / "ckpt")
     rng = np.random.default_rng(3)
     requests = []
     for prop in ("wcc", "pagerank", "bfs_0"):
@@ -2499,8 +2606,10 @@ def nccl_job(torch, np, run_dir: Path) -> dict:
                                                           dst=dst[q])))
     return {"ckpt_dir": str(run_dir / "ckpt"), "requests": requests,
             "policy": "lazy", "tombstone_ratio": MESH_NCCL_RATIO,
-            "triangles": False, "backend": MESH_NCCL_BACKEND,
-            "device": MESH_DEVICE, "kill_at": last_update(requests),
+            "triangles_ckpt": str(run_dir / "ckpt"),
+            "triangles_stacked": triangles,
+            "backend": MESH_NCCL_BACKEND, "device": MESH_DEVICE,
+            "kill_at": last_update(requests),
             "stacked_wal_dir": str(run_dir / "stacked_wal")}
 
 
@@ -2532,9 +2641,11 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
     store and keeping its shard: every shard's pool leaves (sha256) after
     every update must equal those of the stacked store replaying the
     stream, the answers the sharded phase's (BFS, WCC and membership bit
-    for bit, PageRank within MESH_PR_REL / V) and the booted triangle count
-    its count.  Then one NCCL rank on a 1-shard mesh against a 1-shard
-    stacked store.  Returns every rank's launch counts."""
+    for bit, PageRank within MESH_PR_REL / V); the same ranks count the
+    booted triangles of the RMAT scale-16 graph restored as SHARDS shards,
+    which must equal the stacked store's count.  Then one NCCL rank on a
+    1-shard mesh against a 1-shard stacked store, its triangle count on
+    the same graph the same.  Returns every rank's launch counts."""
     import tempfile
 
     import shutil
@@ -2548,10 +2659,17 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
     free = shutil.disk_usage(tmp).free
     check(free > 1.2 * need, f"{free} bytes free under {tmp}, the mesh's "
           f"checkpoint before its kill takes {need}")
+    # at RMAT scale 20 on the unhashed shard pools the ranks' booted count
+    # took ~59 s a rank: they count the scale-16 graph's, restored as
+    # SHARDS shards, and the sharded phase's count is held to phase 4's
+    t0 = time.perf_counter()
+    triangles = triangle_ckpt(torch, SHARDS, tmp / "triangles_ckpt")
+    triangle_ckpt_s = time.perf_counter() - t0
     job = {"ckpt_dir": mesh_in["ckpt_dir"],
            "requests": mesh_in["requests"], "policy": mesh_in["policy"],
            "tombstone_ratio": mesh_in["tombstone_ratio"],
-           "triangles": True, "backend": MESH_BACKEND,
+           "triangles_ckpt": str(tmp / "triangles_ckpt"),
+           "triangles_stacked": triangles, "backend": MESH_BACKEND,
            "device": MESH_DEVICE, "kill_at": last_update(mesh_in["requests"]),
            "stacked_wal_dir": str(tmp / "stacked_wal")}
     t0 = time.perf_counter()
@@ -2579,9 +2697,15 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
         wal = check_mesh_wal(tmp / "ranks", job, "mesh")
     reading = check_mesh_ranks(np, got, want, "mesh")
     for r, res in enumerate(got):
-        check(res["triangles"] == sharded["triangles"],
+        check(res["triangles"] == triangles,
               f"rank {r} counted {res['triangles']} triangles on the mesh, "
-              f"the sharded phase {sharded['triangles']}")
+              f"the stacked store {triangles}")
+        # the bound's max, G1 shifted one rank on each of SHARDS - 1
+        # rotations, the sum
+        check(res["triangles_collective"]["calls"] >= SHARDS + 1,
+              f"rank {r}'s triangle count made "
+              f"{res['triangles_collective']['calls']} collective calls: G1 "
+              "did not walk the ring")
         for name in MESH_KERNELS:
             check(res["launches"][name] > 0,
                   f"{name} was never launched on mesh rank {r}")
@@ -2593,10 +2717,11 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
           "note": "the ranks time-slice one card and gloo stages their "
                   "collectives through host memory: these times say "
                   "nothing about NCCL across cards",
+          **lines, **reading, **wal, "audits": got[0]["audits"],
           "triangles": got[0]["triangles"],
           "triangles_s": [r["triangles_s"] for r in got],
           "triangles_collective": [r["triangles_collective"] for r in got],
-          **lines, **reading, **wal, "audits": got[0]["audits"],
+          "triangle_ckpt_s": triangle_ckpt_s,
           "stacked_replay_s": replay_s,
           "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase})
 
@@ -2612,10 +2737,20 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
           "the NCCL rank's store never compacted")
     check(got1[0]["requests"][0]["collective"]["all_to_all_bytes"] > 0,
           "the NCCL rank's update exchanged nothing")
+    check(got1[0]["triangles"] == job["triangles_stacked"] == triangles,
+          f"the NCCL rank counted {got1[0]['triangles']} triangles on its "
+          f"mesh, the 1-shard stacked store {job['triangles_stacked']}, "
+          f"the {SHARDS}-shard one {triangles}")
+    for name in MESH_KERNELS:
+        check(got1[0]["launches"][name] > 0,
+              f"{name} was never launched on the NCCL rank")
     emit({"phase": "mesh_nccl", "card": gpu_line(), "ranks": 1,
           "backend": MESH_NCCL_BACKEND, **mesh_lines(got1), **reading1,
           **wal1, "audits": got1[0]["audits"],
           "maintenance_count": got1[0]["maintenance_count"],
+          "triangles": got1[0]["triangles"],
+          "triangles_s": got1[0]["triangles_s"],
+          "triangles_collective": got1[0]["triangles_collective"],
           "seconds": time.perf_counter() - t0})
     return {"launches": [r["launches"] for r in got],
             "nccl_launches": got1[0]["launches"]}
@@ -5833,7 +5968,7 @@ def main() -> int:
     t0 = time.perf_counter()
     want = static_reference(torch, np, out)
     emit({"phase": "self_check", "static_reference_s":
-          time.perf_counter() - t0})
+          time.perf_counter() - t0, "pagerank_ref": want["pagerank_ref"]})
     t0 = time.perf_counter()
     emit({"phase": "self_check", **check_state(torch, np, out, want,
                                                "served"),
@@ -5992,7 +6127,6 @@ def main() -> int:
         "slab_probe": "src/repro/kernels/slab_update/kernel.py:81",
         "slab_commit": "src/repro/kernels/slab_update/kernel.py:160",
         "slab_sweep": "src/repro/kernels/slab_sweep/kernel.py:80",
-        # kernel 4: kernel 3's sum launch, reached through its own op
         "slab_contrib_sums": "src/repro/kernels/slab_pagerank/kernel.py:23",
         "slab_live": "src/repro/kernels/slab_compact/kernel.py:60",
         "slab_chain_rank": "src/repro/kernels/slab_compact/kernel.py:137",
@@ -6006,7 +6140,7 @@ def main() -> int:
     source = {"slab_probe": "src/repro_torch/csrc/slab_update.cu",
               "slab_commit": "src/repro_torch/csrc/slab_update.cu",
               "slab_sweep": "src/repro_torch/csrc/slab_sweep.cu",
-              "slab_contrib_sums": "src/repro_torch/csrc/slab_sweep.cu",
+              "slab_contrib_sums": "src/repro_torch/csrc/slab_pagerank.cu",
               "slab_live": "src/repro_torch/csrc/slab_compact.cu",
               "slab_chain_rank": "src/repro_torch/csrc/slab_compact.cu",
               "slab_count": "src/repro_torch/csrc/slab_intersect.cu",

@@ -1,10 +1,17 @@
 """Dynamic PageRank over the in-edge (transpose) view.
 
 Per super-step: contributions ``PR[u] / out[u]``; the pool sweep sums them
-over every vertex's in-neighbours (the ``sum`` semiring of the slab-sweep
-kernel: the reference's ``contrib_impl="sweep"``); the mass of sinks is
-teleported; the L1 change decides convergence.  Dynamic PageRank warm-starts
-from the previous vector.  Each iteration reads the L1 change on the host.
+over every vertex's in-neighbours; the mass of sinks is teleported; the L1
+change decides convergence.  Dynamic PageRank warm-starts from the previous
+vector.  Each iteration reads the L1 change on the host.
+
+``contrib_impl`` picks the pool sweep, with the reference's values:
+``"sweep"`` (alias ``"pallas"``, the port's default) is kernel 3's ``sum``
+semiring through ``sweep_partials``; ``"ref"`` (the reference's default)
+is kernel 4, ``kernels/slab_pagerank``, which sums every lane of a row.
+``"ref"`` is there for callers written against the reference and for pools
+whose rows are not packed; on the engine's pools, whose rows are packed,
+both give the same vector and kernel 3 is the faster.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.slab_graph import SlabGraph
+from ..kernels.slab_pagerank import slab_contrib_sums_cuda
 from ..kernels.slab_sweep.ops import sweep_partials
 
 
@@ -25,12 +33,26 @@ def slab_contrib_sums_ref(keys: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid, contrib[idx], 0.0).sum(dim=1)
 
 
+def _partials_fn(g_in: SlabGraph, contrib_impl: str):
+    """contrib (V,) -> (S,) per-slab sums over ``g_in``'s pool."""
+    if contrib_impl in ("sweep", "pallas"):
+        return lambda contrib: sweep_partials(g_in, contrib, semiring="sum")
+    if contrib_impl == "ref":
+        # kernel 4 with the view's own owners: the reference's oracle over
+        # ``pool_edges(g_in).valid``, whose rows are the owned ones
+        return lambda contrib: slab_contrib_sums_cuda(
+            g_in.keys, g_in.slab_vertex, contrib,
+            n_vertices=g_in.n_vertices)
+    raise ValueError(f"unknown contrib_impl {contrib_impl!r}")
+
+
 def pagerank(g_in: SlabGraph, out_degree: torch.Tensor, *,
              init_pr: Optional[torch.Tensor] = None, damping: float = 0.85,
-             error_margin: float = 1e-5,
-             max_iter: int = 100) -> Tuple[torch.Tensor, int]:
+             error_margin: float = 1e-5, max_iter: int = 100,
+             contrib_impl: str = "sweep") -> Tuple[torch.Tensor, int]:
     """Static (``init_pr=None``) or warm-started PageRank; (vector,
     iterations)."""
+    partials = _partials_fn(g_in, contrib_impl)
     n = g_in.n_vertices
     dev = g_in.device
     seg = torch.where(g_in.slab_vertex >= 0, g_in.slab_vertex, n).long()
@@ -44,7 +66,7 @@ def pagerank(g_in: SlabGraph, out_degree: torch.Tensor, *,
     go_on = True
     while go_on and it < max_iter:
         contrib = torch.where(has_out, pr / deg, 0.0)
-        partial = sweep_partials(g_in, contrib, semiring="sum")
+        partial = partials(contrib)
         sums = torch.zeros(n + 1, dtype=torch.float32,
                            device=dev).index_add_(0, seg, partial)[:n]
         new_pr = (1.0 - damping) / n + damping * sums
@@ -65,7 +87,7 @@ def pagerank_dynamic(g_in: SlabGraph, out_degree: torch.Tensor,
 
 
 def stream_property(*, damping: float = 0.85, error_margin: float = 1e-5,
-                    max_iter: int = 100):
+                    max_iter: int = 100, contrib_impl: str = "sweep"):
     """PropertySpec: PageRank over the store's transpose view with the
     forward view's degrees; every batch is a warm start, so lazy catch-up
     runs it once however many epochs it missed."""
@@ -78,7 +100,7 @@ def stream_property(*, damping: float = 0.85, error_margin: float = 1e-5,
                              "with_transpose=True")
         pr, _ = pagerank(store.transpose, store.out_degree, init_pr=init_pr,
                          damping=damping, error_margin=error_margin,
-                         max_iter=max_iter)
+                         max_iter=max_iter, contrib_impl=contrib_impl)
         return pr
 
     return PropertySpec(

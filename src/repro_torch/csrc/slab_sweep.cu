@@ -1,9 +1,10 @@
 // Semiring slab sweep for Hopper (sm_90a).
 //
 // Replaces the TPU kernel slab_sweep_pallas / _sweep_kernel of
-// repro/kernels/slab_sweep/kernel.py (:80, :34), and through it
-// slab_contrib_sums_pallas (repro/kernels/slab_pagerank/kernel.py:23),
-// which is its sum semiring with no frontier.
+// repro/kernels/slab_sweep/kernel.py (:80, :34).  Its sum semiring with no
+// frontier, slab_contrib_sums_pallas (repro/kernels/slab_pagerank/
+// kernel.py:23), has a kernel of its own that reads every lane
+// (slab_pagerank.cu).
 //
 // For every slab row: gather values[key] at each of the 128 lanes, drop
 // lanes whose key is not a vertex (key >= n as uint32: EMPTY/TOMBSTONE

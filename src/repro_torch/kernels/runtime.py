@@ -11,9 +11,7 @@ them at once (one ``nvcc`` per source, all started together).
 
 ``LAUNCHES`` counts launches per kernel: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.  Kernel 4 (``slab_contrib_sums``) has no kernel
-of its own: its entry point counts the calls in which it launches kernel
-3's ``sum`` on the card, which kernel 3's count holds as well.
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -31,8 +29,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("slab_update", "slab_sweep", "slab_compact", "slab_intersect",
-           "flash_attention", "flash_attention_bwd", "embedding_bag")
+SOURCES = ("slab_update", "slab_sweep", "slab_pagerank", "slab_compact",
+           "slab_intersect", "flash_attention", "flash_attention_bwd",
+           "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

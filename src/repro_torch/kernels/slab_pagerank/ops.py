@@ -14,9 +14,13 @@ def slab_contrib_sums(keys: torch.Tensor, valid: torch.Tensor,
 
     The kernel re-derives the lane mask from the keys; a row counts as
     allocated iff any lane of ``valid`` is set, matching the algorithm
-    layer's ``PoolView``.  Rows must be packed (``kernel``).
+    layer's ``PoolView``.  One launch on CUDA tensors, the plain version on
+    CPU tensors.
     """
-    owner = torch.where(valid.any(dim=1), 0, -1).to(torch.int32)
+    # a row's 128 flags read as 16 int64 words: the same test, an eighth of
+    # the elements to reduce
+    rows = valid.to(torch.bool).contiguous().view(torch.int64)
+    owner = rows.any(dim=1).to(torch.int32) - 1
     return slab_contrib_sums_cuda(keys, owner, contrib,
                                   n_vertices=contrib.shape[0])
 

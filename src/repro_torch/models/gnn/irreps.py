@@ -270,10 +270,21 @@ def clebsch_gordan_real(l1: int, l2: int, l3: int) -> np.ndarray:
     return np.ascontiguousarray(out)
 
 
-@lru_cache(maxsize=None)
 def cg_tensor(l1: int, l2: int, l3: int, device: torch.device,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``clebsch_gordan_real(l1, l2, l3)`` as a tensor on ``device``, made
-    once per (l1, l2, l3, device, dtype)."""
+    once per (l1, l2, l3, device, dtype).  Under a ``FakeTensorMode`` (the
+    dry run's trace) the tensor is fake, so it is made anew and not cached:
+    a cached fake tensor would stand in for the real one afterwards."""
+    from torch._guards import detect_fake_mode
+
+    if detect_fake_mode() is not None:
+        return _cg_tensor.__wrapped__(l1, l2, l3, device, dtype)
+    return _cg_tensor(l1, l2, l3, device, dtype)
+
+
+@lru_cache(maxsize=None)
+def _cg_tensor(l1: int, l2: int, l3: int, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(clebsch_gordan_real(l1, l2, l3), dtype=dtype,
                         device=device)

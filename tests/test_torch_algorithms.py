@@ -108,6 +108,60 @@ def test_pagerank_matches():
                                atol=PR_ATOL)
 
 
+@pytest.mark.parametrize("contrib_impl", ["ref", "sweep", "pallas"])
+def test_pagerank_contrib_impl_matches(contrib_impl):
+    """Each of the reference's pool sweeps: the vector within PR_ATOL and
+    the same iteration count, static and warm-started after deletes."""
+    _, src, dst, fwd, tr = _graphs(5, False)
+    want, wi = ja.pagerank(tr, fwd.degree, contrib_impl=contrib_impl)
+    got, gi = ta.pagerank(to_port(tr), to_port(fwd).degree,
+                          contrib_impl=contrib_impl)
+    np.testing.assert_allclose(got.numpy(), np_of(want), rtol=0,
+                               atol=PR_ATOL)
+    assert gi == int(wi)
+    ds, dd = src[:80], dst[:80]
+    fwd, _ = jbatch.delete_edges(fwd, jids(ds, 128), jids(dd, 128),
+                                 impl="jnp")
+    tr, _ = jbatch.delete_edges(tr, jids(dd, 128), jids(ds, 128), impl="jnp")
+    want, wi = ja.pagerank_dynamic(tr, fwd.degree, want,
+                                   contrib_impl=contrib_impl)
+    got, gi = ta.pagerank_dynamic(to_port(tr), to_port(fwd).degree, got,
+                                  contrib_impl=contrib_impl)
+    np.testing.assert_allclose(got.numpy(), np_of(want), rtol=0,
+                               atol=PR_ATOL)
+    assert gi == int(wi)
+
+
+@pytest.mark.parametrize("contrib_impl", ["ref", "sweep", "pallas"])
+def test_pagerank_stream_property_contrib_impl(contrib_impl):
+    """The stream property with each pool sweep, against the reference's
+    property with the same one, before and after an update."""
+    from repro import stream as jstream
+    from repro_torch import stream as tstream
+    _, src, dst, _, _ = _graphs(6, False)
+    kw = dict(hashing=False, with_symmetric=False, slack_slabs=64)
+    js = jstream.GraphStore.from_edges(120, src, dst, **kw)
+    ts = tstream.GraphStore.from_edges(120, src, dst, device="cpu", **kw)
+    jreg, treg = jstream.PropertyRegistry(js), tstream.PropertyRegistry(ts)
+    jreg.register(ja.pagerank_stream_property(contrib_impl=contrib_impl))
+    treg.register(ta.pagerank_stream_property(contrib_impl=contrib_impl))
+    for step in range(2):
+        np.testing.assert_allclose(treg.read("pagerank").numpy(),
+                                   np_of(jreg.read("pagerank")), rtol=0,
+                                   atol=PR_ATOL)
+        if step == 0:
+            js.apply(del_src=src[:40], del_dst=dst[:40])
+            ts.apply(del_src=src[:40], del_dst=dst[:40])
+
+
+def test_pagerank_unknown_contrib_impl_raises():
+    _, _, _, fwd, tr = _graphs(5, False)
+    with pytest.raises(ValueError, match="contrib_impl"):
+        ja.pagerank(tr, fwd.degree, contrib_impl="dense")
+    with pytest.raises(ValueError, match="contrib_impl"):
+        ta.pagerank(to_port(tr), to_port(fwd).degree, contrib_impl="dense")
+
+
 def test_expand_vertices_matches():
     rng = np.random.default_rng(6)
     V = 64

@@ -20,8 +20,9 @@ TF32: 1e-4; histories bit for bit).  Kernel 10's backward is held to
 ``attention_bwd_ref`` (1e-4 in float32, 2e-2 in bfloat16: one rounding of
 either output) and to itself bit for bit, and a train step on the card to
 the same step on the CPU, as is each GNN smoke config's step (1e-5 /
-1e-4).  Kernel 4's op is held to its plain version on the card and must
-refuse a pool with an unpacked row there too.  This module
+1e-4).  Kernel 4 is held to its plain version on the card (1e-6 of the
+row totals) on a packed pool and on one whose keys follow EMPTY lanes,
+where kernel 3 reads less.  This module
 imports no JAX (the card's machine has none): ``ATTN_CASES`` is shared with
 the CPU parity test.
 """
@@ -1658,8 +1659,8 @@ def test_mesh_wal_and_recovery_on_one_nccl_rank(cuda, tmp_path):
 
 
 def test_slab_contrib_sums_on_card_matches_plain(cuda, graph):
-    """Kernel 4's op on the card (kernel 3's ``sum`` launch, counted under
-    both names) against its plain version on the same packed pool, within
+    """Kernel 4's op on the card (its own kernel, one launch, no launch of
+    kernel 3) against its plain version on the same packed pool, within
     1e-6 of the largest row total (the float sum's rounding)."""
     from repro_torch.core.worklist import pool_edges
     from repro_torch.kernels.slab_pagerank import (slab_contrib_sums,
@@ -1669,7 +1670,7 @@ def test_slab_contrib_sums_on_card_matches_plain(cuda, graph):
     before = dict(runtime.LAUNCHES)
     got = slab_contrib_sums(g.keys, pool_edges(g).valid, contrib)
     torch.cuda.synchronize()
-    assert runtime.LAUNCHES["slab_sweep"] == before["slab_sweep"] + 1
+    assert runtime.LAUNCHES["slab_sweep"] == before["slab_sweep"]
     assert runtime.LAUNCHES["slab_contrib_sums"] == \
         before["slab_contrib_sums"] + 1
     owner = torch.where(pool_edges(g).valid.any(dim=1), 0, -1).to(
@@ -1680,19 +1681,68 @@ def test_slab_contrib_sums_on_card_matches_plain(cuda, graph):
                                atol=1e-6 * float(want.abs().max()) + 1e-30)
 
 
-def test_slab_contrib_sums_refuses_an_unpacked_row_on_card(cuda, graph):
+def _rotated_rows(keys: torch.Tensor, seed: int) -> torch.Tensor:
+    """A copy of ``keys`` with each row's lanes rotated right by a seeded
+    amount in [1, its EMPTY lanes]: a packed row's EMPTY lanes come first,
+    and its keys follow them."""
     from repro_torch.core.hashing import EMPTY_KEY
-    from repro_torch.core.worklist import pool_edges
-    from repro_torch.kernels.slab_pagerank import slab_contrib_sums
+    S, W = keys.shape
+    n_empty = (keys == EMPTY_KEY).sum(dim=1)
+    gen = torch.Generator(device=keys.device).manual_seed(seed)
+    u = torch.rand(S, generator=gen, device=keys.device)
+    shift = 1 + (u * n_empty).long().clamp(max=W - 1)
+    lane = torch.arange(W, device=keys.device)
+    return torch.gather(keys, 1, (lane[None, :] - shift[:, None]) % W)
+
+
+def test_slab_contrib_sums_on_card_matches_plain_on_unpacked_rows(cuda,
+                                                                 graph):
+    """Kernel 4 reads every lane: on a copy of the pool whose rows hold
+    their keys after EMPTY lanes (and a TOMBSTONE, a key >= V and an
+    unowned row holding keys), the kernel equals its plain version, and
+    kernel 3, which stops at a row's first EMPTY lane, does not."""
+    from repro_torch.core.hashing import TOMBSTONE_KEY
+    from repro_torch.kernels.slab_pagerank import (slab_contrib_sums_cuda,
+                                                   slab_contrib_sums_ref)
     _, _, _, g = graph
-    keys = g.keys.clone()
-    row = int(torch.nonzero((keys[:, 1] >= 0)).flatten()[0])
-    keys[row, 0] = EMPTY_KEY                 # a key after an EMPTY lane
+    V = g.n_vertices
+    keys = _rotated_rows(g.keys, seed=3)
+    owner = g.slab_vertex.clone()
+    rows = torch.nonzero(owner >= 0).flatten()
+    keys[rows[0], 5] = TOMBSTONE_KEY
+    keys[rows[1], 9] = V + 3
+    owner[rows[2]] = -1
+    contrib = torch.rand(V, device=cuda)
     before = dict(runtime.LAUNCHES)
-    with pytest.raises(ValueError, match="after an EMPTY lane"):
-        slab_contrib_sums(keys, pool_edges(g).valid,
-                          torch.rand(g.n_vertices, device=cuda))
-    assert runtime.LAUNCHES == before
+    got = slab_contrib_sums_cuda(keys, owner, contrib, n_vertices=V)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_contrib_sums"] == \
+        before["slab_contrib_sums"] + 1
+    want = slab_contrib_sums_ref(keys, owner, contrib, n_vertices=V)
+    atol = 1e-6 * float(want.abs().max()) + 1e-30
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert float(got[rows[2]]) == 0.0
+    packed_only = slab_sweep(keys, owner, contrib, semiring="sum",
+                             n_vertices=V)
+    assert float((packed_only - want).abs().max()) > atol
+
+
+def test_pagerank_ref_on_card_matches_sweep(cuda, graph):
+    """PageRank with the reference's default ``contrib_impl="ref"`` (kernel
+    4, one launch an iteration, no kernel 3) against ``"sweep"`` (kernel
+    3) on the card: the same iterations, the vectors within 2e-5."""
+    from repro_torch.algorithms import pagerank
+    _, _, _, g = graph
+    gt = transpose_host(g, device=cuda)
+    before = dict(runtime.LAUNCHES)
+    pr_ref, it_ref = pagerank(gt, g.degree, contrib_impl="ref")
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["slab_contrib_sums"] == \
+        before["slab_contrib_sums"] + it_ref
+    assert runtime.LAUNCHES["slab_sweep"] == before["slab_sweep"]
+    pr_sweep, it_sweep = pagerank(gt, g.degree, contrib_impl="sweep")
+    assert it_ref == it_sweep
+    assert float((pr_ref - pr_sweep).abs().max()) <= 2e-5
 
 
 @pytest.fixture

@@ -124,6 +124,21 @@ def test_wigner_batched():
                                        np.asarray(jDs[l][i]), atol=ATOL)
 
 
+def test_cg_tensor_keeps_fake_tensors_out_of_its_cache():
+    """A block made under the dry run's ``FakeTensorMode`` is fake; the
+    next call outside the trace still gets the real table."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    dev = torch.device("cpu")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = tirr.cg_tensor(3, 2, 4, dev, torch.float64)
+    assert isinstance(fake, FakeTensor)
+    real = tirr.cg_tensor(3, 2, 4, dev, torch.float64)
+    assert not isinstance(real, FakeTensor)
+    assert real is tirr.cg_tensor(3, 2, 4, dev, torch.float64)
+    np.testing.assert_array_equal(real.numpy(),
+                                  tirr.clebsch_gordan_real(3, 2, 4))
+
+
 @pytest.mark.parametrize("l1,l2,l3", [(1, 1, 0), (1, 1, 1), (1, 1, 2),
                                       (2, 1, 1), (2, 2, 2), (2, 2, 0),
                                       (2, 1, 2), (2, 2, 1)])

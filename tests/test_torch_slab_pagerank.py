@@ -1,19 +1,16 @@
-"""Port parity: kernel 4's op surface (``kernels/slab_pagerank``) against
+"""Port parity: kernel 4 (``kernels/slab_pagerank``) against
 ``repro.kernels.slab_pagerank`` on the CPU.
 
 The reference's own test (``tests/test_kernels.py``) scatters EMPTY and
-TOMBSTONE keys through its rows at random.  On those rows:
-
-* ``ref.slab_contrib_sums_ref`` matches the reference's oracle and its
-  Pallas kernel in interpret mode, within the reference test's
-  atol 1e-4 / rtol 1e-5;
-* the op and its kernel entry point refuse the rows: kernel 3 reads a row
-  only up to its first EMPTY lane, so the card would sum fewer lanes than
-  the reference.
-
-On the same rows packed (the EMPTY lanes moved to the tail, the other lanes
-kept in order) the op and the entry point match the reference's op and
-oracle within the same tolerance.
+TOMBSTONE keys through its rows at random, so most rows hold keys after an
+EMPTY lane.  The reference sums every lane whose key is a vertex, wherever
+it sits, and so does the port's kernel (``csrc/slab_pagerank.cu``).  On
+those rows, on the same rows packed (the EMPTY lanes moved to the tail) and
+on hand-built rows (a TOMBSTONE after an EMPTY lane, a key >= V, an
+allocated row of EMPTY lanes only, a full row, an unowned row holding keys)
+the plain version, the op and its kernel entry point match the reference's
+oracle, op and Pallas kernel in interpret mode within the reference test's
+atol 1e-4 / rtol 1e-5.  On CPU tensors nothing is launched.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,8 +23,7 @@ from repro.kernels.slab_pagerank.ref import slab_contrib_sums_ref as jref
 from repro_torch.kernels import runtime
 from repro_torch.kernels.slab_pagerank import (slab_contrib_sums,
                                                slab_contrib_sums_cuda,
-                                               slab_contrib_sums_ref,
-                                               unpacked_rows)
+                                               slab_contrib_sums_ref)
 
 CASES = [(16, 100, 8), (100, 1000, 32), (257, 50, 64), (512, 4096, 256)]
 TOL = dict(atol=1e-4, rtol=1e-5)
@@ -51,14 +47,46 @@ def _packed(keys):
     return np.take_along_axis(keys, order, axis=1)
 
 
+def _unpacked(keys) -> int:
+    """Rows with a non-EMPTY lane after an EMPTY lane."""
+    return int((keys != _packed(keys)).any(axis=1).sum())
+
+
 def _t(keys):
     return torch.from_numpy(keys.view(np.int32).copy())
+
+
+def _check_all_forms(keys, owner, contrib, V, R):
+    """The plain version, the op and the entry point against the
+    reference's oracle, op and Pallas kernel, with no launch counted."""
+    valid = (keys < V) & (owner[:, None] >= 0)
+    want = np.asarray(jref(jnp.asarray(keys), jnp.asarray(owner),
+                           jnp.asarray(contrib), n_vertices=V))
+    pallas = np.asarray(slab_contrib_sums_pallas(
+        jnp.asarray(keys), jnp.asarray(owner), jnp.asarray(contrib),
+        n_vertices=V, rows_per_block=R, interpret=True))
+    want_op = np.asarray(jop(jnp.asarray(keys), jnp.asarray(valid),
+                             jnp.asarray(contrib)))
+    before = dict(runtime.LAUNCHES)
+    plain = slab_contrib_sums_ref(_t(keys), torch.from_numpy(owner),
+                                  torch.from_numpy(contrib), n_vertices=V)
+    entry = slab_contrib_sums_cuda(_t(keys), torch.from_numpy(owner),
+                                   torch.from_numpy(contrib), n_vertices=V)
+    op = slab_contrib_sums(_t(keys), torch.from_numpy(valid),
+                           torch.from_numpy(contrib))
+    assert runtime.LAUNCHES == before
+    for got in (plain, entry, op):
+        assert got.dtype == torch.float32 and got.shape == keys.shape[:1]
+    for got in (plain, entry):
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), pallas, **TOL)
+    np.testing.assert_allclose(op.numpy(), want_op, **TOL)
 
 
 @pytest.mark.parametrize("S,V,R", CASES)
 def test_ref_matches_reference_on_unpacked_rows(S, V, R):
     keys, owner, contrib = _rows(S, V)
-    assert unpacked_rows(_t(keys)) > 0
+    assert _unpacked(keys) > 0
     got = slab_contrib_sums_ref(_t(keys), torch.from_numpy(owner),
                                 torch.from_numpy(contrib), n_vertices=V)
     want = jref(jnp.asarray(keys), jnp.asarray(owner), jnp.asarray(contrib),
@@ -72,23 +100,17 @@ def test_ref_matches_reference_on_unpacked_rows(S, V, R):
 
 
 @pytest.mark.parametrize("S,V,R", CASES)
-def test_op_refuses_unpacked_rows(S, V, R):
+def test_op_matches_reference_on_unpacked_rows(S, V, R):
     keys, owner, contrib = _rows(S, V)
-    valid = torch.from_numpy((keys < V) & (owner[:, None] >= 0))
-    before = dict(runtime.LAUNCHES)
-    with pytest.raises(ValueError, match="after an EMPTY lane"):
-        slab_contrib_sums(_t(keys), valid, torch.from_numpy(contrib))
-    with pytest.raises(ValueError, match="after an EMPTY lane"):
-        slab_contrib_sums_cuda(_t(keys), torch.from_numpy(owner),
-                               torch.from_numpy(contrib), n_vertices=V)
-    assert runtime.LAUNCHES == before
+    assert _unpacked(keys) > 0
+    _check_all_forms(keys, owner, contrib, V, R)
 
 
 @pytest.mark.parametrize("S,V,R", CASES)
 def test_op_matches_reference_on_packed_rows(S, V, R):
     keys, owner, contrib = _rows(S, V)
     keys = _packed(keys)
-    assert unpacked_rows(_t(keys)) == 0
+    assert _unpacked(keys) == 0
     valid = (keys < V) & (owner[:, None] >= 0)
     got = slab_contrib_sums(_t(keys), torch.from_numpy(valid),
                             torch.from_numpy(contrib))
@@ -101,11 +123,36 @@ def test_op_matches_reference_on_packed_rows(S, V, R):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_unpacked_rows_counts_each_bad_row_once():
-    keys = np.full((4, 128), EMPTY, np.uint32)
-    keys[0, :5] = 1                      # packed
-    keys[1, 3] = 2                       # a key after three EMPTY lanes
-    keys[2, [0, 7, 9]] = [3, TOMB, 4]    # a tombstone after an EMPTY lane
-    assert unpacked_rows(_t(keys)) == 2
-    keys[3, :] = 5                       # full row: packed
-    assert unpacked_rows(_t(keys)) == 2
+def _row(kind, V):
+    """One hand-built row of 128 lanes and its owner."""
+    row = np.full(128, EMPTY, np.uint32)
+    if kind == "tombstone_after_empty":
+        row[[0, 7, 9, 127]] = [3, TOMB, 4, 5]
+    elif kind == "key_at_or_above_v":
+        row[:6] = [1, V, V + 7, 2, 0x7FFFFFFF, 0xFFFFFFFF]
+    elif kind == "full":
+        row[:] = np.arange(128) % V
+    elif kind == "unowned_with_keys":
+        row[:40] = np.arange(40) % V
+        return row, -1
+    # "empty_allocated": every lane EMPTY, owner >= 0
+    return row, 6
+
+
+@pytest.mark.parametrize("kind", ["tombstone_after_empty", "key_at_or_above_v",
+                                  "empty_allocated", "full",
+                                  "unowned_with_keys"])
+def test_hand_built_row_matches_reference(kind):
+    V = 50
+    rng = np.random.default_rng(7)
+    contrib = rng.standard_normal(V).astype(np.float32)
+    keys, owner = _rows(3, V)[:2]        # neighbours of the row under test
+    row, own = _row(kind, V)
+    keys[1], owner[1] = row, own
+    _check_all_forms(keys, owner, contrib, V, 8)
+    got = slab_contrib_sums_cuda(_t(keys), torch.from_numpy(owner),
+                                 torch.from_numpy(contrib), n_vertices=V)
+    lanes = row[(row < V)] if own >= 0 else row[:0]
+    np.testing.assert_allclose(float(got[1]),
+                               float(contrib[lanes.astype(np.int64)].sum()),
+                               **TOL)

@@ -11,8 +11,9 @@ compiled in parallel into ``build/slab_variants/`` and loaded with ctypes.
 ``--kernels`` picks among ``sweep``, ``count`` (``slab_sweep.cu``,
 ``slab_intersect.cu``), ``probe``, ``commit`` (``slab_update.cu``),
 ``chain`` (``slab_compact.cu``), ``hits`` (the membership probe of
-``slab_intersect.cu``) and ``bag`` (``embedding_bag.cu``); the default is
-all seven.  ``serve`` (with ``--parent``) also runs the serve of
+``slab_intersect.cu``), ``bag`` (``embedding_bag.cu``) and ``contrib``
+(kernel 4, ``slab_pagerank.cu``); the default is all eight.  ``serve``
+(with ``--parent``) also runs the serve of
 ``chip_smoke.SERVE_ARGS`` end to end from this checkout and from the
 parent's, each in its own process, in turns (parent, committed, committed,
 parent), and prints each request's latency.
@@ -31,6 +32,14 @@ each variant the script prints:
   layout its ops built;
 * the static count (``triangles_static``) end to end, host clock, with the
   variant's library in the engine (the parent with its dense layout).
+
+Kernel 4 (``contrib``) runs on the same graph's transpose (unhashed, as
+PageRank sweeps it) with random contributions: each variant's device time,
+beside kernel 3's committed ``sum`` on the same pool (which reads only the
+filled lanes), the CSR ``torch.mv``, the whole-row bound, the committed
+op per call (``op_ms``) and its owner mask reduced as bools and as int64
+words.  A parent
+checkout without ``slab_pagerank.cu`` adds no ``contrib`` build.
 
 Probe, commit and chain walk run on the inputs the serve hands them
 (``chip_smoke.capture_serve_inputs``: the first probe and commit of each
@@ -210,6 +219,31 @@ VARIANTS = {
     ("sweep", "group32"): (
         "a warp a row, reading its 512 B up to the first EMPTY lane",
         [("constexpr int kGroup = 4;", "constexpr int kGroup = 32;")]),
+    ("contrib", "committed"): ("the source as committed", []),
+    ("contrib", "group4"): (
+        "4 threads a row: 64 B steps, eight uint4 a thread, 8 rows a warp",
+        [("constexpr int kGroup = 8;", "constexpr int kGroup = 4;")]),
+    ("contrib", "group16"): (
+        "16 threads a row: 256 B steps, two uint4 a thread, 2 rows a warp",
+        [("constexpr int kGroup = 8;", "constexpr int kGroup = 16;")]),
+    ("contrib", "group32"): (
+        "a warp a row: the row's 512 B in one step, one uint4 a thread",
+        [("constexpr int kGroup = 8;", "constexpr int kGroup = 32;")]),
+    ("contrib", "rows1"): (
+        "one row a group (four a warp)",
+        [("constexpr int kRows = 4;", "constexpr int kRows = 1;")]),
+    ("contrib", "rows2"): (
+        "two rows a group (eight a warp)",
+        [("constexpr int kRows = 4;", "constexpr int kRows = 2;")]),
+    ("contrib", "rows8"): (
+        "eight rows a group, all eight rows' keys loaded before any gather",
+        [("constexpr int kRows = 4;", "constexpr int kRows = 8;")]),
+    ("contrib", "threads512"): (
+        "blocks of 16 warps",
+        [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")]),
+    ("contrib", "cached"): (
+        "the key loads through L1 and L2 as usual, not evict-first",
+        [("__ldcs(k4 + q * kGroup)", "k4[q * kGroup]")]),
     ("count", "committed"): ("the source as committed", []),
     ("count", "quads1"): (
         "a probe thread loads one uint4 (16 B) a step",
@@ -662,7 +696,7 @@ extern "C" int row_gather(const void* flat, int n, const void* table,
 SOURCES = {"sweep": "slab_sweep", "count": "slab_intersect",
            "hits": "slab_intersect", "probe": "slab_update",
            "chain": "slab_compact", "commit": "slab_update",
-           "bag": "embedding_bag"}
+           "bag": "embedding_bag", "contrib": "slab_pagerank"}
 
 
 def ptxas_summary(log: str) -> dict:
@@ -703,8 +737,10 @@ def build(parent, kernels):
         jobs[(kernel, name)] = path
     if parent is not None:
         for kernel in sorted(kernels & set(SOURCES)):
-            jobs[(kernel, "parent")] = Path(parent) / "src" / "repro_torch" \
-                / "csrc" / f"{SOURCES[kernel]}.cu"
+            path = Path(parent) / "src" / "repro_torch" / "csrc" \
+                / f"{SOURCES[kernel]}.cu"
+            if path.is_file():
+                jobs[(kernel, "parent")] = path
     if "bag" in kernels:
         path = OUT / "row_gather.cu"
         path.write_text(GATHER_SRC)
@@ -752,6 +788,72 @@ def probe_entry(lib, parent: bool):
             raise SystemExit(f"slab_probe launch failed: code {rc}")
         return found, slab, lane
     return run
+
+
+def contrib_entry(lib):
+    """``(keys, owner, contrib, n) -> (S,) sums`` through a library's C
+    entry point."""
+    import torch
+    fn = lib.slab_contrib_sums
+    fn.argtypes = [_P] * 4 + [_I, ctypes.c_uint, _P]
+    fn.restype = _I
+
+    def run(keys, owner, contrib, n):
+        out = torch.empty(keys.shape[0], dtype=torch.float32,
+                          device=keys.device)
+        rc = fn(keys.data_ptr(), owner.data_ptr(), contrib.data_ptr(),
+                out.data_ptr(), keys.shape[0], n,
+                torch.cuda.current_stream(keys.device).cuda_stream)
+        if rc:
+            raise SystemExit(f"slab_contrib_sums launch failed: code {rc}")
+        return out
+    return run
+
+
+def contrib_variants(torch, cs, libs, tr):
+    """Kernel 4's variants on the transpose ``tr``, in turns, beside kernel
+    3's ``sum`` and the CSR product."""
+    from repro_torch.kernels.slab_pagerank import (slab_contrib_sums,
+                                                   slab_contrib_sums_ref)
+    from repro_torch.kernels.slab_sweep import slab_sweep
+
+    V = tr.n_vertices
+    keys, owner = tr.keys, tr.slab_vertex
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    contrib = torch.rand(V, generator=gen, device="cuda")
+    want = slab_contrib_sums_ref(keys, owner, contrib, n_vertices=V)
+    runs = {}
+    for key in [k for k in libs if k[0] == "contrib"]:
+        fn = contrib_entry(libs[key])
+        got = fn(keys, owner, contrib, V)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err > cs.SUM_RTOL * float(want.abs().max()) + 1e-30:
+            raise SystemExit(f"{key}: differs from the plain version by "
+                             f"{err}")
+        runs[key[1]] = (lambda fn=fn: fn(keys, owner, contrib, V))
+    runs["sweep_sum"] = lambda: slab_sweep(keys, owner, contrib,
+                                           semiring="sum", n_vertices=V)
+    a = cs.csr_of_pool(torch, keys, owner, V)
+    runs["csr_mv"] = lambda: torch.mv(a, contrib)
+    # the op's owner mask: a row's 128 flags reduced as bools and as 16
+    # int64 words (the op's form)
+    valid = (owner[:, None] >= 0) & (keys >= 0) & (keys < V)
+    runs["mask_bool"] = lambda: valid.any(dim=1)
+    runs["mask_int64"] = lambda: valid.view(torch.int64).any(dim=1)
+    ms = in_turns(torch, cs, runs, None)
+    op_ms = [cs.time_ms(torch, lambda: slab_contrib_sums(keys, valid,
+                                                         contrib))
+             for _ in range(2)]
+    rows_alloc = int((owner >= 0).sum())
+    print(json.dumps({
+        "kernel": "slab_contrib_sums", "case": "transpose",
+        "rows": keys.shape[0], "rows_allocated": rows_alloc, "ms": ms,
+        "op_ms": op_ms,
+        **cs.bound(rows_alloc * 512 + keys.shape[0] * 8 + V * 4,
+                   rows_alloc * 128, ops_per_s=cs.INT32_OPS_PER_S)}),
+        flush=True)
+    del a
 
 
 def chain_entry(lib, parent: bool):
@@ -1115,6 +1217,14 @@ def sweep_and_count(torch, np, cs, libs, args, kernels):
     src, dst, _ = dedup_pairs(src, dst)
     fwd = (from_edges_host(V, src, dst, hashing=False, device="cuda")
            if "sweep" in kernels else None)
+    if "contrib" in kernels:
+        tr = from_edges_host(V, dst, src, hashing=False, device="cuda")
+        print(json.dumps({"graphs_s": time.perf_counter() - t0,
+                          "edges": int(len(src))}), flush=True)
+        contrib_variants(torch, cs, libs, tr)
+        del tr
+        if not kernels & {"sweep", "count", "hits"}:
+            return
     sym = from_edges_host(V, np.concatenate([src, dst]),
                           np.concatenate([dst, src]), hashing=True,
                           device="cuda")
@@ -1342,7 +1452,7 @@ def main() -> int:
     if "bag" in kernels:
         bag_variants(torch, np, cs, libs)
         torch.cuda.empty_cache()
-    if kernels & {"sweep", "count", "hits"}:
+    if kernels & {"sweep", "count", "hits", "contrib"}:
         sweep_and_count(torch, np, cs, libs, args, kernels)
     if "serve" in kernels:
         serve_turns(cs, args.parent)
