@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases, each printing JSON lines (the third with the iterators, MIND,
+Eight phases, each printing JSON lines (the third with the iterators, MIND,
 the durability, the sharded and the mesh phases after it, the fifth with
 the MoE LM, the training and the GNN phases after it):
 
@@ -122,7 +122,9 @@ the MoE LM, the training and the GNN phases after it):
    sharing the card (``spawn``ed, a ``FileStore`` rendezvous, a 120 s
    group timeout, a parent deadline that kills them) each restore the
    checkpoint, keep their shard (``place_on_mesh``), count the booted
-   triangles of the RMAT scale-16 graph restored as SHARDS shards and
+   triangles of the RMAT scale-16 graph restored as SHARDS shards (whose
+   stacked count, ``triangles_sharded`` in int64, must first equal
+   ``triangles_static`` on the same graph unsharded and hashed) and
    placed on the same mesh (G1 walks the ring: ``ring_shift`` on every
    rotation, the shares summed over the ranks) and serve the stream
    through ``RequestPipeline`` with the three sharded properties, with
@@ -280,7 +282,25 @@ the MoE LM, the training and the GNN phases after it):
    and flushed (``flushed_ms``), beside the bytes its rows gather
    (``gathered_bytes``: valid slots times row bytes, where the bound counts
    each distinct row once).
-7. **dryrun** - the dry run and the roofline held to the card.  A worker
+7. **examples** - the four ``examples/torch_*.py`` in-process, each
+   through its ``main``, with the launch counts zeroed before and read
+   after each run.  ``torch_quickstart`` and ``torch_streaming_analytics``
+   on the card must print what the same example prints on the CPU (the
+   plain versions) bit for bit, PageRank's top within 2e-5;
+   ``torch_gnn_molecules`` its 20 edge counts bit for bit and its losses
+   within EX_GNN_LOSS_TOL of the CPU's, which the same run with one AdamW
+   step skipped must fall outside; ``torch_train_lm`` (gemma2-9b's smoke
+   config, head_dim 16 run zero-padded to the kernels' 64) trains
+   EX_TRAIN_STEPS[0] steps on the card, then resumes in the same
+   checkpoint directory to EX_TRAIN_STEPS[1], with finite losses; the
+   q, k, v and options of its first local and first global attention call
+   then go once more through ``ops.flash_attention`` forward and backward
+   (kernel 10 and its backward, 16-wide heads padded to 64) against
+   ``attention_ref`` and its autograd on the same inputs and a seeded
+   cotangent, within EX_ATTN_TOL (those launches are not the run's).  Each
+   must launch its EX_KERNELS (kernel 10 and its backward for the LM).
+   One ``examples`` line an example: card and CPU ms, kernels launched.
+8. **dryrun** - the dry run and the roofline held to the card.  A worker
    process started right after the build (``--dryrun-worker``, niced and
    pinned to one core; it makes fake tensors only, nothing is allocated
    or launched on the card) traces every cell the script runs at full
@@ -2582,6 +2602,25 @@ def triangle_ckpt(torch, n_shards: int, ckpt_dir: Path) -> int:
     return count
 
 
+def unsharded_triangles(torch) -> int:
+    """The scale-16 graph's static triangle count on one hashed store on
+    the card, as the triangles phase counts: the sharded counts' yardstick."""
+    import repro_torch.stream as stream_mod
+    from repro_torch.algorithms import triangles_static
+    from repro_torch.algorithms.triangle import _sym_bpv
+
+    src, dst = small_graph()
+    store = stream_mod.GraphStore.from_edges(
+        MESH_NCCL_VERTICES, src, dst, hashing=True, with_transpose=False,
+        device=MESH_DEVICE)
+    count = int(triangles_static(store.symmetric,
+                                 max_bpv=_sym_bpv(store.symmetric)))
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return count
+
+
 def nccl_job(torch, np, run_dir: Path) -> dict:
     """The one-rank NCCL job: a 1-shard sharded store at RMAT scale 16 on
     the card, saved (its booted triangles counted stacked), and a stream
@@ -2661,10 +2700,15 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
           f"checkpoint before its kill takes {need}")
     # at RMAT scale 20 on the unhashed shard pools the ranks' booted count
     # took ~59 s a rank: they count the scale-16 graph's, restored as
-    # SHARDS shards, and the sharded phase's count is held to phase 4's
+    # SHARDS shards, and the sharded phase's count is held to phase 4's;
+    # the stacked scale-16 count is held to the same graph's unsharded
     t0 = time.perf_counter()
     triangles = triangle_ckpt(torch, SHARDS, tmp / "triangles_ckpt")
     triangle_ckpt_s = time.perf_counter() - t0
+    unsharded = unsharded_triangles(torch)
+    check(triangles == unsharded,
+          f"triangles_sharded counted {triangles} on {SHARDS} stacked "
+          f"shards, triangles_static {unsharded} on the graph unsharded")
     job = {"ckpt_dir": mesh_in["ckpt_dir"],
            "requests": mesh_in["requests"], "policy": mesh_in["policy"],
            "tombstone_ratio": mesh_in["tombstone_ratio"],
@@ -2719,6 +2763,7 @@ def mesh_phase(torch, np, sharded: dict) -> dict:
                   "nothing about NCCL across cards",
           **lines, **reading, **wal, "audits": got[0]["audits"],
           "triangles": got[0]["triangles"],
+          "triangles_unsharded": unsharded,
           "triangles_s": [r["triangles_s"] for r in got],
           "triangles_collective": [r["triangles_collective"] for r in got],
           "triangle_ckpt_s": triangle_ckpt_s,
@@ -5537,6 +5582,218 @@ def embedding_bag_phase(torch, np) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# the examples phase: the four examples/torch_*.py on the card
+# ----------------------------------------------------------------------------
+
+#: each example's kernels, all of which must launch in its run on the card
+#: (the quickstart's BFS and WCC expand edges and union-find: no sweep)
+EX_KERNELS = {
+    "torch_quickstart": ("slab_probe", "slab_commit"),
+    "torch_streaming_analytics": ("slab_probe", "slab_commit", "slab_sweep",
+                                  "slab_live", "slab_chain_rank"),
+    "torch_gnn_molecules": ("slab_probe", "slab_commit"),
+    "torch_train_lm": ("flash_attention", "flash_attention_bwd"),
+}
+#: gnn_molecules' 20 losses on the card against the CPU's (float32, no
+#: TF32; the segment sums' float atomics order the card's sums anew each
+#: run); one step's AdamW update skipped (EX_GNN_FAULT_STEP) must fall
+#: outside.  On an H100 80GB HBM3 at 700 W the largest difference read
+#: 1.55e-6 clean and 0.242 with the step skipped (PERF.md section 6).
+EX_GNN_LOSS_TOL = 1e-3
+EX_GNN_FAULT_STEP = 10
+#: train_lm on the card: a first run and its resumption in the same
+#: checkpoint directory
+EX_TRAIN_STEPS = (20, 25)
+#: kernel 10 and its backward through ``ops.flash_attention`` at
+#: train_lm's shapes (its 16-wide heads zero-padded to 64) against
+#: ``attention_ref`` and its autograd in float32, as atol = rtol: the card
+#: test ``test_flash_attention_narrow_head_matches_plain``'s
+EX_ATTN_TOL = {"forward": 2e-5, "backward": 1e-4}
+EX_ATTN_SEED = 3
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(torch, fn) -> tuple:
+    """(``fn()``'s result, its ms on the host clock, the kernels it
+    launched), the launch counts zeroed just before and read just after."""
+    from repro_torch.kernels import runtime
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, ms, {k: v for k, v in runtime.LAUNCHES.items() if v}
+
+
+def skipping_update(opt, step: int):
+    """``opt.update`` that leaves parameters and moments as they were at
+    call ``step`` (counted from 0): one AdamW step skipped."""
+    real, calls = opt.update, [0]
+
+    def update(cfg, grads, state, params, **kw):
+        calls[0] += 1
+        if calls[0] - 1 == step:
+            return params, state
+        return real(cfg, grads, state, params, **kw)
+    return update
+
+
+def ex_attention_check(torch, captured: dict) -> dict:
+    """Kernel 10's forward and backward through ``ops.flash_attention`` on
+    the q, k, v and options train_lm's first local and global calls took,
+    against ``attention_ref`` and its autograd on the same inputs and a
+    seeded cotangent; per call the largest error and its excess over
+    EX_ATTN_TOL (fails above 0), and the launches the check made."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def excess(got, want, tol):
+        return float(((got - want).abs() - tol * (1 + want.abs())).max())
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, (q, k, v, kw) in sorted(captured.items()):
+        gen = torch.Generator(device=q.device).manual_seed(EX_ATTN_SEED)
+        do = torch.randn(q.shape, generator=gen, device=q.device,
+                         dtype=q.dtype)
+        before = dict(runtime.LAUNCHES)
+        ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        got = ops.flash_attention(*ts, **kw)
+        grads = torch.autograd.grad(got, ts, do)
+        launched = {n: runtime.LAUNCHES[n] - before.get(n, 0)
+                    for n in ("flash_attention", "flash_attention_bwd")}
+        refs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        want = attention_ref(*refs, **kw)
+        want_grads = torch.autograd.grad(want, refs, do)
+        got, want = got.detach(), want.detach()
+        row = {"shape": {"q": list(q.shape), "k": list(k.shape)},
+               "dtype": str(q.dtype).replace("torch.", ""),
+               "window": kw.get("window", 0),
+               "softcap": kw.get("softcap", 0.0), "launched": launched,
+               "forward_err": float((got - want).abs().max()),
+               "forward_excess": excess(got, want, EX_ATTN_TOL["forward"]),
+               "backward_err": max(float((a - b).abs().max())
+                                   for a, b in zip(grads, want_grads)),
+               "backward_excess": max(
+                   excess(a, b, EX_ATTN_TOL["backward"])
+                   for a, b in zip(grads, want_grads))}
+        check(all(n == 1 for n in launched.values()),
+              f"train_lm's {name} attention check launched {launched}")
+        check(row["forward_excess"] <= 0 and row["backward_excess"] <= 0,
+              f"kernel 10 at train_lm's {name} attention differs from "
+              f"attention_ref: {row}")
+        out[name] = row
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def examples_phase(torch, np) -> dict:
+    """The four ported examples in-process on the card, each held to the
+    same example on the CPU (the plain versions) but train_lm, which runs
+    on the card only, then resumes."""
+    import contextlib
+    import io
+    import tempfile
+    lines = {}
+
+    def quiet(fn):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    def line(name, card_ms, cpu_ms, launched, **kw):
+        for k in EX_KERNELS[name]:
+            check(launched.get(k, 0) > 0,
+                  f"{name} never launched {k} on the card")
+        row = {"phase": "examples", "example": name, "card_ms": card_ms,
+               "cpu_ms": cpu_ms, "kernels": launched, **kw}
+        emit(row)
+        lines[name] = row
+
+    for name in ("torch_quickstart", "torch_streaming_analytics"):
+        mod = load_example(name)
+        card, card_ms, launched = run_example(
+            torch, lambda: quiet(lambda: mod.main(device="cuda")))
+        t0 = time.perf_counter()
+        cpu = quiet(lambda: mod.main(device="cpu"))
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        top = None
+        if "pagerank_top" in card:
+            top = abs(card.pop("pagerank_top") - cpu.pop("pagerank_top"))
+            check(top <= PR_REF_ABS, f"{name}: PageRank's top on the card "
+                                     f"is {top} from the CPU's")
+        check(card == cpu, f"{name}: the card printed {card}, the CPU {cpu}")
+        line(name, card_ms, cpu_ms, launched, pagerank_top_err=top)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = "torch_gnn_molecules"
+    mod = load_example(name)
+    card, card_ms, launched = run_example(
+        torch, lambda: quiet(lambda: mod.main(device="cuda")))
+    t0 = time.perf_counter()
+    cpu = quiet(lambda: mod.main(device="cpu"))
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    with swapped(mod.opt, update=skipping_update(mod.opt,
+                                                 EX_GNN_FAULT_STEP)):
+        faulty = quiet(lambda: mod.main(device="cuda"))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+    fault_err = max(abs(a - b)
+                    for a, b in zip(faulty["losses"], cpu["losses"]))
+    check(card["edges"] == cpu["edges"] == faulty["edges"],
+          f"{name}: edges on the card {card['edges']}, on the CPU "
+          f"{cpu['edges']}")
+    check(all(np.isfinite(card["losses"])), f"{name}: a loss is not finite")
+    check(err <= EX_GNN_LOSS_TOL, f"{name}: the card's losses are {err} "
+                                  f"from the CPU's")
+    check(fault_err > EX_GNN_LOSS_TOL,
+          f"{name}: a skipped AdamW step passes the gate ({fault_err})")
+    line(name, card_ms, cpu_ms, launched, loss_err=err,
+         fault_loss_err=fault_err, tol=EX_GNN_LOSS_TOL,
+         edges=card["edges"])
+
+    name = "torch_train_lm"
+    mod = load_example(name)
+    import repro_torch.models.transformer as tfm
+    captured = {}
+    with tempfile.TemporaryDirectory() as d, swapped(
+            tfm, flash_attention=capture_attention(torch, tfm, captured)):
+        runs = []
+        for n in EX_TRAIN_STEPS:
+            runs.append(run_example(torch, lambda n=n: quiet(lambda: mod.main(
+                ["--steps", str(n), "--ckpt-dir", d]))))
+    (first, ms1, l1), (second, ms2, l2) = runs
+    losses = first["losses"] + second["losses"]
+    check(all(np.isfinite(losses)), f"{name}: a loss is not finite")
+    check(len(first["losses"]) == first["final_step"] == EX_TRAIN_STEPS[0],
+          f"{name}: the first run took {len(first['losses'])} steps")
+    check(second["final_step"] == EX_TRAIN_STEPS[1] and
+          len(second["losses"]) == EX_TRAIN_STEPS[1] - EX_TRAIN_STEPS[0],
+          f"{name}: the second run did not resume at step "
+          f"{EX_TRAIN_STEPS[0]}: {len(second['losses'])} steps")
+    launched = {k: l1.get(k, 0) + l2.get(k, 0) for k in set(l1) | set(l2)}
+    check(set(captured) == {"local", "global"},
+          f"{name}: attention calls captured {sorted(captured)}")
+    attention = ex_attention_check(torch, captured)
+    line(name, ms1 + ms2, None, launched, steps=list(EX_TRAIN_STEPS),
+         first_loss=losses[0], last_loss=losses[-1],
+         resumed_at=second["final_step"] - len(second["losses"]),
+         attention=attention, attention_tol=EX_ATTN_TOL)
+    return lines
+
+
+# ----------------------------------------------------------------------------
 # the dryrun phase: the dry run and the roofline held to the card
 # ----------------------------------------------------------------------------
 
@@ -6095,6 +6352,16 @@ def main() -> int:
     results += bag["results"]
     launches["embedding_bag"] = bag["launches"]
     emit({"phase": "embedding_bag", "seconds": time.perf_counter() - t0})
+
+    # ------------------------------------------------------------- examples
+    t0 = time.perf_counter()
+    ex = examples_phase(torch, np)
+    launches["flash_attention"] += ex["torch_train_lm"]["kernels"].get(
+        "flash_attention", 0)
+    launches["flash_attention_bwd"] += ex["torch_train_lm"]["kernels"].get(
+        "flash_attention_bwd", 0)
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0})
+    del ex
 
     # --------------------------------------------------------------- dryrun
     t0 = time.perf_counter()

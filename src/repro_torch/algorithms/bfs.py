@@ -14,10 +14,11 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.slab_graph import SlabGraph
+from ..core.worklist import expand_vertices
 from ..kernels.slab_sweep.ops import sweep_vertices
-from .sssp import (TreeState, _expand_frontier, init_state,
-                   run_to_convergence, sssp_decremental, sssp_incremental,
-                   tree_state_like)
+from .sssp import (INF, TreeState, _expand_frontier, init_state,
+                   relax_edges, run_to_convergence, sssp_decremental,
+                   sssp_incremental, tree_state_like)
 
 #: the level of a vertex the search has not reached
 UNREACHED = 2 ** 30

@@ -19,7 +19,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.hashing import SLAB_WIDTH
 from ..core.slab_graph import SlabGraph
+from ..core.worklist import pool_edges
 from ..kernels.slab_pagerank import slab_contrib_sums_cuda
 from ..kernels.slab_sweep.ops import sweep_partials
 

@@ -95,17 +95,18 @@ def _expand_frontier(g: SlabGraph, mask: torch.Tensor, *,
 
 
 def run_to_convergence(g: SlabGraph, state: TreeState,
-                       improved: torch.Tensor, *, edge_capacity: int,
+                       improved0: torch.Tensor, *, edge_capacity: int,
                        max_bpv: int = 1, max_iters: int = 100000,
                        g_in: Optional[SlabGraph] = None
                        ) -> Tuple[TreeState, int]:
-    """Relax the improved frontier until it empties; (state, iterations).
+    """Relax the frontier ``improved0`` until it empties; (state,
+    iterations).
 
     With ``g_in`` (the transpose) every step is two frontier-masked sweeps;
     without it, the frontier's out-edges are expanded and relaxed as an
     edge list.
     """
-    it = 0
+    it, improved = 0, improved0
     while it < max_iters and bool(improved.any()):
         if g_in is not None:
             state, improved = relax_sweep(g_in, state, improved)

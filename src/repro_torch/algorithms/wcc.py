@@ -25,7 +25,8 @@ import torch
 
 from ..core.slab_graph import SlabGraph, next_pow2
 from ..core.union_find import compress, init_parents, union_batch
-from ..core.worklist import pool_edges, updated_edges, updated_vertices
+from ..core.worklist import (pool_edges, updated_edges, updated_lane_mask,
+                              updated_vertices)
 from ..kernels.slab_sweep.ops import sweep_vertices
 from ..kernels.slab_sweep.ref import INT32_MAX
 from .sssp import _expand_frontier

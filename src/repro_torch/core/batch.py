@@ -12,8 +12,11 @@ from ..kernels.slab_update.ops import (apply_update, delete_edges,
                                        insert_edges, query_edges,
                                        query_shards, update_shards,
                                        update_views)
-from ..kernels.slab_update.ref import batch_valid, edge_buckets, probe
+from ..kernels.slab_update.ref import (batch_valid, delete_edges_ref,
+                                       edge_buckets, insert_edges_ref, probe,
+                                       query_edges_ref, sort_by_bucket)
 
 __all__ = ["apply_update", "delete_edges", "insert_edges", "query_edges",
            "query_shards", "update_shards", "update_views", "batch_valid",
-           "edge_buckets", "probe"]
+           "edge_buckets", "probe", "delete_edges_ref", "insert_edges_ref",
+           "query_edges_ref", "sort_by_bucket"]

@@ -654,8 +654,9 @@ def _local_slice_idx(V: int, n_shards: int, me: int,
 
 
 def _run_sharded_fix(sg: ShardedSlabGraph, dispatch: str,
-                     rows: Optional[int], fix_of: Callable):
-    """Run one analytics fixpoint.  ``fix_of(sweep, exchange,
+                     rows: Optional[int], fix_of: Callable, impl: str):
+    """Run one analytics fixpoint, each shard's sweep through
+    ``sweep_vertices(impl=impl)``.  ``fix_of(sweep, exchange,
     slice_local)`` returns ``(result (V,), iterations)``: ``sweep(values,
     frontier, semiring)`` is the per-shard sweep, stacked
     ``(n_shards, n_local)``; ``exchange`` lifts that to ``(V,)``;
@@ -674,7 +675,8 @@ def _run_sharded_fix(sg: ShardedSlabGraph, dispatch: str,
 
         def sweep_local(values, frontier, semiring):
             return sweep_vertices(g, values, semiring=semiring,
-                                  frontier=frontier, n_keys=V, rows=rows)
+                                  frontier=frontier, n_keys=V, impl=impl,
+                                  rows=rows)
 
         return fix_of(sweep_local,
                       lambda x: gather_interleaved(x, V, group),
@@ -692,7 +694,7 @@ def _run_sharded_fix(sg: ShardedSlabGraph, dispatch: str,
         return torch.stack([
             sweep_vertices(shard_view(sg.graphs, k), values,
                            semiring=semiring, frontier=frontier, n_keys=V,
-                           rows=rows)
+                           impl=impl, rows=rows)
             for k in range(S)])
 
     return fix_of(sweep, exchange, slice_local)
@@ -742,8 +744,9 @@ def _minfix(min_of, x0, changed0, max_iters):
 def pagerank_sharded(sg_in: ShardedSlabGraph, out_degree: torch.Tensor, *,
                      init_pr: Optional[torch.Tensor] = None,
                      damping: float = 0.85, error_margin: float = 1e-5,
-                     max_iter: int = 100, rows: Optional[int] = None,
-                     dispatch: str = "auto") -> Tuple[torch.Tensor, int]:
+                     max_iter: int = 100, impl: str = "auto",
+                     rows: Optional[int] = None, dispatch: str = "auto"
+                     ) -> Tuple[torch.Tensor, int]:
     """PageRank over the in-edge sharded graph; ``(vector, iterations)``.
 
     Per super-step each shard runs one ``sum`` sweep over its pool; the
@@ -759,13 +762,14 @@ def pagerank_sharded(sg_in: ShardedSlabGraph, out_degree: torch.Tensor, *,
                              out_degree, damping, error_margin, max_iter,
                              slice_local, exchange)
 
-    return _run_sharded_fix(sg_in, dispatch, rows, fix_of)
+    return _run_sharded_fix(sg_in, dispatch, rows, fix_of, impl)
 
 
 def wcc_sharded(sg_sym: ShardedSlabGraph, *,
                 init_labels: Optional[torch.Tensor] = None,
-                max_iters: int = 100000, rows: Optional[int] = None,
-                dispatch: str = "auto") -> Tuple[torch.Tensor, int]:
+                max_iters: int = 100000, impl: str = "auto",
+                rows: Optional[int] = None, dispatch: str = "auto"
+                ) -> Tuple[torch.Tensor, int]:
     """WCC by frontier-masked min-label sweeps over the symmetric sharded
     view; labels (the minimum id of each component) are bit-identical to
     ``wcc_labelprop_sweep`` on the unsharded union.  ``init_labels`` warm
@@ -780,13 +784,14 @@ def wcc_sharded(sg_sym: ShardedSlabGraph, *,
                        labels0, torch.ones(V, dtype=torch.bool, device=dev),
                        max_iters)
 
-    return _run_sharded_fix(sg_sym, dispatch, rows, fix_of)
+    return _run_sharded_fix(sg_sym, dispatch, rows, fix_of, impl)
 
 
 def bfs_sharded(sg_in: ShardedSlabGraph, *, src: int,
                 init_dist: Optional[torch.Tensor] = None,
-                max_iters: int = 100000, rows: Optional[int] = None,
-                dispatch: str = "auto") -> Tuple[torch.Tensor, int]:
+                max_iters: int = 100000, impl: str = "auto",
+                rows: Optional[int] = None, dispatch: str = "auto"
+                ) -> Tuple[torch.Tensor, int]:
     """Level-synchronous BFS over the in-edge sharded graph: one unit
     ``min_plus`` sweep a super-step, masked to the changed frontier.
     Integer levels (UNREACHED = 2**30), bit-identical to ``bfs_vanilla``
@@ -808,7 +813,7 @@ def bfs_sharded(sg_in: ShardedSlabGraph, *, src: int,
         return _minfix(lambda x, ch: exchange(sweep(x, ch, "min_plus")),
                        dist0, changed0, max_iters)
 
-    return _run_sharded_fix(sg_in, dispatch, rows, fix_of)
+    return _run_sharded_fix(sg_in, dispatch, rows, fix_of, impl)
 
 
 # ----------------------------------------------------------------------------
@@ -874,15 +879,26 @@ def _triangle_share_mesh(sg: ShardedSlabGraph, *, impl: str,
 
 
 def triangles_sharded(sg_sym: ShardedSlabGraph, *, impl: str = "auto",
-                      max_bpv: Optional[int] = None) -> torch.Tensor:
+                      max_bpv: Optional[int] = None,
+                      cap: Optional[int] = None) -> torch.Tensor:
     """Global triangle count over the symmetric sharded view, a 0-d int64
     tensor (the sum of 6T fits where the reference's int32 sum wraps).
     Equal to ``algorithms.triangles_static`` on the unsharded union.
     ``max_bpv`` defaults to the power of two at or above the largest
     bucket count over the shards.  On a mesh each rank counts its shard's
     share and the shares are summed in int64 over the ranks (the same
-    count on every rank)."""
+    count on every rank).  The per-shard edge buffers are sized from the
+    data; ``cap``, the reference's bound on a shard's compacted edge set,
+    is checked against the worst shard's live lanes and raises under it
+    (the count never truncates)."""
     graphs = sg_sym.graphs
+    if cap is not None:
+        live = torch.stack([pool_edges(shard_view(graphs, k)).valid.sum()
+                            for k in range(graphs.keys.shape[0])]).max()
+        live = int(max_across_shards(live, sg_sym.group))
+        if cap < live:
+            raise ValueError(f"cap={cap} is under the worst shard's {live} "
+                             "live lanes: the count would truncate")
     if max_bpv is None:
         max_bpv = next_pow2(int(max_across_shards(graphs.bucket_count.max(),
                                                   sg_sym.group)), lo=1)

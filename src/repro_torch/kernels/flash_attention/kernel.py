@@ -22,6 +22,7 @@ from typing import Dict, Tuple, Union
 import torch
 
 from .. import runtime
+from .chunked import NEG_INF
 from .schedule import bwd_work_list
 
 _P = ctypes.c_void_p

@@ -41,7 +41,7 @@ from ...core.slab_graph import (SlabGraph, next_pow2, shard_view,
                                 stack_graphs, write_back)
 from ...obs.instrument import timed_dispatch
 from .kernel import chain_rank, chain_rank_torch, slab_live, slab_live_torch
-from .ref import (assemble, compact_ref, live_lane_mask, perm_of,
+from .ref import (assemble, chain_order, compact_ref, live_lane_mask, perm_of,
                   rebuild_links, recount_degrees, slab_of_rank)
 
 IMPLS = ("auto", "cuda", "torch", "oracle")
@@ -57,6 +57,10 @@ class CompactionReport:
     new_capacity: int
     old_next_free: int
     new_next_free: int
+
+    @property
+    def freed_slabs(self) -> int:
+        return self.old_next_free - self.new_next_free
 
     @property
     def shrunk(self) -> bool:

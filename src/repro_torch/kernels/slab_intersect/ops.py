@@ -28,12 +28,12 @@ from __future__ import annotations
 import torch
 
 from ...core.device import IMPLS as _DEVICE_IMPLS, resolve_impl
-from ...core.hashing import INVALID_SLAB
+from ...core.hashing import INVALID_SLAB, is_valid_vertex
 from ...core.slab_graph import SlabGraph, shard_view
 from ...obs.instrument import timed_dispatch
-from ..slab_update.ref import edge_buckets
+from ..slab_update.ref import edge_buckets, probe
 from .kernel import probe_hits, slab_count
-from .ref import count_edges_ref
+from .ref import count_edges_ref, probe_hits_ref, search_edges_ref
 
 IMPLS = _DEVICE_IMPLS + ("oracle",)
 
@@ -135,14 +135,19 @@ def materialize_chains(g: SlabGraph, us: torch.Tensor, ws: torch.Tensor,
 
 
 def search_edges_kernel(g: SlabGraph, us: torch.Tensor, ws: torch.Tensor,
-                        mask: torch.Tensor, *, max_chain: int = 8
-                        ) -> torch.Tensor:
-    """Batched (u, w) membership through the ``probe_hits`` kernel over the
-    host-materialised chains (``max_chain`` must reach each chain's end)."""
+                        mask: torch.Tensor, *, max_chain: int = 8,
+                        impl: str = "auto") -> torch.Tensor:
+    """Batched (u, w) membership over the host-materialised chains
+    (``max_chain`` must reach each chain's end): the ``probe_hits`` kernel
+    on CUDA tensors, ``probe_hits_ref`` on CPU tensors (``impl`` as
+    ``core.device.resolve_impl`` takes it)."""
     rows = materialize_chains(g, us, ws, mask, max_chain=max_chain)
+    if resolve_impl(impl, g.keys) == "torch":
+        return probe_hits_ref(ws, rows, g.keys) & mask
     return probe_hits(ws, rows, g.keys) & mask
 
 
 __all__ = ["IMPLS", "count_edges", "count_edges_local", "count_shards",
            "adjacency_rows", "materialize_chains",
-           "search_edges_kernel"]
+           "search_edges_kernel", "probe_hits_ref", "count_edges_ref",
+           "search_edges_ref"]

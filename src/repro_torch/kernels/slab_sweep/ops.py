@@ -21,7 +21,7 @@ from ...core.device import resolve_impl
 from ...core.slab_graph import SlabGraph
 from ...obs.instrument import timed_dispatch
 from .kernel import slab_sweep
-from .ref import SEMIRINGS, INT32_MAX
+from .ref import SEMIRINGS, INT32_MAX, slab_sweep_ref
 
 
 def _slice_rows(g: SlabGraph, rows: Optional[int]) -> SlabGraph:
@@ -94,4 +94,5 @@ def sweep_vertices(g: SlabGraph, values: torch.Tensor, *, semiring: str,
                                include_self=True)[:n]
 
 
-__all__ = ["sweep_partials", "sweep_vertices", "slab_sweep", "SEMIRINGS"]
+__all__ = ["sweep_partials", "sweep_vertices", "slab_sweep",
+           "slab_sweep_ref", "SEMIRINGS"]

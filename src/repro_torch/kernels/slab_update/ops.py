@@ -35,13 +35,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...core.device import resolve_impl
+from ...core.device import IMPLS, resolve_impl
 from ...core.hashing import INVALID_SLAB, INVALID_VERTEX, SLAB_WIDTH, \
     TOMBSTONE_KEY
 from ...core.slab_graph import SlabGraph, shard_view, write_back
 from ...obs.instrument import timed_dispatch
 from .kernel import slab_commit, slab_probe
-from .ref import _INT32_MAX, _scatter_drop, batch_valid, edge_buckets
+from .ref import (_INT32_MAX, _scatter_drop, batch_valid, delete_edges_ref,
+                  edge_buckets, insert_edges_ref, probe, query_edges_ref)
 
 FORWARD = "forward"
 TRANSPOSE = "transpose"
@@ -329,7 +330,7 @@ def query_shards(graphs: SlabGraph, src: torch.Tensor, dst: torch.Tensor,
         for k in range(graphs.keys.shape[0])])
 
 
-__all__ = ["FORWARD", "TRANSPOSE", "SYMMETRIC", "query_edges",
+__all__ = ["IMPLS", "FORWARD", "TRANSPOSE", "SYMMETRIC", "query_edges",
            "insert_edges", "delete_edges", "apply_update", "update_views",
            "query_edges_local", "insert_edges_local", "delete_edges_local",
            "update_shards", "query_shards", "slab_probe", "slab_commit"]

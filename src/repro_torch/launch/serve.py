@@ -108,7 +108,7 @@ def build_requests(n_vertices, initial_edges, rng, *, n_requests: int,
             yield kind, MembershipQuery(src=q[:, 0], dst=q[:, 1])
 
 
-def describe(resp) -> str:
+def describe(resp, n_vertices: int) -> str:
     """One-line detail per response kind for the serve log."""
     p = resp.payload
     if resp.kind == "update":
@@ -122,7 +122,7 @@ def describe(resp) -> str:
         if p["name"].startswith("bfs"):
             return f"reachable={int((v < 2 ** 30).sum())}"
         if p["name"] == "wcc":
-            return f"components={int((v == np.arange(len(v))).sum())}"
+            return f"components={int((v == np.arange(n_vertices)).sum())}"
         return f"top={float(v.max()):.5f}"
     return ""
 
@@ -296,7 +296,7 @@ def serve(args: argparse.Namespace, *, log=print) -> dict:
         lat.setdefault(resp.kind, []).append(resp.latency_s)
         obs.observe(f"serve.latency.{resp.kind}", resp.latency_s)
         log(f"[serve] req {i:03d} {kind:13s} {1e3 * resp.latency_s:8.1f}"
-            f" ms  v{resp.version:<4d} {describe(resp)}"
+            f" ms  v{resp.version:<4d} {describe(resp, V)}"
             + "".join(f" {k}={n}" for k, n in launched.items()))
         if health is not None and (i + 1) % 10 == 0:
             r = health.report()

@@ -126,7 +126,7 @@ def main(argv=None) -> Dict:
                 max_steps=args.steps, ckpt_every=args.ckpt_every)
     losses = out["losses"]
     if losses:
-        print(f"[train] done: first-10 loss {np.mean(losses[:10]):.4f} -> "
+        print(f"[train] done: first-10 loss {np.mean(losses[:10]):.4f} → "
               f"last-10 loss {np.mean(losses[-10:]):.4f}")
     return out
 

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from .common import (apply_mlp, bessel_rbf, init_mlp, poly_cutoff,
                      segment_sum)
-from .irreps import cg_tensor, real_sph_harm
+from .irreps import cg_tensor, clebsch_gordan_real, real_sph_harm
 
 
 def allowed_paths(l_in_set: Sequence[int], l_f_max: int,

@@ -35,7 +35,7 @@ import dataclasses
 import functools
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -163,8 +163,11 @@ def _cuda_device(args) -> Optional[torch.device]:
     return None
 
 
-def timed_dispatch(family: str, op: Optional[str] = None):
-    """Decorator factory for kernel-family entry points (module doc)."""
+def timed_dispatch(family: str, op: Optional[str] = None,
+                   bytes_fn: Optional[Callable] = None):
+    """Decorator factory for kernel-family entry points (module doc).
+    ``bytes_fn(args, kwargs, out)``, when given, is a call's byte count in
+    place of the pools' leaf sum."""
 
     def deco(fn):
         op_name = op or fn.__name__
@@ -209,8 +212,11 @@ def timed_dispatch(family: str, op: Optional[str] = None):
                         end.synchronize()
                         dt_ns = int(1e6 * start.elapsed_time(end))
                 flight.record(fl_code, dt_ns)
-                _record(family, op_name, shape, dt_ns / 1e9,
-                        pool_bytes(args) + pool_bytes(out))
+                if bytes_fn is not None:
+                    nbytes = int(bytes_fn(args, kwargs, out))
+                else:
+                    nbytes = pool_bytes(args) + pool_bytes(out)
+                _record(family, op_name, shape, dt_ns / 1e9, nbytes)
             finally:
                 _tls.depth = 0
             return out

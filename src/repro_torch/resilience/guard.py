@@ -28,6 +28,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 
 from .. import obs
+from ..core.hashing import EMPTY_KEY, INVALID_VERTEX, TOMBSTONE_KEY
 from ..obs import flight as _flight
 from .faults import InjectedOOM
 
@@ -37,8 +38,10 @@ _FL_HALF = _flight.intern("breaker.half_open")
 _FL_SHED = _flight.intern("breaker.shed")
 _FL_BURN_TRIP = _flight.intern("breaker.burn_trip")
 
-#: dst ids the update plane reserves (uint32 key sentinels)
-_SENTINELS = (0xFFFFFFFD, 0xFFFFFFFE, 0xFFFFFFFF)
+#: dst ids the update plane reserves: TOMBSTONE_KEY, EMPTY_KEY and
+#: INVALID_VERTEX read as the uint32 ids a host batch carries
+_SENTINELS = tuple(int(k) & 0xFFFFFFFF
+                   for k in (TOMBSTONE_KEY, EMPTY_KEY, INVALID_VERTEX))
 
 
 class QuarantinedBatch(Exception):

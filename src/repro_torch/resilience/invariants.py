@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.hashing import is_valid_vertex
+from ..core.hashing import TOMBSTONE_KEY, is_valid_vertex
 
 
 @dataclasses.dataclass(frozen=True)

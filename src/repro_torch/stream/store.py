@@ -283,6 +283,10 @@ class VersionedStoreBase:
         return batch
 
     # ----------------------------------------------------- maintenance plane
+    def pool_stats(self, view: str = "forward") -> dict:
+        """Pool-health snapshot of one view; each store kind answers."""
+        raise NotImplementedError
+
     def _maintain_views(self, action: str, policy, *, shrink: bool):
         """Apply one maintenance action to every view; ``(reports,
         reclaimed)`` keyed by view name."""
@@ -465,6 +469,20 @@ class GraphStore(VersionedStoreBase):
     def out_degree(self) -> torch.Tensor:
         """Out-degrees on the device: the forward view's ``degree``."""
         return self.forward.degree
+
+    @property
+    def in_degree(self) -> torch.Tensor:
+        """In-degrees on the device: the transpose view's ``degree``."""
+        if self.transpose is None:
+            raise ValueError("in-degrees live on the transpose view; build "
+                             "the store with with_transpose=True")
+        return self.transpose.degree
+
+    @property
+    def max_bpv(self) -> int:
+        """The most buckets any vertex of the forward view had at build:
+        the bound ``neighbors`` walks each vertex's buckets to."""
+        return self._max_bpv
 
     # ----------------------------------------------------------------- apply
     def apply(self, ins_src=None, ins_dst=None, ins_w=None,

@@ -211,3 +211,26 @@ def test_bfs_vanilla_matches(hashing):
         levels.append(got)
     assert torch.equal(levels[0], levels[1])
     assert int((levels[0] < ta.UNREACHED).sum()) > V // 2
+
+
+@pytest.mark.parametrize("sweep", [True, False])
+def test_run_to_convergence_takes_improved0(sweep):
+    """The frontier is the reference's keyword ``improved0``: the same
+    tree and iterations from a seeded source."""
+    from repro.algorithms import sssp as jsssp
+    from repro_torch.algorithms import sssp as tsssp
+    rng, src, dst, fwd, tr = _graphs(7, True)
+    tf, tt = to_port(fwd), to_port(tr)
+    V = fwd.n_vertices
+    j0, t0 = jsssp.init_state(V, 5), tsssp.init_state(V, 5, "cpu")
+    jimp = jnp.zeros((V,), bool).at[5].set(True)
+    timp = torch.zeros(V, dtype=torch.bool)
+    timp[5] = True
+    js, jit = jsssp.run_to_convergence(fwd, j0, improved0=jimp,
+                                       edge_capacity=CAP,
+                                       g_in=tr if sweep else None)
+    ts, tit = tsssp.run_to_convergence(tf, t0, improved0=timp,
+                                       edge_capacity=CAP,
+                                       g_in=tt if sweep else None)
+    _same_tree(ts, js)
+    assert tit == int(jit) > 1

@@ -946,6 +946,36 @@ def test_flash_attention_matches_plain(cuda, case):
         assert not got.any()
 
 
+@pytest.mark.parametrize("D", [16, 32])
+def test_flash_attention_narrow_head_matches_plain(cuda, D):
+    """A head narrower than the kernels' HEAD_DIMS (the smoke configs' 16
+    and 32: ``examples/torch_train_lm.py`` on the card) runs zero-padded to
+    64 through kernel 10 and its backward, against ``attention_ref`` and
+    its autograd in float32, gemma2's window and softcap."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda) for s in
+                   ((2, 4, 64, D), (2, 2, 64, D), (2, 2, 64, D),
+                    (2, 4, 64, D)))
+    kw = dict(causal=True, window=8, softcap=50.0)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(runtime.LAUNCHES)
+    got = flash_attention(*ts, **kw)
+    grads = torch.autograd.grad(got, ts, do)
+    assert runtime.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert runtime.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = attention_ref(*refs, **kw)
+    want_grads = torch.autograd.grad(want, refs, do)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    for a, b in zip(grads, want_grads):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
 #: (B, L, D, dtype, table): D of every path (16-byte loads with a row of
 #: 1, 2, 16 or 32+ lanes; scalar loads where the vector does not divide D);
 #: L of one slot, one and two 32-slot ballots, a 64-slot stage and four;

@@ -13,7 +13,9 @@ the chunked attention) train a smoke LM two steps through the loop, with a
 checkpoint, and take a MIND train step; and the GNN family
 (``models/gnn/*``, its configs, the sampler, kernel 4's op surface) takes
 one smoke train step per batch style, geometric (NequIP) and feature
-(PNA), with a batch from the sampler over a live graph's CSR snapshot."""
+(PNA), with a batch from the sampler over a live graph's CSR snapshot;
+and the four ``examples/torch_*.py`` import there, and the quickstart
+runs on the CPU."""
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +35,16 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+import contextlib, importlib.util, io, pathlib
+examples = {}
+for ex in ("torch_quickstart", "torch_streaming_analytics",
+           "torch_gnn_molecules", "torch_train_lm"):
+    spec = importlib.util.spec_from_file_location(
+        ex, pathlib.Path(sys.argv[2]) / "examples" / f"{ex}.py")
+    examples[ex] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(examples[ex])
+with contextlib.redirect_stdout(io.StringIO()):
+    assert examples["torch_quickstart"].main(device="cpu")["deleted"] > 0
 
 import os, tempfile
 import numpy as np

@@ -64,6 +64,35 @@ def test_compile_vs_steady_accounting():
     assert obs.get_registry().counters()["kernel.fam.op.calls"] == 4
 
 
+def test_bytes_fn_lands_in_the_summary_as_the_reference():
+    """A caller's ``bytes_fn(args, kwargs, out)`` replaces the leaf sum in
+    ``kernel_stats`` and ``kernel_summary``, as in the reference."""
+    import jax.numpy as jnp
+
+    def nbytes(args, kwargs, out):
+        return 7 * int(args[0].shape[0]) + kwargs.get("extra", 0)
+
+    @obs.timed_dispatch("fam", "op", bytes_fn=nbytes)
+    def op(x, extra=0):
+        return x + 1
+
+    @jobs.timed_dispatch("fam", "op", bytes_fn=nbytes)
+    def jop(x, extra=0):
+        return x + 1
+
+    obs.metrics.enable()
+    jobs.metrics.enable()
+    for i in range(3):
+        op(torch.zeros(5), extra=i)
+        jop(jnp.zeros(5), extra=i)
+    got = obs.kernel_summary()["fam.op[5]"]
+    want = jobs.kernel_summary()["fam.op[5]"]
+    assert got["bytes"] == want["bytes"] == 2 * 35 + 1 + 2
+    assert got["calls"] == want["calls"] == 3
+    assert obs.get_registry().counters()["kernel.fam.op.bytes"] == \
+        jobs.get_registry().counters()["kernel.fam.op.bytes"]
+
+
 def test_disabled_is_pass_through():
     @obs.timed_dispatch("fam")
     def op(x):

@@ -187,6 +187,59 @@ def test_maintained_serve_loop_matches_reference(policy):
     assert ts.maintenance_count == cycles // 2
 
 
+def test_describe_and_store_accessors_match_reference():
+    """``describe(resp, n_vertices)`` prints the reference's line for each
+    response kind; ``GraphStore.in_degree`` and ``max_bpv`` equal the
+    reference's bit for bit (and ``in_degree`` raises its error without a
+    transpose); ``VersionedStoreBase.pool_stats`` is the protocol's
+    hook in both."""
+    V = 200
+    src, dst = rmat_edges(V, 1500, seed=3)
+    # a hub of 190 out-edges: more than one bucket when hashed
+    src = np.concatenate([src, np.full(190, 7, np.uint32)])
+    dst = np.concatenate([dst, np.arange(10, 200, dtype=np.uint32)])
+    src, dst, _ = jstream.dedup_pairs(src, dst)
+    js = jstream.GraphStore.from_edges(V, src, dst, hashing=True,
+                                       slack_slabs=256)
+    ts = tstream.GraphStore.from_edges(V, src, dst, hashing=True,
+                                       slack_slabs=256, device="cpu")
+    assert ts.max_bpv == js.max_bpv > 1
+    assert np.array_equal(np_of(ts.in_degree), np_of(js.in_degree))
+    for mod in (jstream, tstream):
+        lone = mod.GraphStore.from_edges(V, src, dst, with_transpose=False,
+                                         **({"device": "cpu"}
+                                            if mod is tstream else {}))
+        with pytest.raises(ValueError, match="with_transpose=True"):
+            lone.in_degree
+        with pytest.raises(NotImplementedError):
+            mod.store.VersionedStoreBase().pool_stats()
+
+    jreg, treg = jstream.PropertyRegistry(js), tstream.PropertyRegistry(ts)
+    jreg.register(jax_pr_prop(contrib_impl="sweep"))
+    jreg.register(jax_bfs_prop(0, edge_capacity=4096))
+    jreg.register(jax_wcc_prop())
+    treg.register(pagerank_stream_property())
+    treg.register(bfs_stream_property(0, edge_capacity=4096))
+    treg.register(wcc_stream_property())
+    props = ["pagerank", "bfs_0", "wcc"]
+    jresps = jstream.RequestPipeline(js, jreg).run(
+        [r for _, r in _requests(jax_serve, V, (src, dst), 5, 10, 64,
+                                 props=props)])
+    tresps = tstream.RequestPipeline(ts, treg).run(
+        [r for _, r in _requests(torch_serve, V, (src, dst), 5, 10, 64,
+                                 props=props)])
+    kinds = set()
+    for tr, jr in zip(tresps, jresps):
+        got, want = torch_serve.describe(tr, V), jax_serve.describe(jr, V)
+        kinds.add(want.split("=")[0])
+        if want.startswith("top="):
+            assert abs(float(got[4:]) - float(want[4:])) <= PR_ATOL
+        else:
+            assert got == want
+    assert kinds == {"inserted", "hits", "top", "reachable", "components"}
+    assert np.array_equal(np_of(ts.in_degree), np_of(js.in_degree))
+
+
 def test_serve_main_on_cpu_and_cuda_guard():
     out = torch_serve.main(["--device", "cpu", "--vertices", "128",
                             "--initial-edges", "600", "--requests", "8",

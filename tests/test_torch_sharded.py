@@ -350,6 +350,68 @@ def test_analytics_equal_reference(driven):
                                rtol=0)
 
 
+def test_analytics_impl_equal_reference(driven):
+    """``impl`` reaches each shard's sweep: the plain sweep ("torch")
+    against the reference's ``impl="ref"``; "cuda" on CPU tensors
+    raises."""
+    ts, js = driven["ts"], driven["js"]
+    if ts.weighted:
+        pytest.skip("BFS levels need an unweighted store")
+    t_lab, t_it = tsg.wcc_sharded(ts.symmetric, impl="torch")
+    j_lab, j_it = jsg.wcc_sharded(js.symmetric, impl="ref")
+    assert np.array_equal(np_of(t_lab), np_of(j_lab)) and t_it == int(j_it)
+    t_d, t_it = tsg.bfs_sharded(ts.transpose, src=3, impl="torch")
+    j_d, j_it = jsg.bfs_sharded(js.transpose, src=3, impl="ref")
+    assert np.array_equal(np_of(t_d), np_of(j_d)) and t_it == int(j_it)
+    t_pr, t_it = tsg.pagerank_sharded(ts.transpose, ts.out_degree,
+                                      impl="torch")
+    j_pr, j_it = jsg.pagerank_sharded(js.transpose, js.out_degree,
+                                      impl="ref")
+    np.testing.assert_allclose(np_of(t_pr), np_of(j_pr), atol=PR_ATOL,
+                               rtol=0)
+    assert t_it == int(j_it)
+    for run in (lambda: tsg.wcc_sharded(ts.symmetric, impl="cuda"),
+                lambda: tsg.bfs_sharded(ts.transpose, src=0, impl="cuda"),
+                lambda: tsg.pagerank_sharded(ts.transpose, ts.out_degree,
+                                             impl="cuda")):
+        with pytest.raises(ValueError, match="does not match"):
+            run()
+
+
+def test_triangles_cap_checked_never_truncates(driven):
+    """The reference's ``cap`` bounds a shard's compacted edge set; the
+    port sizes its buffers from the data, counts the same at or above the
+    worst shard's live lanes, and raises under it."""
+    ts, js = driven["ts"], driven["js"]
+    live = max(int(tsg.pool_edges(tsg.shard_view(ts.symmetric.graphs, k))
+                   .valid.sum()) for k in range(S))
+    want = int(jsg.triangles_sharded(js.symmetric))
+    assert int(tsg.triangles_sharded(ts.symmetric, cap=live)) == want
+    assert int(jsg.triangles_sharded(js.symmetric, cap=live)) == want
+    with pytest.raises(ValueError, match="truncate"):
+        tsg.triangles_sharded(ts.symmetric, cap=live - 1)
+
+
+def test_triangles_sharded_total_is_int64(driven, monkeypatch):
+    """Each of the S x S Count() calls stubbed to 2**30: the shares sum
+    past 2**31 without wrapping, where the reference's int32 sum would (a
+    served RMAT scale-20 graph's 6T is 2,533,482,588)."""
+    ts = driven["ts"]
+    calls = []
+
+    def stub(g1, g2, us, vs, emask, **kw):
+        calls.append(int(emask.sum()))
+        return torch.tensor(2 ** 30, dtype=torch.int64)
+
+    monkeypatch.setattr(tsg, "count_edges_local", stub)
+    got = tsg.triangles_sharded(ts.symmetric)
+    live = sum(int(tsg.pool_edges(tsg.shard_view(ts.symmetric.graphs, k))
+                   .valid.sum()) for k in range(S))
+    assert len(calls) == S * S and sum(calls) == live
+    assert got.dtype == torch.int64
+    assert int(got) == (S * S * 2 ** 30) // 6
+
+
 def test_triangles_and_count_shards_equal(driven):
     ts, js = driven["ts"], driven["js"]
     if ts.weighted:

@@ -130,6 +130,18 @@ def test_compact_matches_reference(impl, hashing, weighted):
     assert pool_stats(gt)["tombstone_lanes"] == 0
 
 
+@pytest.mark.parametrize("kw", [dict(shrink=True), dict(shrink=False)],
+                         ids=["shrink", "keep"])
+def test_freed_slabs_equal_reference(kw):
+    """``CompactionReport.freed_slabs`` (old minus new ``next_free``) bit
+    for bit, on a pool whose deletes leave slabs to free."""
+    g = dead_slab_graph(np.random.default_rng(24))
+    _, rep_j = jax_compact(g, **kw)
+    _, rep_t = compact(to_port(g), **kw)
+    assert rep_t.freed_slabs == rep_j.freed_slabs > 0
+    assert rep_t.freed_slabs == rep_t.old_next_free - rep_t.new_next_free
+
+
 @pytest.mark.parametrize("kw", [dict(shrink=True), dict(shrink=False),
                                 dict(capacity_slabs=700)],
                          ids=["shrink", "keep", "pinned"])

@@ -237,3 +237,18 @@ def test_search_edges_kernel_matches(hashed):
         want, "port kernel path")
     assert_vectors_equal(tsi.search_edges_ref(gt, ids(qs), ids(qd), tm),
                          want, "oracle")
+
+
+def test_search_edges_kernel_impl_matches_reference(hashed):
+    """``impl="torch"`` (``probe_hits_ref``) against the reference's
+    ``impl="ref"``; ``"cuda"`` on CPU tensors raises."""
+    gj, gt, qs, qd, mask = hashed
+    jm, tm = jnp.asarray(mask), torch.from_numpy(mask)
+    want = jsi.search_edges_kernel(gj, jnp.asarray(qs), jnp.asarray(qd), jm,
+                                   max_chain=8, impl="ref")
+    assert int(np.asarray(want).sum()) > 0
+    assert_vectors_equal(
+        tsi.search_edges_kernel(gt, ids(qs), ids(qd), tm, max_chain=8,
+                                impl="torch"), want, "impl=torch")
+    with pytest.raises(ValueError, match="does not match"):
+        tsi.search_edges_kernel(gt, ids(qs), ids(qd), tm, impl="cuda")
